@@ -1,0 +1,109 @@
+"""The port's package boundary: `uptune_tpu_torch` imports neither JAX nor
+the JAX package, its entry points refuse to carry on quietly without a
+card, and `chip_smoke.py` fails (printing no `ok` line) where it cannot
+run the card."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "uptune_tpu_torch"
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    return env
+
+
+def test_import_pulls_in_no_jax():
+    """Importing every module of the port, in a fresh interpreter (this
+    one already has JAX loaded), leaves jax and uptune_tpu unimported."""
+    code = (
+        "import pkgutil, sys, importlib, uptune_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'uptune_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax'\n"
+        "             or n.startswith(('jax.', 'jaxlib'))\n"
+        "             or n == 'uptune_tpu' or n.startswith('uptune_tpu.'))\n"
+        "print(len([n for n in sys.modules\n"
+        "           if n.startswith('uptune_tpu_torch')]), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert int(out.stdout.split()[0]) >= 20, out.stdout
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("root", ["uptune_tpu_torch", "chip_smoke.py"])
+def test_no_jax_import_in_the_source(root):
+    """A static scan: no `import jax`, and no module of the JAX package,
+    anywhere under the port or in chip_smoke.py."""
+    files = ([REPO / root] if root.endswith(".py")
+             else sorted((REPO / root).rglob("*.py")))
+    assert files
+    for f in files:
+        for name in _imports(f):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "uptune_tpu"), (f, name)
+
+
+def test_fused_engine_needs_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    from uptune_tpu_torch.engine import FusedEngine
+    from uptune_tpu_torch.workloads import rosenbrock_device, rosenbrock_space
+    space = rosenbrock_space(2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FusedEngine(space, lambda v, p: rosenbrock_device(v))
+    eng = FusedEngine(space, lambda v, p: rosenbrock_device(v), device="cpu")
+    assert eng.device == torch.device("cpu")
+
+
+def test_the_kernel_sources_ship_with_the_package():
+    from uptune_tpu_torch import native
+    ks = native.KERNELS
+    assert [k.name for k in ks] == ["merge_rows"]
+    for k in ks:
+        assert k.source.is_file() and k.source.parent == PKG / "csrc"
+        src = k.source.read_text()
+        assert f'extern "C" int {k.symbol}(' in src
+        path, line = k.replaces.split(":")
+        assert (REPO / path).is_file()
+        assert "_merge_kernel" in (REPO / path).read_text().splitlines()[
+            int(line) - 1]
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card(alone, tmp_path):
+    """In the checkout, and copied into a directory that holds nothing else
+    of the repo, the script exits non-zero and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    script = REPO / "chip_smoke.py"
+    cwd = REPO
+    if alone:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,89 @@
+"""A JAX-package engine state, as numpy arrays -> the port's EngineState.
+
+`from_jax_state(space, arrays)` takes the JAX `EngineState` with every
+leaf already turned into a numpy array (for example
+`jax.tree_util.tree_map(np.asarray, state)`), read by field name, and
+builds the port's state on `device`: the per-arm technique states, the
+`Best`, the `HistState` (uint32 hashes as int64) and the counters.  The
+JAX PRNG keys do not carry over (the engine's and NelderMead's restart
+key); the port's generator is seeded from `seed` instead.  The parity
+tests use it to start both packages from one state.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from . import rng
+from .device import DeviceLike, resolve_device
+from .driver.history import HistState
+from .engine.fused import EngineState
+from .space.spec import CandBatch, Space
+from .techniques.base import Best
+from .techniques.de import DEState
+from .techniques.simplex import SimplexState
+
+
+def _t(a: Any, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    arr = np.array(a)               # a writable copy, 0-dim kept
+    if arr.dtype == np.uint32:
+        arr = arr.astype(np.int64)  # a u32 held in int64 keeps its order
+    return torch.from_numpy(arr).to(device=device, dtype=dtype)
+
+
+def from_jax_cands(c: Any, device: torch.device) -> CandBatch:
+    return CandBatch(_t(c.u, torch.float32, device),
+                     tuple(_t(p, torch.int64, device) for p in c.perms))
+
+
+def from_jax_best(b: Any, device: torch.device) -> Best:
+    return Best(_t(b.u, torch.float32, device),
+                tuple(_t(p, torch.int64, device) for p in b.perms),
+                _t(b.qor, torch.float32, device))
+
+
+def from_jax_hist(h: Any, device: torch.device) -> HistState:
+    i32 = torch.int32
+    return HistState(_t(h.h0, torch.int64, device),
+                     _t(h.h1, torch.int64, device),
+                     _t(h.qor, torch.float32, device), _t(h.n, i32, device),
+                     _t(h.age, i32, device), _t(h.step, i32, device),
+                     _t(h.dropped, i32, device))
+
+
+def from_jax_tstate(ts: Any, device: torch.device):
+    """One arm's state: DEState, SimplexState (its key dropped), or the
+    empty tuple of the stateless arms."""
+    if hasattr(ts, "pop"):
+        return DEState(from_jax_cands(ts.pop, device),
+                       _t(ts.qor, torch.float32, device),
+                       _t(ts.bootstrapped, torch.bool, device))
+    if hasattr(ts, "pts_u"):
+        return SimplexState(_t(ts.pts_u, torch.float32, device),
+                            _t(ts.vals, torch.float32, device),
+                            tuple(_t(p, torch.int64, device)
+                                  for p in ts.perms),
+                            _t(ts.phase, torch.int32, device),
+                            _t(ts.stale, torch.int32, device))
+    if isinstance(ts, tuple) and not ts:
+        return ()
+    raise TypeError(f"no port of technique state {type(ts).__name__}")
+
+
+def from_jax_state(space: Space, arrays: Any, seed: int = 0,
+                   device: DeviceLike = "cuda") -> EngineState:
+    """The JAX EngineState (numpy leaves) -> the port's EngineState."""
+    device = resolve_device(device)
+    best = from_jax_best(arrays.best, device)
+    if best.u.shape != (space.n_scalar,):
+        raise ValueError(f"best.u has shape {tuple(best.u.shape)}, the "
+                         f"space has {space.n_scalar} scalar lanes")
+    i32 = torch.int32
+    return EngineState(
+        tuple(from_jax_tstate(ts, device) for ts in arrays.tstates),
+        best, from_jax_hist(arrays.hist, device),
+        rng.generator(seed, device), _t(arrays.evals, i32, device),
+        _t(arrays.acqs, i32, device), _t(arrays.arm_pulls, i32, device),
+        _t(arrays.arm_hits, i32, device))

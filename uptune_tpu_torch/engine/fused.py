@@ -1,0 +1,203 @@
+"""The fused tuning engine: propose -> dedup -> evaluate -> observe -> best.
+
+Counterpart of `uptune_tpu/engine/fused.py`.  The JAX package runs the
+whole step as one jitted XLA program under `lax.scan`; here a step is
+eager PyTorch on one device, and `run` is a Python loop.  One step:
+
+1. every arm proposes its natural batch and the batches concatenate;
+2. the batch is hashed (`Space.hash_batch`);
+3. the hashes are checked against the device-resident history and
+   deduplicated within the batch;
+4. the candidates are evaluated by the device objective;
+5. the novel rows are merged into the history — on the card through the
+   hand-written merge kernel (`ops/dedup.py`, `csrc/merge.cu`), once per
+   commit;
+6. the best folds in and each arm observes its slice.
+
+Randomness: one `torch.Generator` on the engine's device, seeded from an
+integer in `init`, lives in `EngineState.gen` and advances in place (it
+takes the place of the JAX state's key).  `propose` and `commit` take
+optional pre-made draws (`draw_propose` / `draw_observe` make them from
+the generator) so a test can feed the numbers JAX drew.  State tensors
+are never updated in place: each step returns new ones.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from .. import rng
+from ..device import DeviceLike, resolve_device
+from ..driver.history import History, HistState, dup_source
+from ..space.spec import CandBatch, Space, concat_cands
+from ..techniques.base import Best, Technique, get_technique
+
+# objective over decoded values: (vals [B, D] f32, perms tuple [B, s_k])
+# -> [B], on the engine's device
+DeviceObjective = Callable[[torch.Tensor, Tuple[torch.Tensor, ...]],
+                           torch.Tensor]
+
+
+class EngineState(NamedTuple):
+    tstates: Tuple              # per-arm technique states
+    best: Best
+    hist: HistState
+    gen: torch.Generator        # advances in place (the JAX state's key)
+    evals: torch.Tensor         # scalar i32: novel evaluations so far
+    acqs: torch.Tensor          # scalar i32: total candidates processed
+    arm_pulls: torch.Tensor     # [n_arms] i32
+    arm_hits: torch.Tensor      # [n_arms] i32: steps where arm held new best
+
+
+def default_arms(scale: int = 1) -> List[Technique]:
+    """The AUCBanditMetaTechniqueA portfolio members, populations scaled
+    by `scale`."""
+    from ..techniques.de import DifferentialEvolution
+    from ..techniques.evolutionary import GreedyMutation
+    from ..techniques.simplex import NelderMead
+
+    return [
+        DifferentialEvolution(population_size=30 * scale, cr=0.2,
+                              name="DifferentialEvolutionAlt"),
+        GreedyMutation(batch=32 * scale, name="UniformGreedyMutation"),
+        GreedyMutation(batch=32 * scale, sigma=0.1, mutation_rate=0.3,
+                       name="NormalGreedyMutation"),
+        NelderMead(init_style="random", name="RandomNelderMead"),
+    ]
+
+
+class FusedEngine:
+    """space + arms + device objective -> (init, propose, commit, step,
+    run) on one device (default ``"cuda"``)."""
+
+    def __init__(self, space: Space, objective: DeviceObjective,
+                 arms: Optional[Sequence[Technique]] = None,
+                 history_capacity: int = 1 << 15, dedup: bool = True,
+                 sense: str = "min", device: DeviceLike = "cuda"):
+        if sense not in ("min", "max"):
+            raise ValueError(f"sense must be 'min' or 'max', got {sense!r}")
+        self.device = resolve_device(device)
+        self.space = space
+        self.sign = 1.0 if sense == "min" else -1.0
+        self.objective = objective
+        if arms is None:
+            arms = default_arms()
+        elif arms and isinstance(arms[0], str):
+            arms = [get_technique(n) for n in arms]
+        self.arms: List[Technique] = [t for t in arms if t.supports(space)]
+        if not self.arms:
+            raise ValueError("no arm supports this space")
+        self.batches = [t.natural_batch(space) for t in self.arms]
+        self.total_batch = sum(self.batches)
+        self.history = History(history_capacity, device=self.device)
+        self.dedup = dedup
+
+    # ------------------------------------------------------------------
+    def init(self, seed: int = 0) -> EngineState:
+        gen = rng.generator(seed, self.device)
+        space = self.space
+        tstates = tuple(t.init_state(space, t.draw_init(space, gen))
+                        for t in self.arms)
+        i32 = dict(dtype=torch.int32, device=self.device)
+        n = len(self.arms)
+        return EngineState(
+            tstates, Best.empty(space, self.device), self.history.init(),
+            gen, torch.zeros((), **i32), torch.zeros((), **i32),
+            torch.zeros((n,), **i32), torch.zeros((n,), **i32))
+
+    # ------------------------------------------------------------------
+    def draw_propose(self, gen: torch.Generator) -> tuple:
+        return tuple(t.draw_propose(self.space, gen) for t in self.arms)
+
+    def draw_observe(self, gen: torch.Generator) -> tuple:
+        return tuple(t.draw_observe(self.space, gen) for t in self.arms)
+
+    def propose(self, state: EngineState, draws: Optional[tuple] = None
+                ) -> Tuple[tuple, CandBatch]:
+        """The proposal half of a step: every arm emits its batch, the
+        batches concatenate.  Returns `(new_tstates, cands)` for
+        `commit()`.  `draws` (per arm) default to fresh ones from the
+        state's generator."""
+        if draws is None:
+            draws = self.draw_propose(state.gen)
+        new_tstates, cands_list = [], []
+        for t, st, d in zip(self.arms, state.tstates, draws):
+            st2, c = t.propose(self.space, st, state.best, d)
+            new_tstates.append(st2)
+            cands_list.append(c)
+        cands = (concat_cands(cands_list) if len(cands_list) > 1
+                 else cands_list[0])
+        return tuple(new_tstates), cands
+
+    def evaluate(self, cands: CandBatch) -> torch.Tensor:
+        """The raw (un-oriented) objective on decoded values."""
+        return self.objective(self.space.decode_scalars(cands.u),
+                              cands.perms)
+
+    def step(self, state: EngineState) -> EngineState:
+        """One fused step: propose, evaluate, commit."""
+        new_tstates, cands = self.propose(state)
+        return self.commit(state, new_tstates, cands, self.evaluate(cands))
+
+    # ------------------------------------------------------------------
+    def commit(self, state: EngineState, new_tstates, cands: CandBatch,
+               raw: torch.Tensor,
+               draws: Optional[tuple] = None) -> EngineState:
+        """The commit half of a step: orient and clean the measured QoR,
+        dedup against the history and merge the novel rows into it, fold
+        the batch into the best, attribute per-arm credit and run every
+        arm's observe.  `raw` is the un-oriented objective for `cands`;
+        `draws` (per arm, for observe) default to fresh ones."""
+        B = cands.batch
+        dev = self.device
+        qor = self.sign * raw
+        qor = torch.where(torch.isfinite(qor), qor,
+                          float("inf")).to(torch.float32)
+
+        if self.dedup:
+            hashes = self.space.hash_batch(cands)
+            found, _ = self.history.contains(state.hist, hashes)
+            src = dup_source(hashes)
+            novel = (src == torch.arange(B, device=dev)) & ~found
+            hist = self.history.insert(state.hist, hashes, qor, novel)
+            n_new = novel.sum().to(torch.int32)
+        else:
+            hist = state.hist
+            n_new = torch.tensor(B, dtype=torch.int32, device=dev)
+
+        if draws is None:
+            draws = self.draw_observe(state.gen)
+        prev_best = state.best.qor
+        best = state.best.update(cands, qor)
+        step_min = torch.min(qor)
+        hits, tstates_out = [], []
+        off = 0
+        for t, st2, b, d in zip(self.arms, new_tstates, self.batches, draws):
+            sl = slice(off, off + b)
+            cq = qor[sl]
+            arm_best = torch.min(cq)
+            hits.append((arm_best < prev_best) & (arm_best <= step_min))
+            tstates_out.append(
+                t.observe(self.space, st2, cands[sl], cq, best, d))
+            off += b
+
+        return EngineState(
+            tuple(tstates_out), best, hist, state.gen,
+            state.evals + n_new, state.acqs + B,
+            state.arm_pulls + 1,
+            state.arm_hits + torch.stack(hits).to(torch.int32))
+
+    # ------------------------------------------------------------------
+    def run(self, state: EngineState, n_steps: int) -> EngineState:
+        """n_steps fused steps (a Python loop; the JAX package scans)."""
+        for _ in range(n_steps):
+            state = self.step(state)
+        return state
+
+    def best_config(self, state: EngineState):
+        return self.space.to_configs(state.best.as_batch(1))[0]
+
+    def best_qor(self, state: EngineState) -> float:
+        # a host read: the reporting boundary, never inside a step
+        return float(self.sign * state.best.qor)

@@ -1,0 +1,57 @@
+"""The flagship workload: a mixed space and a rosenbrock + tsp objective.
+
+The port's counterpart of `__graft_entry__._flagship`: 8 floats, an int,
+a log-int, a pow2, a bool, an enum and a 12-city permutation (every codec
+kind), scored by rosenbrock on the floats plus the closed-tour length of
+the permutation over a fixed random TSP instance.  The default arms are
+scaled by `scale`, and a PureRandom arm pads the step to a multiple of 8
+rows: 111 + 1 rows at scale 1, 6033 + 7 = 6040 rows at scale 64.
+"""
+from __future__ import annotations
+
+import torch
+
+from .device import DeviceLike, resolve_device
+from .engine.fused import FusedEngine, default_arms
+from .space.params import (BoolParam, EnumParam, FloatParam, IntParam,
+                           LogIntParam, PermParam, Pow2Param)
+from .space.spec import Space
+from .techniques.purerandom import PureRandom
+from .workloads.synthetic import (random_tsp_distances, rosenbrock_device,
+                                  tsp_device)
+
+N_CITIES = 12
+TSP_SEED = 7
+
+
+def flagship_space() -> Space:
+    return Space(
+        [FloatParam(f"x{i}", -5.0, 5.0) for i in range(8)]
+        + [IntParam("i0", 0, 64), LogIntParam("li0", 1, 4096),
+           Pow2Param("p0", 1, 256), BoolParam("b0"),
+           EnumParam("e0", ("a", "b", "c", "d")),
+           PermParam("tour", tuple(range(N_CITIES)))])
+
+
+def flagship_objective(device: torch.device):
+    """(vals, perms) -> rosenbrock(vals[..., :8]) + tour length."""
+    dist = torch.as_tensor(random_tsp_distances(N_CITIES, TSP_SEED),
+                           dtype=torch.float32).to(device)
+
+    def objective(vals, perms):
+        return rosenbrock_device(vals[..., :8]) + tsp_device(perms[0], dist)
+    return objective
+
+
+def flagship(scale: int = 1, history_capacity: int = 1 << 15,
+             device: DeviceLike = "cuda") -> FusedEngine:
+    """The flagship FusedEngine on `device`."""
+    device = resolve_device(device)
+    space = flagship_space()
+    arms = default_arms(scale)
+    total = sum(t.natural_batch(space) for t in arms)
+    pad = (-total) % 8
+    if pad:
+        arms.append(PureRandom(batch=pad))
+    return FusedEngine(space, flagship_objective(device), arms=arms,
+                       history_capacity=history_capacity, device=device)
