@@ -7,34 +7,56 @@ toolkit:
     python3 chip_smoke.py              # the full check (one card)
     python3 chip_smoke.py --profile    # also a torch.profiler window
 
-It imports nothing of JAX or of the JAX package.  Phases, each printing
-one JSON line:
+It imports nothing of JAX or of the JAX package.  TF32 is switched off
+for matrix products (the GP's distances and Cholesky are f32) and the
+setting is printed.  Phases, each printing one JSON line:
 
 1. device  - the card (nvidia-smi name and power limit), torch and CUDA;
-2. build   - every kernel of the port, built with nvcc from csrc/;
+2. build   - every kernel of the port, built with nvcc from csrc/ (one
+             nvcc per source, started together), with ptxas's registers,
+             spills and shared memory for every kernel function;
 3. merge   - the merge kernel against its plain version on the card, at
              cap 2^15 / b 6040 (half-full and full history) and cap 2048 /
              b 2048, all four columns bitwise; kernel, plain and library
              times (CUDA events, median of 50 runs after warm-up);
-4. engine  - the flagship at scale 64 (6040 rows a step, a 2^15-row
+4. surrogate - the GP of the surrogate path: `fit_auto_bucketed` on 1024
+             evaluated flagship configurations (43 Cholesky factorizations
+             of 1024^2) and `precompute_kinv`; a padded-bucket state (700
+             real rows in a 1024 bucket) and, at small size, a dense
+             (n_cat = 0) and an all-categorical (n_cont = 0) state;
+5. gp_kernels - launchers A-D of csrc/gp_tile.cu against their plain
+             versions on the card, at the flagship's 6040 proposal rows
+             against each state (every flag instance launches), every
+             kind, top-k k = 128 and an exact-tie case; max error against
+             the stated tolerance, in the GP's standardized units (the
+             units of the reference's tolerances); then kernel, eager-call, plain and
+             library times and the bound at the main state;
+6. engine  - the flagship at scale 64 (6040 rows a step, a 2^15-row
              history): init, one warm step, then the timed steps with the
              launch counts set to 0 just before and read just after; one
              merge launch per commit, a finite best, valid permutations;
-5. reference - one commit of that engine's state on the card and on the
+7. reference - one commit of that engine's state on the card and on the
              CPU (plain versions) from the same inputs: the whole state
              bitwise equal;
-6. kernels - one entry per kernel: launches on the main path, error
-             against the plain version, times and bound.
+8. surrogate_engine - the surrogate-guided flagship: 50 steps scored by
+             `surrogate_eval_fn(kind="ei", impl="fused")`, a publish of a
+             refit, 50 `propose_topk(..., 128)`, then 10 steps each with
+             impl="score_flat" for kind "mean" and "ei"; counts set to 0
+             just before and read just after (C 50, D 50, A 10, B 10,
+             merge 70); a finite best, valid tours, and the last epoch's
+             scores on the card against the same scoring on the CPU;
+9. profile (with --profile) - device time by kernel and the idle share
+             over a few plain and a few surrogate-scored engine steps;
+10. kernels - one entry per kernel: launches on the main path, error
+             against the plain version (and, for the GP kernels, its
+             largest ratio to the tolerance), times and bound.
 
-The line before the last is `nvidia-smi --query-gpu=name,power.limit`;
-the last is `{"ok": true, "device": {...}}`.  Any failure raises, so the
-script exits non-zero and prints no `ok` line; so does a host without a
-card or a directory without the package.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -46,8 +68,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-# H100 SXM, NVIDIA's data sheet: 3.35 TB/s of HBM3
+# H100 SXM, NVIDIA's data sheet: 3.35 TB/s of HBM3, 67 TFLOP/s f32
+# outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 REPS = 50
 # the engine run: the flagship at the size of the JAX package's TPU
 # headline (bench.py), 6040 rows a step into a 2^15-row history
@@ -58,6 +82,17 @@ SIZES = (  # (name, cap, b, live history rows)
     ("cap2048_b2048", 2048, 2048, 2000),
 )
 TIMED = "cap32768_b6040_full"
+# the surrogate path: the manager's max_points (its largest bucket), a
+# padded bucket, the small dense / all-categorical states, and k = 128,
+# the manager's smallest pool routed to the fused top-k (propose_batch 128
+# x pool_mult 32 = 4096 = PALLAS_MIN_POOL)
+N_TRAIN, N_PADDED, N_SMALL, TOP_K = 1024, 700, 256, 128
+SURR_STEPS, TOPK_EPOCHS, FLAT_STEPS = 50, 50, 10
+# tolerances (tests/test_pallas_score.py:31,137-139): the posterior mean,
+# and sd / EI / LCB
+MEAN_TOL = {"rtol": 1e-4, "atol": 1e-5}
+SD_TOL = {"rtol": 1e-3, "atol": 1e-5}
+KIND_TOL = {"mean": MEAN_TOL, "ei": SD_TOL, "lcb": SD_TOL}
 
 
 def emit(obj) -> None:
@@ -206,6 +241,232 @@ def merge_phase(dev) -> dict:
     return out, case
 
 
+# -- the surrogate path ---------------------------------------------------------
+def surrogate_phase(dev) -> tuple:
+    """The GP states the gp_kernels and surrogate_engine phases score
+    against: {case: (GPState, queries [6040, F], best_y, n_cont, n_cat)}."""
+    from uptune_tpu_torch.flagship import flagship_surrogate
+    from uptune_tpu_torch.surrogate import gp
+    x, y, (nc, ncat) = flagship_surrogate(N_TRAIN, SEED + 1, dev)
+    xq, _, _ = flagship_surrogate(6040, SEED + 2, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    main = gp.precompute_kinv(gp.fit_auto_bucketed(
+        x, y, max_points=N_TRAIN, n_cont=nc, n_cat=ncat))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    padded = gp.precompute_kinv(gp.fit_auto_bucketed(
+        x[:N_PADDED], y[:N_PADDED], max_points=N_TRAIN, n_cont=nc,
+        n_cat=ncat))
+    xs, ys = x[:N_SMALL], y[:N_SMALL]
+    dense = gp.precompute_kinv(gp.fit_auto_bucketed(
+        xs[:, :nc].contiguous(), ys, max_points=N_TRAIN))
+    allcat = gp.precompute_kinv(gp.fit_auto_bucketed(
+        xs[:, nc:].contiguous(), ys, max_points=N_TRAIN, n_cont=0,
+        n_cat=ncat))
+    cases = {
+        "mixed_n1024": (main, xq, float(y.min()), nc, ncat),
+        "mixed_n700_in_1024": (padded, xq, float(y[:N_PADDED].min()), nc,
+                               ncat),
+        "dense_n256": (dense, xq[:, :nc].contiguous(), float(ys.min()),
+                       None, 0),
+        "allcat_n256": (allcat, xq[:, nc:].contiguous(), float(ys.min()),
+                        0, ncat),
+    }
+    out = {"phase": "surrogate", "features": int(x.shape[1]),
+           "n_cont": nc, "n_cat": ncat, "fit_auto_bucketed_s": fit_s,
+           "states": {}}
+    for name, (st, q, best, _, _) in cases.items():
+        out["states"][name] = {
+            "bucket": int(st.x.shape[0]), "real_rows": int(st.mask.sum()),
+            "features": int(st.x.shape[1]),
+            "lengthscale": float(st.lengthscale), "noise": float(st.noise),
+            "ls_cat": float(st.ls_cat), "y_mean": float(st.y_mean),
+            "y_std": float(st.y_std), "best_y": best}
+        for f in ("alpha", "chol", "kinv"):
+            if not bool(torch.isfinite(getattr(st, f)).all()):
+                emit(out)
+                raise AssertionError(f"state {name}: {f} is not finite")
+    emit(out)
+    return cases, (nc, ncat)
+
+
+def tol_excess(got, want, tol, scale=1.0, offset=0.0) -> tuple:
+    """(max |got - want|, max |got - want| / (atol + rtol |want|)) with
+    both sides taken as (v - offset) / scale: the check passes where the
+    second is at most 1."""
+    g = (got.double() - offset) / scale
+    w = (want.double() - offset) / scale
+    d = (g - w).abs()
+    lim = tol["atol"] + tol["rtol"] * w.abs()
+    return float((got.double() - want.double()).abs().max()), float(
+        (d / lim).max())
+
+
+def topk_index_mismatches(iw, vw, ig, tol) -> int:
+    """Ranks whose value stands apart from its neighbours by more than
+    twice the tolerance, where the two selections' indices differ."""
+    v = vw.double()
+    band = tol["atol"] + tol["rtol"] * v.abs()
+    gap = torch.full_like(v, float("inf"))
+    if v.numel() > 1:
+        dv = v[:-1] - v[1:]
+        gap[1:] = torch.minimum(gap[1:], dv)
+        gap[:-1] = torch.minimum(gap[:-1], dv)
+    apart = gap > 2 * band
+    return int((ig[apart] != iw[apart]).sum())
+
+
+def gp_bound(b: int, n: int, f: int, var: bool, out_bytes: int) -> dict:
+    """The least time for one call: its FLOPs (distances 2BNF, mean 2BN,
+    and for the variance kinds k K^-1 2BN^2 plus q 2BN) over the f32 rate,
+    or its bytes (queries, training rows, alpha, K^-1, outputs, each once)
+    over HBM's, whichever is larger."""
+    flops = 2 * b * n * f + 2 * b * n + (2 * b * n * n + 2 * b * n
+                                         if var else 0)
+    nbytes = 4 * (b * f + n * f + n + (n * n if var else 0)) + out_bytes
+    t_ops, t_bytes = flops / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return {"flops": flops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def gp_kernels_phase(cases) -> tuple:
+    """Launchers A-D against their plain versions on the card, on every
+    state, compared in target units (mean, sd, utility) at the stated
+    tolerances; then times and bounds at the main state."""
+    from uptune_tpu_torch.ops import acquire as acq
+    from uptune_tpu_torch.surrogate import pallas_score as ps
+    out = {"phase": "gp_kernels", "tolerances": KIND_TOL,
+           "tolerance_units": "the GP's standardized units: (v - y_mean) "
+                              "/ y_std for means and LCB, v / y_std for "
+                              "sd and EI", "cases": []}
+    err = {"gp_mean": 0.0, "gp_mean_var": 0.0, "acquire_scores": 0.0,
+           "acquire_topk": 0.0}
+    over = dict(err)
+    bad = []
+
+    def record(case, kernel, what, got, want, tol, st, offset):
+        # in the GP's standardized units (v - offset) / y_std, the units
+        # of the reference's tolerances (its fixtures have y_std ~ 1);
+        # max_abs_err stays in target units
+        e, x = tol_excess(got, want, tol, float(st.y_std), offset)
+        err[kernel] = max(err[kernel], e)
+        over[kernel] = max(over[kernel], x)
+        out["cases"].append({"case": case, "kernel": kernel, "what": what,
+                             "max_abs_err": e, "err_over_tol": x})
+        if not x <= 1.0:
+            bad.append(f"{case} {kernel} {what}: {e} ({x:.3g}x the "
+                       f"tolerance)")
+
+    for case, (st, xq, best, nc, ncat) in cases.items():
+        blocks, kinv, params = acq.prep(st, xq, "ei", best, 2.0, nc, ncat)
+
+        def moments(mu_n, q=None):      # (mean, sd) in target units
+            return ps.target_moments(mu_n, q, st.noise, st.y_mean, st.y_std)
+        ym = float(st.y_mean)
+        record(case, "gp_mean", "mean", moments(ps.mean_tile_cuda(*blocks))[0],
+               moments(ps.mean_tile_plain(*blocks))[0], MEAN_TOL, st, ym)
+        (mg, sg), (mw, sw) = (moments(*ps.mean_var_tile_cuda(*blocks, kinv)),
+                              moments(*ps.mean_var_tile_plain(*blocks, kinv)))
+        record(case, "gp_mean_var", "mean", mg, mw, MEAN_TOL, st, ym)
+        record(case, "gp_mean_var", "sd", sg, sw, SD_TOL, st, 0.0)
+        for kind in ("mean", "ei", "lcb"):
+            kv = None if kind == "mean" else kinv
+            record(case, "acquire_scores", kind,
+                   acq.scores_cuda(*blocks, kv, params, kind),
+                   acq.utilities_plain(*blocks, kv, params, kind),
+                   KIND_TOL[kind], st, 0.0 if kind == "ei" else -ym)
+        vg, ig = acq.topk_cuda(*blocks, kinv, params, "ei", TOP_K)
+        vw, iw = acq.topk_plain(*blocks, kinv, params, "ei", TOP_K)
+        record(case, "acquire_topk", f"ei k={TOP_K} values", vg, vw, SD_TOL,
+               st, 0.0)
+        miss = topk_index_mismatches(iw, vw / float(st.y_std), ig, SD_TOL)
+        out["cases"][-1]["index_mismatches"] = miss
+        if miss or not bool((vg[1:] <= vg[:-1]).all()):
+            bad.append(f"{case} acquire_topk: {miss} separated ranks with "
+                       f"other indices, or values not descending")
+
+    # exact ties: every query row twice, at i and i + half
+    st, xq, best, nc, ncat = cases["mixed_n1024"]
+    half = xq.shape[0] // 2
+    blocks, kinv, params = acq.prep(
+        st, torch.cat([xq[:half], xq[:half]]), "ei", best, 2.0, nc, ncat)
+    vg, ig = acq.topk_cuda(*blocks, kinv, params, "ei", TOP_K)
+    vw, iw = acq.topk_plain(*blocks, kinv, params, "ei", TOP_K)
+    tie = {"case": "mixed_n1024_duplicated_rows", "kernel": "acquire_topk",
+           "what": "exact ties lowest index first",
+           "pairs_tied": bool(torch.equal(vg[0::2], vg[1::2])),
+           "lowest_first": bool(torch.equal(ig[0::2] + half, ig[1::2])
+                                and bool((ig[0::2] < half).all())),
+           "index_mismatches": topk_index_mismatches(
+               iw, vw / float(st.y_std), ig, SD_TOL)}
+    out["cases"].append(tie)
+    if not (tie["pairs_tied"] and tie["lowest_first"]) or \
+            tie["index_mismatches"]:
+        bad.append(f"exact-tie top-k: {tie}")
+    torch.cuda.synchronize()
+    if bad:
+        emit(out)
+        raise AssertionError("gp kernels disagree with their plain "
+                             "versions: " + "; ".join(bad))
+
+    # times at the main state: B = 6040, N = 1024, F = 31, EI, k = 128
+    st, xq, best, nc, ncat = cases["mixed_n1024"]
+    blocks, kinv, params = acq.prep(st, xq, "ei", best, 2.0, nc, ncat)
+    b, f = xq.shape
+    n = st.x.shape[0]
+    shape = f"B={b} N={n} F={f} (Fc={nc} Fk={f - nc})"
+    # the launch geometry the library reports: the largest N at F
+    # features must cover the manager's largest bucket (N_TRAIN)
+    out["max_train_rows"] = ps.MEAN_VAR_KERNEL.query(
+        "ut_gp_max_train_rows", f, 1)
+    out["topk_chunk"] = acq.TOPK_KERNEL.query("ut_gp_topk_chunk")
+    if out["max_train_rows"] < N_TRAIN:
+        emit(out)
+        raise AssertionError(f"the variance launchers take at most "
+                             f"{out['max_train_rows']} training rows at "
+                             f"F={f}, fewer than {N_TRAIN}")
+
+    def lib_mean():                  # the materialized [B, N] cross-kernel
+        return ps.tile_moments(ps.kernel_tile(*blocks[:4]), blocks.alpha)[0]
+
+    def lib_mean_var():
+        return ps.tile_moments(ps.kernel_tile(*blocks[:4]), blocks.alpha,
+                               kinv)
+
+    timed = {
+        "gp_mean": (lambda: ps.mean_tile_cuda(*blocks),
+                    lambda: ps.mean_tile_plain(*blocks), lib_mean,
+                    gp_bound(b, n, f, False, 4 * b), shape),
+        "gp_mean_var": (lambda: ps.mean_var_tile_cuda(*blocks, kinv),
+                        lambda: ps.mean_var_tile_plain(*blocks, kinv),
+                        lib_mean_var, gp_bound(b, n, f, True, 8 * b), shape),
+        "acquire_scores": (
+            lambda: acq.scores_cuda(*blocks, kinv, params, "ei"),
+            lambda: acq.utilities_plain(*blocks, kinv, params, "ei"),
+            lambda: acq.utilities_ref(*blocks, kinv, params, "ei"),
+            gp_bound(b, n, f, True, 4 * b + 20), shape + " kind=ei"),
+        "acquire_topk": (
+            lambda: acq.topk_cuda(*blocks, kinv, params, "ei", TOP_K),
+            lambda: acq.topk_plain(*blocks, kinv, params, "ei", TOP_K),
+            lambda: acq.select_topk(
+                acq.utilities_ref(*blocks, kinv, params, "ei"), TOP_K),
+            gp_bound(b, n, f, True, 8 * TOP_K + 20),
+            shape + f" kind=ei k={TOP_K}"),
+    }
+    times = {}
+    for name, (kern, plain, lib, bound, shp) in timed.items():
+        times[name] = dict(bound, shape=shp, max_abs_err=err[name],
+                           max_err_over_tol=over[name],
+                           ms=median_ms(kern), call_ms=call_ms(kern),
+                           plain_ms=median_ms(plain),
+                           library_ms=median_ms(lib))
+    out["timed"] = times
+    emit(out)
+    return out, times
+
+
 # -- the engine ----------------------------------------------------------------
 def tree_to(x, dev):
     """Copy a state / draws tree (NamedTuples, tuples, tensors, None) to
@@ -334,18 +595,125 @@ def reference_phase(eng, st, dev) -> dict:
     return res
 
 
-def profile_phase(eng, st, ms_per_step: float, steps: int = 5) -> None:
-    """Device time by kernel over a short window of engine steps, and the
-    device's idle share of an unprofiled step (`ms_per_step`, timed in the
-    engine phase): the profiler's own host cost would inflate the window's
-    wall time."""
+def surrogate_engine_phase(eng, cases, feats: tuple, dev) -> dict:
+    """The surrogate-guided flagship (see the module docstring), with the
+    launch counts set to 0 just before and read just after."""
+    from uptune_tpu_torch import native
+    from uptune_tpu_torch.engine import surrogate_aux, surrogate_eval_fn
+    from uptune_tpu_torch.flagship import N_CITIES, flagship_surrogate
+    from uptune_tpu_torch.surrogate import gp
+    nc, ncat = feats
+    st_gp, _, best, _, _ = cases["mixed_n1024"]
+    space = eng.space
+    opts = dict(n_cont=nc, n_cat=ncat)
+    ev = surrogate_eval_fn(space, st_gp, kind="ei", best_y=best,
+                           impl="fused", **opts)
+    ev_mean = surrogate_eval_fn(space, st_gp, kind="mean",
+                                impl="score_flat", **opts)
+    ev_ei = surrogate_eval_fn(space, st_gp, kind="ei", best_y=best,
+                              impl="score_flat", **opts)
+    # the refit to publish: the chosen hyperparameters on a fresh draw of
+    # 1024 evaluated configurations (same bucket, K^-1 attached)
+    x2, y2, _ = flagship_surrogate(N_TRAIN, SEED + 3, dev)
+    refit = surrogate_aux(gp.fit(x2, y2, st_gp.lengthscale, st_gp.noise,
+                                 ls_cat=st_gp.ls_cat, **opts),
+                          float(y2.min()), "ei")
+    st = eng.step(eng.init(seed=SEED + 4), eval_fn=ev)     # warm step
+    eng.propose_topk(st, ev, TOP_K)
+    torch.cuda.synchronize()
+
+    native.reset_launches()                # the main path's run starts here
+    t0 = time.perf_counter()
+    for _ in range(SURR_STEPS):
+        st = eng.step(st, eval_fn=ev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ev.publish(refit)
+    tops = []
+    for _ in range(TOPK_EPOCHS):
+        _, cands, vals, idx = eng.propose_topk(st, ev, TOP_K)
+        tops.append((vals, idx))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for e in (ev_mean, ev_ei):
+        for _ in range(FLAT_STEPS):
+            st = eng.step(st, eval_fn=e)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = {k.name: k.launches for k in native.KERNELS}
+
+    best_q = eng.best_qor(st)
+    out = {"phase": "surrogate_engine", "scale": SCALE,
+           "rows_per_step": eng.total_batch, "train_rows": N_TRAIN,
+           "kind": "ei", "k": TOP_K,
+           "fused_steps": SURR_STEPS,
+           "fused_ms_per_step": (t1 - t0) / SURR_STEPS * 1e3,
+           "propose_topk_epochs": TOPK_EPOCHS,
+           "propose_topk_ms": (t2 - t1) / TOPK_EPOCHS * 1e3,
+           "score_flat_steps": 2 * FLAT_STEPS,
+           "score_flat_ms_per_step": (t3 - t2) / (2 * FLAT_STEPS) * 1e3,
+           "best_qor": best_q, "launches": launches}
+    want = {"acquire_scores": SURR_STEPS, "acquire_topk": TOPK_EPOCHS,
+            "gp_mean": FLAT_STEPS, "gp_mean_var": FLAT_STEPS,
+            "merge_rows": SURR_STEPS + 2 * FLAT_STEPS}
+    # the last epoch's scores on the card against the same scoring on the
+    # CPU (plain versions), from the same GP state and candidates
+    cpu = torch.device("cpu")
+    got = ev.fn(cands, ev.aux)
+    ref = ev.fn(tree_to(cands, cpu), tree_to(ev.aux, cpu))
+    out["cpu_reference_max_abs_err"], ratio = tol_excess(
+        got.cpu(), ref, SD_TOL, float(ev.aux[0].y_std))
+    emit(out)
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    if not ratio <= 1.0:
+        raise AssertionError(f"card and CPU surrogate scores differ: "
+                             f"{ratio:.3g}x the tolerance")
+    if not torch.isfinite(torch.tensor(best_q)):
+        raise AssertionError(f"best_qor {best_q} is not finite")
+    for what, pm in (("DE population", st.tstates[0].pop.perms[0]),
+                     ("best", st.best.perms[0])):
+        if not is_perm_rows(pm, N_CITIES):
+            raise AssertionError(f"{what}: a tour is not a permutation")
+    for vals, idx in tops:
+        if (vals.shape != (TOP_K,) or not bool(torch.isfinite(vals).all())
+                or not bool((vals[1:] <= vals[:-1]).all())
+                or int(idx.min()) < 0 or int(idx.max()) >= eng.total_batch
+                or int(torch.unique(idx).numel()) != TOP_K):
+            raise AssertionError("propose_topk: a selection is not k "
+                                 "distinct rows by descending utility")
+    return out, st, ev
+
+
+def ptxas_summary(log: str) -> list:
+    """One line per kernel function of a library: ptxas's registers,
+    spills and shared memory."""
+    out, fn = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            short = re.search(r"(merge_rows_kernel|topk_select_kernel|"
+                              r"gp_tile_kernelILb\dELb\dELb\dELi\dE)",
+                              m.group(1))
+            fn = short.group(1) if short else m.group(1)
+        elif fn and ("registers" in ln or "spill" in ln):
+            out.append(f"{fn}: {ln.split(':', 1)[-1].strip()}")
+    return out
+
+
+def profile_phase(eng, st, ms_per_step: float, steps: int = 5,
+                  eval_fn=None, name: str = "engine") -> None:
+    """Device time by kernel over a short window of engine steps (scored
+    by `eval_fn` if given), and the device's idle share of an unprofiled
+    step (`ms_per_step`, timed in the engine phase): the profiler's own
+    host cost would inflate the window's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            st = eng.step(st)
+            st = eng.step(st, eval_fn=eval_fn)
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -353,7 +721,7 @@ def profile_phase(eng, st, ms_per_step: float, steps: int = 5) -> None:
             rows.append((e.self_device_time_total, e.key, e.count))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3 / steps
-    emit({"phase": "profile", "steps": steps,
+    emit({"phase": "profile", "path": name, "steps": steps,
           "device_ms_per_step": busy_ms,
           "device_ops_per_step": sum(r[2] for r in rows) / steps,
           "ms_per_step_unprofiled": ms_per_step,
@@ -374,44 +742,61 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from uptune_tpu_torch import native
     dev = torch.device("cuda")
     smi = nvidia_smi()
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
 
     t0 = time.perf_counter()
     libs = native.build()
     kernels = native.KERNELS
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: str(p.relative_to(ROOT)) for k, p in libs.items()},
-          "ptxas": {k.name: [ln.strip() for ln in k.build_log.splitlines()
-                             if "registers" in ln or "smem" in ln]
-                    for k in kernels}})
+          "ptxas": {str(k.library_path().relative_to(ROOT)): ptxas_summary(
+              k.build_log) for k in kernels}})
 
     merge, timed = merge_phase(dev)
+    cases, feats = surrogate_phase(dev)
+    _, gp_times = gp_kernels_phase(cases)
     eng, st, engine = engine_phase(dev)
     reference_phase(eng, st, dev)
+    surr, st_s, ev = surrogate_engine_phase(eng, cases, feats, dev)
     if args.profile:
         profile_phase(eng, st, engine["ms_per_step"])
+        profile_phase(eng, st_s, surr["fused_ms_per_step"], eval_fn=ev,
+                      name="surrogate_engine")
 
     entries = []
     for k in kernels:
-        if k.name != "merge_rows":
-            raise AssertionError(f"no smoke phase for kernel {k.name}")
-        entries.append({
-            "name": k.name, "route": "cuda",
-            "source": str(k.source.relative_to(ROOT)),
-            "replaces": k.replaces,
-            "launches": engine["launches"][k.name],
-            "max_abs_err": max(c["max_abs_err"] for c in merge["cases"]),
-            "matched": True, "shape": f"cap={timed['cap']} b={timed['b']}",
-            "ms": timed["ms"], "kernel_ms": timed["ms"],
-            "call_ms": timed["call_ms"], "plain_ms": timed["plain_ms"],
-            "bound_ms": timed["bound_ms"], "bound_by": "bytes",
-            "library_ms": timed["library_ms"]})
+        common = {"name": k.name, "route": "cuda",
+                  "source": str(k.source.relative_to(ROOT)),
+                  "replaces": ", ".join(k.replaces), "matched": True}
+        if k.name == "merge_rows":
+            entries.append(dict(
+                common, launches=engine["launches"][k.name],
+                max_abs_err=max(c["max_abs_err"] for c in merge["cases"]),
+                shape=f"cap={timed['cap']} b={timed['b']}",
+                ms=timed["ms"], kernel_ms=timed["ms"],
+                call_ms=timed["call_ms"], plain_ms=timed["plain_ms"],
+                bound_ms=timed["bound_ms"], bound_by="bytes",
+                library_ms=timed["library_ms"]))
+            continue
+        t = gp_times[k.name]
+        entries.append(dict(
+            common, launches=surr["launches"][k.name],
+            max_abs_err=t["max_abs_err"],
+            max_err_over_tol=t["max_err_over_tol"], shape=t["shape"],
+            ms=t["ms"],
+            kernel_ms=t["ms"], call_ms=t["call_ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"]))
     emit({"kernels": entries})
     torch.cuda.synchronize()
     print(smi, flush=True)

@@ -1,0 +1,230 @@
+"""Parity of the port's fused acquisition (`uptune_tpu_torch/ops/acquire.py`)
+and fused scoring (`surrogate/pallas_score.py`) with the JAX package, on
+the CPU, where the wrappers take the kernels' plain versions.
+
+Both packages score from one fit: the GP is fitted by JAX and carried to
+the port with `convert.from_jax_gp`.  The JAX side runs its per-tile XLA
+route (`route="xla"`, bitwise equal to its interpret-mode Pallas kernels
+per tests/test_acquire.py), and one case per kernel family runs the
+Pallas kernel itself in interpret mode.  Every EI case names its JAX
+route, since the reference's two EI routes disagree beyond 1e-5.
+Tolerances: mean rtol 1e-4 / atol 1e-5, sd / EI / LCB rtol 1e-3 / atol
+1e-5 (tests/test_pallas_score.py).  Top-k: values within those, indices
+equal at every rank whose value is apart from its neighbours by more
+than the tolerance; exact ties (duplicated rows) go to the lowest index.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from uptune_tpu.ops import acquire as jacq
+from uptune_tpu.ops import routing
+from uptune_tpu.surrogate import gp as jgp
+from uptune_tpu.surrogate import pallas_score as jps
+
+from uptune_tpu_torch import convert
+from uptune_tpu_torch.ops import acquire as tacq
+from uptune_tpu_torch.surrogate import pallas_score as tps
+
+from test_torch_gp import HYPER, MEAN_TOL, SD_TOL, data
+from test_torch_ops import N, T
+
+TOL = {"mean": MEAN_TOL, "ei": SD_TOL, "lcb": SD_TOL}
+
+
+def fitted(kind):
+    x, y, nc, ncat = data(kind)
+    ls, nz, lc = HYPER[kind]
+    sj = jgp.precompute_kinv(jgp.fit(jnp.asarray(x), jnp.asarray(y), ls, nz,
+                                     n_cont=nc, n_cat=ncat, ls_cat=lc))
+    st = convert.from_jax_gp(jax.tree_util.tree_map(np.asarray, sj),
+                             device="cpu")
+    xq = np.random.RandomState(2).rand(200, x.shape[1]).astype(np.float32)
+    return sj, st, xq, float(y.min()), nc, ncat
+
+
+@pytest.fixture(scope="module", params=["dense", "mixed", "allcat"])
+def state(request):
+    return fitted(request.param)
+
+
+@pytest.fixture(scope="module")
+def mixed():
+    return fitted("mixed")
+
+
+def kw(score, best, nc, ncat):
+    return dict(kind=score, best_y=best if score == "ei" else None,
+                n_cont=nc, n_cat=ncat)
+
+
+def assert_topk(vj, ij, vt, it, tol, what=""):
+    vj, ij = np.asarray(vj, np.float64), np.asarray(ij)
+    vt, it = N(vt).astype(np.float64), N(it)
+    assert it.dtype == np.int32 and it.shape == ij.shape, what
+    np.testing.assert_allclose(vt, vj, err_msg=what, **tol)
+    assert (np.diff(vt) <= 0).all(), what
+    band = tol["atol"] + tol["rtol"] * np.abs(vj)
+    gap = np.full(len(vj), np.inf)
+    gap[1:] = np.minimum(gap[1:], vj[:-1] - vj[1:])
+    gap[:-1] = np.minimum(gap[:-1], vj[:-1] - vj[1:])
+    apart = gap > 2 * band
+    np.testing.assert_array_equal(it[apart], ij[apart], err_msg=what)
+
+
+# -- launcher C: utilities -------------------------------------------------------
+@pytest.mark.parametrize("score", ["mean", "ei", "lcb"])
+def test_scores_match_jax_xla_route(state, score):
+    sj, st, xq, best, nc, ncat = state
+    ref = jacq.acquire_scores(sj, jnp.asarray(xq), route=routing.XLA,
+                              **kw(score, best, nc, ncat))
+    got = tacq.acquire_scores(st, T(xq), **kw(score, best, nc, ncat))
+    assert got.shape == (200,) and got.dtype == torch.float32
+    np.testing.assert_allclose(N(got), np.asarray(ref), **TOL[score])
+
+
+def test_scores_match_jax_interpret_kernel(mixed):
+    """`_scores_kernel` itself, in interpret mode."""
+    sj, st, xq, best, nc, ncat = mixed
+    ref = jacq.acquire_scores(sj, jnp.asarray(xq), route=routing.INTERPRET,
+                              **kw("ei", best, nc, ncat))
+    got = tacq.acquire_scores(st, T(xq), **kw("ei", best, nc, ncat))
+    np.testing.assert_allclose(N(got), np.asarray(ref), **SD_TOL)
+
+
+@pytest.mark.parametrize("score", ["mean", "ei", "lcb"])
+def test_unfused_reference_matches(mixed, score):
+    sj, st, xq, best, nc, ncat = mixed
+    ref = jacq.acquire_scores_ref(sj, jnp.asarray(xq),
+                                  **kw(score, best, nc, ncat))
+    got = tacq.acquire_scores_ref(st, T(xq), **kw(score, best, nc, ncat))
+    np.testing.assert_allclose(N(got), np.asarray(ref), **TOL[score])
+    vt, it = tacq.acquire_topk_ref(st, T(xq), 20, **kw(score, best, nc, ncat))
+    vf, i_f = tacq.acquire_topk(st, T(xq), 20, **kw(score, best, nc, ncat))
+    assert_topk(N(vf), N(i_f), vt, it, TOL[score], "ref vs fused")
+
+
+# -- launcher D: top-k ---------------------------------------------------------------
+@pytest.mark.parametrize("score,k", [("mean", 17), ("ei", 17), ("lcb", 17),
+                                     ("ei", 1), ("lcb", 200)])
+def test_topk_matches_jax_xla_route(state, score, k):
+    sj, st, xq, best, nc, ncat = state
+    vj, ij = jacq.acquire_topk(sj, jnp.asarray(xq), k, route=routing.XLA,
+                               **kw(score, best, nc, ncat))
+    vt, it = tacq.acquire_topk(st, T(xq), k, **kw(score, best, nc, ncat))
+    assert_topk(vj, ij, vt, it, TOL[score], f"{score} k={k}")
+
+
+def test_topk_matches_jax_interpret_kernel(mixed):
+    """`_topk_kernel` itself, in interpret mode."""
+    sj, st, xq, best, nc, ncat = mixed
+    vj, ij = jacq.acquire_topk(sj, jnp.asarray(xq), 33,
+                               route=routing.INTERPRET,
+                               **kw("lcb", best, nc, ncat))
+    vt, it = tacq.acquire_topk(st, T(xq), 33, **kw("lcb", best, nc, ncat))
+    assert_topk(vj, ij, vt, it, SD_TOL, "interpret")
+
+
+@pytest.mark.parametrize("score", ["mean", "ei"])
+def test_topk_exact_ties_go_to_the_lowest_index(mixed, score):
+    """Duplicated query rows tie exactly: indices equal to JAX's, and the
+    lower copy of each pair ranks first."""
+    sj, st, xq, best, nc, ncat = mixed
+    xq2 = np.concatenate([xq[:100], xq[:100]])
+    vj, ij = jacq.acquire_topk(sj, jnp.asarray(xq2), 40, route=routing.XLA,
+                               **kw(score, best, nc, ncat))
+    vt, it = tacq.acquire_topk(st, T(xq2), 40, **kw(score, best, nc, ncat))
+    np.testing.assert_array_equal(N(it), np.asarray(ij))
+    it = N(it)
+    assert (it[0::2] < 100).all() and (it[1::2] == it[0::2] + 100).all()
+    np.testing.assert_array_equal(N(vt)[0::2], N(vt)[1::2])
+
+
+def test_topk_rejects_k_out_of_range(mixed):
+    _, st, xq, best, nc, ncat = mixed
+    for k in (0, 201):
+        with pytest.raises(ValueError, match="k must be"):
+            tacq.acquire_topk(st, T(xq), k, **kw("mean", best, nc, ncat))
+
+
+# -- launchers A and B: fused scoring ------------------------------------------------
+def test_gp_mean_scores_match(state):
+    sj, st, xq, _, nc, ncat = state
+    ref, _ = jgp.predict(sj, jnp.asarray(xq), nc, ncat)
+    got = tps.gp_mean_scores(st, T(xq), nc, ncat)
+    np.testing.assert_allclose(N(got), np.asarray(ref), **MEAN_TOL)
+
+
+def test_gp_mean_var_scores_match(state):
+    sj, st, xq, _, nc, ncat = state
+    mj, sdj = jgp.predict(sj, jnp.asarray(xq), nc, ncat)
+    mt, sdt = tps.gp_mean_var_scores(st, T(xq), nc, ncat)
+    np.testing.assert_allclose(N(mt), np.asarray(mj), **MEAN_TOL)
+    np.testing.assert_allclose(N(sdt), np.asarray(sdj), **SD_TOL)
+
+
+def test_pallas_score_kernels_in_interpret_mode(mixed):
+    """`_score_kernel_mixed` and `_var_kernel_mixed` themselves."""
+    sj, st, xq, _, nc, ncat = mixed
+    mj = jps.gp_mean_scores(sj, jnp.asarray(xq), True, nc, ncat)
+    np.testing.assert_allclose(N(tps.gp_mean_scores(st, T(xq), nc, ncat)),
+                               np.asarray(mj), **MEAN_TOL)
+    mj, sdj = jps.gp_mean_var_scores(sj, jnp.asarray(xq), True, nc, ncat)
+    mt, sdt = tps.gp_mean_var_scores(st, T(xq), nc, ncat)
+    np.testing.assert_allclose(N(mt), np.asarray(mj), **MEAN_TOL)
+    np.testing.assert_allclose(N(sdt), np.asarray(sdj), **SD_TOL)
+
+
+def test_kinv_is_computed_when_not_attached(mixed):
+    sj, st, xq, _, nc, ncat = mixed
+    bare = st._replace(kinv=None)
+    a = tps.gp_mean_var_scores(bare, T(xq), nc, ncat)
+    b = tps.gp_mean_var_scores(st, T(xq), nc, ncat)
+    np.testing.assert_allclose(N(a[1]), N(b[1]), **SD_TOL)
+
+
+# -- the wrappers on the CPU -----------------------------------------------------------
+def test_cpu_tensors_take_the_plain_version_and_launch_nothing(mixed):
+    from uptune_tpu_torch import native
+    _, st, xq, best, nc, ncat = mixed
+    native.reset_launches()
+    tacq.acquire_topk(st, T(xq), 5, **kw("ei", best, nc, ncat))
+    tacq.acquire_scores(st, T(xq), **kw("lcb", best, nc, ncat))
+    tps.gp_mean_var_scores(st, T(xq), nc, ncat)
+    tps.gp_mean_scores(st, T(xq), nc, ncat)
+    assert all(k.launches == 0 for k in native.KERNELS)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors(mixed):
+    _, st, xq, best, nc, ncat = mixed
+    blocks, kinv, params = tacq.prep(st, T(xq), "ei", best, 2.0, nc, ncat)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tacq.scores_cuda(*blocks, kinv, params, "ei")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tacq.topk_cuda(*blocks, kinv, params, "ei", 3)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tps.mean_tile_cuda(*blocks)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tps.mean_var_tile_cuda(*blocks, kinv)
+
+
+def test_wrappers_refuse_training_rows_over_the_librarys_limit(monkeypatch):
+    """The largest N is asked of the library (`ut_gp_max_train_rows`,
+    by features and kind), and N above it is refused before a launch;
+    chip_smoke.py checks on the card that the limit at the flagship's 31
+    features covers the manager's 1024-row bucket."""
+    from uptune_tpu_torch import native
+    asked = []
+
+    def query(symbol, *args):
+        asked.append((symbol, args))
+        return 1024
+    monkeypatch.setattr(native.GP_MEAN_VAR, "query", query)
+    tps.check_train_rows(native.GP_MEAN_VAR, 1024, 31, True)
+    with pytest.raises(ValueError, match=r"N=1025 .*\(at most 1024\)"):
+        tps.check_train_rows(native.GP_MEAN_VAR, 1025, 31, True)
+    tps.check_train_rows(native.GP_MEAN_VAR, 7, 8, False)
+    assert asked == [("ut_gp_max_train_rows", (31, 1))] * 2 + [
+        ("ut_gp_max_train_rows", (8, 0))]

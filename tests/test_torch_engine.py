@@ -260,3 +260,74 @@ def test_engine_refuses_cuda_without_a_card():
         pytest.skip("this host has a card")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         flagship(1)
+
+
+# -- (e) the surrogate-guided step ---------------------------------------------
+def _j_surrogate(eng_j, n=64):
+    """A GP fitted by JAX on n evaluated flagship configurations."""
+    from uptune_tpu.surrogate import gp as jgp
+    space = eng_j.space
+    cands = space.random(jax.random.PRNGKey(6), n)
+    feats = space.surrogate_transform(space.features(cands))
+    y = eng_j.objective(space.decode_scalars(cands.u), cands.perms)
+    nc, ncat = space.n_cont_features, space.n_cat
+    st = jgp.precompute_kinv(jgp.fit(feats, y, 0.8, 1e-2, n_cont=nc,
+                                     n_cat=ncat, ls_cat=0.5))
+    return st, float(y.min()), nc, ncat
+
+
+@pytest.mark.parametrize("impl", ["fused", "score_flat"])
+def test_surrogate_eval_and_propose_topk_match(engines, impl):
+    """`surrogate_eval_fn(...)(cands)` on one proposal epoch, and
+    `propose_topk`'s ranking of it under replayed draws, against JAX (EI,
+    JAX's per-tile XLA route on the CPU; 112 rows, so score_flat takes
+    predict in both packages)."""
+    from uptune_tpu.engine import surrogate_eval_fn as j_eval_fn
+    from uptune_tpu_torch.engine import surrogate_eval_fn as t_eval_fn
+    from test_torch_acquire import assert_topk
+    from test_torch_gp import SD_TOL
+    eng_j, eng_t = engines
+    gp_j, best, nc, ncat = _j_surrogate(eng_j)
+    gp_t = convert.from_jax_gp(_np_tree(gp_j), device="cpu")
+    opts = dict(kind="ei", best_y=best, n_cont=nc, n_cat=ncat, impl=impl)
+    ev_j = j_eval_fn(eng_j.space, gp_j, **opts)
+    ev_t = t_eval_fn(eng_t.space, gp_t, **opts)
+    st_j = eng_j.init(jax.random.PRNGKey(2))
+    st_t = convert.from_jax_state(eng_t.space, _np_tree(st_j), device="cpu")
+    tst_j, cands_j, _ = eng_j.propose(st_j)
+    np.testing.assert_allclose(N(ev_t(jcands_to_t(cands_j))),
+                               np.asarray(ev_j(cands_j)), **SD_TOL)
+    if impl != "fused":
+        return
+    # JAX's propose_topk is this propose followed by this ranking
+    vj, ij = ev_j.topk(cands_j, ev_j.aux, 16)
+    tst_t, cands_t, vt, it = eng_t.propose_topk(
+        st_t, ev_t, 16, draws=engine_propose_draws(eng_j, st_j))
+    assert_cands_equal(cands_j, cands_t, "propose_topk cands")
+    assert_topk(vj, ij, vt, it, SD_TOL, "propose_topk")
+
+
+def test_port_surrogate_steps_run(engines):
+    """The port's own surrogate-guided steps: `step(eval_fn=...)` commits
+    the negated EI as QoR; a refit publishes without rebuilding."""
+    from uptune_tpu_torch.engine import surrogate_aux, surrogate_eval_fn
+    from uptune_tpu_torch.flagship import flagship_surrogate
+    from uptune_tpu_torch.surrogate import gp
+    _, eng_t = engines
+    x, y, (nc, ncat) = flagship_surrogate(64, seed=1, device="cpu")
+    st_gp = gp.fit(x, y, 0.8, 1e-2, n_cont=nc, n_cat=ncat, ls_cat=0.5)
+    ev = surrogate_eval_fn(eng_t.space, st_gp, kind="ei",
+                           best_y=float(y.min()), n_cont=nc, n_cat=ncat)
+    assert ev.aux[0].kinv is not None
+    st = eng_t.init(seed=5)
+    for i in range(4):
+        st = eng_t.step(st, eval_fn=ev)
+        if i == 1:
+            x2, y2, _ = flagship_surrogate(64, seed=2, device="cpu")
+            ev.publish(surrogate_aux(gp.fit(x2, y2, 0.8, 1e-2, n_cont=nc,
+                                            n_cat=ncat, ls_cat=0.5),
+                                     float(y2.min()), "ei"))
+    assert int(st.acqs) == 4 * 112
+    assert np.isfinite(eng_t.best_qor(st)) and eng_t.best_qor(st) <= 0
+    _, cands, vals, idx = eng_t.propose_topk(st, ev, 8)
+    assert (N(idx) < cands.batch).all() and (np.diff(N(vals)) <= 0).all()

@@ -77,17 +77,76 @@ def test_fused_engine_needs_a_card_unless_asked_for_the_cpu():
 
 
 def test_the_kernel_sources_ship_with_the_package():
+    """Every launcher: its source under csrc/ exports its symbol, and each
+    TPU kernel it replaces is a Pallas kernel body at the cited line."""
     from uptune_tpu_torch import native
     ks = native.KERNELS
-    assert [k.name for k in ks] == ["merge_rows"]
+    assert [k.name for k in ks] == ["merge_rows", "gp_mean", "gp_mean_var",
+                                    "acquire_scores", "acquire_topk"]
+    cited = []
     for k in ks:
         assert k.source.is_file() and k.source.parent == PKG / "csrc"
         src = k.source.read_text()
         assert f'extern "C" int {k.symbol}(' in src
-        path, line = k.replaces.split(":")
-        assert (REPO / path).is_file()
-        assert "_merge_kernel" in (REPO / path).read_text().splitlines()[
-            int(line) - 1]
+        for r in k.replaces:
+            path, line = r.split(":")
+            text = (REPO / path).read_text().splitlines()[int(line) - 1]
+            assert text.startswith("def _") and "kernel" in text, (r, text)
+            cited.append(r)
+    # the nine Pallas kernels of the JAX package, each replaced once
+    assert len(cited) == len(set(cited)) == 9
+
+
+def test_a_cached_library_reports_its_build_log(tmp_path, monkeypatch):
+    """A reused library reads nvcc's output back from beside it, so the
+    registers and shared memory of every kernel show on every run; no
+    nvcc is run for it."""
+    from uptune_tpu_torch import native
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+
+    def no_nvcc():
+        raise AssertionError("nvcc run for a cached library")
+    monkeypatch.setattr(native, "find_nvcc", no_nvcc)
+    k = native.GP_MEAN
+    lib = k.library_path()
+    assert lib.parent == tmp_path and not lib.exists()
+    assert k.build_log == ""
+    lib.write_bytes(b"not a real library")
+    native.log_path(lib).write_text(
+        "ptxas info    : Used 96 registers, 8 bytes smem\n")
+    assert native.build([k, native.ACQ_TOPK]) == {
+        "gp_mean": lib, "acquire_topk": lib}
+    assert "Used 96 registers" in k.build_log
+    assert native.ACQ_TOPK.build_log == k.build_log   # one source, one log
+
+
+def test_a_library_without_its_log_is_rebuilt(tmp_path, monkeypatch):
+    """A library left without nvcc's output beside it (built before the
+    log was kept) counts as missing: it is built again, so its log is
+    there to read.  A stand-in compiler writes the library and a ptxas
+    line; no real nvcc is run."""
+    from uptune_tpu_torch import native
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        "while [ $# -gt 0 ]; do\n"
+        "  if [ \"$1\" = -o ]; then out=\"$2\"; fi; shift\n"
+        "done\n"
+        "printf rebuilt > \"$out\"\n"
+        "echo 'ptxas info    : Used 40 registers'\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(native, "find_nvcc", lambda: str(nvcc))
+    k = native.MERGE
+    lib = k.library_path()
+    lib.parent.mkdir(parents=True)
+    lib.write_bytes(b"an old library")
+    assert k.build_log == ""
+    assert native.build([k]) == {"merge_rows": lib}
+    assert lib.read_bytes() == b"rebuilt"
+    assert "Used 40 registers" in k.build_log
+    assert sorted(p.name for p in lib.parent.iterdir()) == sorted(
+        [lib.name, native.log_path(lib).name])
 
 
 @pytest.mark.parametrize("alone", [False, True])

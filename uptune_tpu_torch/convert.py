@@ -8,6 +8,10 @@ builds the port's state on `device`: the per-arm technique states, the
 JAX PRNG keys do not carry over (the engine's and NelderMead's restart
 key); the port's generator is seeded from `seed` instead.  The parity
 tests use it to start both packages from one state.
+
+`from_jax_gp(arrays)` does the same for a JAX `GPState` (numpy leaves):
+every field, `mask`, `ls_cat` and the optional `kinv` included, so the
+tests score both packages from one fit.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from .device import DeviceLike, resolve_device
 from .driver.history import HistState
 from .engine.fused import EngineState
 from .space.spec import CandBatch, Space
+from .surrogate.gp import GPState
 from .techniques.base import Best
 from .techniques.de import DEState
 from .techniques.simplex import SimplexState
@@ -87,3 +92,14 @@ def from_jax_state(space: Space, arrays: Any, seed: int = 0,
         rng.generator(seed, device), _t(arrays.evals, i32, device),
         _t(arrays.acqs, i32, device), _t(arrays.arm_pulls, i32, device),
         _t(arrays.arm_hits, i32, device))
+
+
+def from_jax_gp(arrays: Any, device: DeviceLike = "cuda") -> GPState:
+    """A JAX GPState (numpy leaves) -> the port's GPState on `device`."""
+    device = resolve_device(device)
+    f32 = torch.float32
+    return GPState(*(_t(getattr(arrays, name), f32, device)
+                     for name in ("x", "alpha", "chol", "y_mean", "y_std",
+                                  "lengthscale", "noise", "mask", "ls_cat")),
+                   kinv=(None if arrays.kinv is None
+                         else _t(arrays.kinv, f32, device)))

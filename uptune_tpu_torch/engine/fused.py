@@ -8,11 +8,15 @@ eager PyTorch on one device, and `run` is a Python loop.  One step:
 2. the batch is hashed (`Space.hash_batch`);
 3. the hashes are checked against the device-resident history and
    deduplicated within the batch;
-4. the candidates are evaluated by the device objective;
+4. the candidates are evaluated by the device objective, or by an
+   `eval_fn` (a GP surrogate's acquisition, `engine/batched.py`);
 5. the novel rows are merged into the history — on the card through the
    hand-written merge kernel (`ops/dedup.py`, `csrc/merge.cu`), once per
    commit;
 6. the best folds in and each arm observes its slice.
+
+`propose_topk` ranks a proposal epoch with the fused acquisition top-k
+instead of evaluating it.
 
 Randomness: one `torch.Generator` on the engine's device, seeded from an
 integer in `init`, lives in `EngineState.gen` and advances in place (it
@@ -135,10 +139,28 @@ class FusedEngine:
         return self.objective(self.space.decode_scalars(cands.u),
                               cands.perms)
 
-    def step(self, state: EngineState) -> EngineState:
-        """One fused step: propose, evaluate, commit."""
+    def propose_topk(self, state: EngineState, acq, k: int,
+                     draws: Optional[tuple] = None
+                     ) -> Tuple[tuple, CandBatch, torch.Tensor,
+                                torch.Tensor]:
+        """Propose one epoch and rank it with the fused acquisition
+        top-k.  `acq` is a `StatefulEval` from `surrogate_eval_fn(...,
+        impl="fused")`.  Returns `(new_tstates, cands, vals, idx)`: the
+        [k] utilities, descending, and their candidate rows; the caller
+        gathers `cands[idx]`.  `draws` as for `propose`."""
+        if acq.topk is None:
+            raise ValueError("acq has no topk (need impl='fused')")
+        new_tstates, cands = self.propose(state, draws)
+        vals, idx = acq.topk(cands, acq.aux, k)
+        return new_tstates, cands, vals, idx
+
+    def step(self, state: EngineState, eval_fn=None) -> EngineState:
+        """One fused step: propose, evaluate, commit.  `eval_fn(cands) ->
+        raw` replaces the objective call (a surrogate evaluator, for
+        example)."""
         new_tstates, cands = self.propose(state)
-        return self.commit(state, new_tstates, cands, self.evaluate(cands))
+        raw = self.evaluate(cands) if eval_fn is None else eval_fn(cands)
+        return self.commit(state, new_tstates, cands, raw)
 
     # ------------------------------------------------------------------
     def commit(self, state: EngineState, new_tstates, cands: CandBatch,

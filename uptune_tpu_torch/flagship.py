@@ -9,7 +9,11 @@ rows: 111 + 1 rows at scale 1, 6033 + 7 = 6040 rows at scale 64.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+
+from . import rng
 
 from .device import DeviceLike, resolve_device
 from .engine.fused import FusedEngine, default_arms
@@ -55,3 +59,21 @@ def flagship(scale: int = 1, history_capacity: int = 1 << 15,
         arms.append(PureRandom(batch=pad))
     return FusedEngine(space, flagship_objective(device), arms=arms,
                        history_capacity=history_capacity, device=device)
+
+
+def flagship_surrogate(n_train: int, seed: int = 0,
+                       device: DeviceLike = "cuda"
+                       ) -> Tuple[torch.Tensor, torch.Tensor,
+                                  Tuple[int, int]]:
+    """`n_train` uniform flagship configurations, drawn from `seed`, and
+    their objective: -> (GP features [n_train, 31], targets [n_train],
+    (n_cont, n_cat)) for `gp.fit*`.  The features are 23 continuous lanes
+    (11 numeric, 12 tour positions) and the two categorical lanes one-hot
+    over 4 codes."""
+    device = resolve_device(device)
+    space = flagship_space()
+    cands = space.random(rng.generator(seed, device), n_train)
+    feats = space.surrogate_transform(space.features(cands))
+    y = flagship_objective(device)(space.decode_scalars(cands.u),
+                                   cands.perms)
+    return feats, y, (space.n_cont_features, space.n_cat)

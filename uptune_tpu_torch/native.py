@@ -10,7 +10,8 @@ changed source rebuilds and an unchanged one is reused.
 
 Each kernel is a `Kernel` object, declared in `KERNELS` below, holding its
 library and an integer `launches` that its wrapper increments once per
-launch and nowhere else.
+launch and nowhere else.  Several launchers may share one source (and so
+one library): `csrc/gp_tile.cu` holds four.
 """
 from __future__ import annotations
 
@@ -51,45 +52,110 @@ def find_nvcc() -> str:
 
 
 class Kernel:
-    """One hand-written kernel: its source, C symbol and signature, the
-    loaded library, and the count of launches."""
+    """One hand-written kernel's launcher: its source, C symbol and
+    signature, the TPU kernels it replaces, the loaded library, and the
+    count of launches."""
 
     def __init__(self, name: str, source: str, symbol: str,
-                 argtypes: Sequence, replaces: str):
+                 argtypes: Sequence, replaces: Sequence[str]):
         self.name = name
         self.source = CSRC / source
         self.symbol = symbol
         self.argtypes = list(argtypes)
-        self.replaces = replaces
+        self.replaces = tuple(replaces)     # "path:line" of each TPU kernel
         self.launches = 0
-        self.build_log = ""
+        self._lib = None
         self._fn = None
 
     def library_path(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"{self.source.stem}.{h.hexdigest()[:16]}.so"
+        return library_path(self.source)
+
+    @property
+    def build_log(self) -> str:
+        """nvcc's output (with ptxas's registers and shared memory) for
+        this kernel's library, read back from beside the library, so a
+        reused library reports it as a fresh build does."""
+        log = log_path(self.library_path())
+        return log.read_text() if log.exists() else ""
+
+    def library(self) -> ctypes.CDLL:
+        """The loaded library, built first if needed."""
+        if self._lib is None:
+            build([self])
+            self._lib = ctypes.CDLL(str(self.library_path()))
+        return self._lib
 
     def function(self):
         """The kernel's C launcher, building the library if needed."""
         if self._fn is None:
-            build([self])
-            fn = getattr(ctypes.CDLL(str(self.library_path())), self.symbol)
+            fn = getattr(self.library(), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
+    def query(self, symbol: str, *args: int) -> int:
+        """Call a host-only C function of the library that takes and
+        returns ints (a launch-geometry limit the wrapper checks)."""
+        fn = getattr(self.library(), symbol)
+        fn.argtypes = [ctypes.c_int] * len(args)
+        fn.restype = ctypes.c_int
+        return int(fn(*args))
+
+
+def library_path(source: Path) -> Path:
+    """The library built from `source`: named by a hash of the source and
+    the flags."""
+    h = hashlib.sha256(source.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}.{h.hexdigest()[:16]}.so"
+
+
+def log_path(lib: Path) -> Path:
+    return lib.with_suffix(".log")
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 # Every kernel of the port.  merge_rows(hist_h0, hist_h1, hist_q, hist_age,
 # new_h0, new_h1, new_q, new_age, pos_new, out_h0, out_h1, out_q, out_age,
 # cap, b, stream); its wrapper is `ops/dedup.py::merge_rows_cuda`.
 MERGE = Kernel(
     name="merge_rows", source="merge.cu", symbol="ut_merge_rows",
-    argtypes=[ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_void_p],
-    replaces="uptune_tpu/ops/dedup.py:99")   # _merge_kernel
-KERNELS = (MERGE,)
+    argtypes=[_P] * 13 + [_I, _I, _P],
+    replaces=("uptune_tpu/ops/dedup.py:99",))           # _merge_kernel
+# The four launchers of csrc/gp_tile.cu; wrappers in
+# surrogate/pallas_score.py (A, B) and ops/acquire.py (C, D).
+# Their launch geometry lives in the .cu file alone; the wrappers read
+# it through `Kernel.query`: ut_gp_max_train_rows(f, var) and
+# ut_gp_topk_chunk().
+# A: ut_gp_mean(qc, qk, xc, xk, alpha, mu, b, n, fc, fk, stream)
+GP_MEAN = Kernel(
+    name="gp_mean", source="gp_tile.cu", symbol="ut_gp_mean",
+    argtypes=[_P] * 6 + [_I] * 4 + [_P],
+    replaces=("uptune_tpu/surrogate/pallas_score.py:66",    # _score_kernel
+              "uptune_tpu/surrogate/pallas_score.py:77",    # _mixed
+              "uptune_tpu/surrogate/pallas_score.py:89"))   # _expham
+# B: ut_gp_mean_var(qc, qk, xc, xk, alpha, kinv, mu, q, b, n, fc, fk, stream)
+GP_MEAN_VAR = Kernel(
+    name="gp_mean_var", source="gp_tile.cu", symbol="ut_gp_mean_var",
+    argtypes=[_P] * 8 + [_I] * 4 + [_P],
+    replaces=("uptune_tpu/surrogate/pallas_score.py:107",   # _var_kernel
+              "uptune_tpu/surrogate/pallas_score.py:112",   # _mixed
+              "uptune_tpu/surrogate/pallas_score.py:119"))  # _expham
+# C: ut_acquire_scores(qc, qk, xc, xk, alpha, kinv, params, u, b, n, fc,
+#    fk, kind, stream)
+ACQ_SCORES = Kernel(
+    name="acquire_scores", source="gp_tile.cu", symbol="ut_acquire_scores",
+    argtypes=[_P] * 8 + [_I] * 5 + [_P],
+    replaces=("uptune_tpu/ops/acquire.py:151",))        # _scores_kernel
+# D: ut_acquire_topk(qc, qk, xc, xk, alpha, kinv, params, u, vals, idx, b,
+#    n, fc, fk, kind, ksel, stream)
+ACQ_TOPK = Kernel(
+    name="acquire_topk", source="gp_tile.cu", symbol="ut_acquire_topk",
+    argtypes=[_P] * 10 + [_I] * 6 + [_P],
+    replaces=("uptune_tpu/ops/acquire.py:157",))        # _topk_kernel
+KERNELS = (MERGE, GP_MEAN, GP_MEAN_VAR, ACQ_SCORES, ACQ_TOPK)
 
 
 def reset_launches() -> None:
@@ -98,26 +164,36 @@ def reset_launches() -> None:
 
 
 def build(todo: Optional[Sequence[Kernel]] = None) -> Dict[str, Path]:
-    """Compile the kernels whose library is missing, one `nvcc` per
-    source.  Returns {name: library path}; raises with the compiler's
+    """Compile the libraries that are missing, one `nvcc` per source, all
+    started together.  nvcc's output is kept beside each library
+    (`<library>.log`); a library without its log counts as missing, so
+    every library's registers and shared memory can be read back.
+    Returns {kernel name: library path}; raises with the compiler's
     output if a build fails."""
     todo = KERNELS if todo is None else todo
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for k in todo:
-        out = k.library_path()
-        if out.exists():
+    sources = {k.library_path(): k.source for k in todo}
+    running = []
+    for out, src in sources.items():
+        if out.exists() and log_path(out).exists():
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(k.source)],
+        proc = subprocess.Popen(
+            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        k.build_log = proc.stdout
+        running.append((out, src, tmp, proc))
+    failed = []
+    for out, src, tmp, proc in running:
+        text, _ = proc.communicate()
         if proc.returncode != 0:
             Path(tmp).unlink(missing_ok=True)
-            raise RuntimeError(f"kernel build failed: {k.source.name}: nvcc "
-                               f"exit {proc.returncode}\n{proc.stdout}")
+            failed.append(f"{src.name}: nvcc exit {proc.returncode}\n{text}")
+            continue
+        log_path(out).write_text(text)
         os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return {k.name: k.library_path() for k in todo}
 
 

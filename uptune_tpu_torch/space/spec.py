@@ -303,6 +303,41 @@ class Space:
             parts.append(pos)
         return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
 
+    @property
+    def n_cont_features(self) -> int:
+        """Leading continuous-block width of `surrogate_transform`'s
+        output: the numeric lanes, then every perm position lane."""
+        return (self.n_scalar - self.n_cat) + sum(self.perm_sizes)
+
+    @property
+    def n_surrogate_features(self) -> int:
+        # one-hot blocks are padded to cat_max_codes per lane; a padding
+        # column is 0 on both sides of any distance, so it is inert
+        return self.n_cont_features + self.n_cat * self.cat_max_codes
+
+    def surrogate_transform(self, feats: torch.Tensor) -> torch.Tensor:
+        """`features()` output [..., n_features] -> the GP's features
+        [..., n_surrogate_features]: numeric lanes snapped to their
+        decoded grid (decode, then encode), perm position lanes passed
+        through, and each categorical lane one-hot over cat_max_codes
+        codes, scaled by 1/sqrt(2) so the squared distance over the
+        block is the Hamming distance."""
+        D = self.n_scalar
+        u = feats[..., :D]
+        vals = self.decode_scalars(u)
+        u_snap = self.encode_scalars(vals)
+        dev = feats.device
+        num = torch.as_tensor(self.num_lane_idx, device=dev)
+        parts = [u_snap[..., num], feats[..., D:]]
+        if self.n_cat:
+            codes = vals[..., torch.as_tensor(self.cat_lane_idx, device=dev)]
+            oh = codes[..., None] == torch.arange(
+                self.cat_max_codes, dtype=torch.float32, device=dev)
+            oh = oh.reshape(*codes.shape[:-1],
+                            self.n_cat * self.cat_max_codes)
+            parts.append(oh.to(torch.float32) * float(1.0 / np.sqrt(2)))
+        return torch.cat(parts, dim=-1)
+
     def hash_batch(self, cands: CandBatch) -> torch.Tensor:
         """[B, 2] int64, each holding a u32: the multiply-sum universal
         hash of the canonical lanes, mod 2^32 — bitwise the JAX package's
