@@ -22,15 +22,21 @@ setting is printed.  Phases, each printing one JSON line:
 4. surrogate - the GP of the surrogate path: `fit_auto_bucketed` on 1024
              evaluated flagship configurations (43 Cholesky factorizations
              of 1024^2) and `precompute_kinv`; a padded-bucket state (700
-             real rows in a 1024 bucket) and, at small size, a dense
-             (n_cat = 0) and an all-categorical (n_cont = 0) state;
+             real rows in a 1024 bucket), a 300-row state (N off the
+             tensor-core tiles), and, at small size, a dense (n_cat = 0)
+             and an all-categorical (n_cont = 0) state;
 5. gp_kernels - launchers A-D of csrc/gp_tile.cu against their plain
              versions on the card, at the flagship's 6040 proposal rows
-             against each state (every flag instance launches), every
-             kind, top-k k = 128 and an exact-tie case; max error against
-             the stated tolerance, in the GP's standardized units (the
-             units of the reference's tolerances); then kernel, eager-call, plain and
-             library times and the bound at the main state;
+             against each state (every flag instance launches), and at
+             the near-training case (the 1024 training rows, each
+             continuous lane moved by +-0.01, against the main state,
+             where the sd is smallest); every kind, top-k k = 128, an
+             exact-tie case and a 20000-row top-k whose candidates span
+             several lists; max error against the stated tolerance, in
+             the GP's standardized units (the units of the reference's
+             tolerances); then kernel, eager-call, plain and library
+             times and the bound at the main state (for C and D the
+             3xTF32 tensor-core bound and the f32 one);
 6. engine  - the flagship at scale 64 (6040 rows a step, a 2^15-row
              history): init, one warm step, then the timed steps with the
              launch counts set to 0 just before and read just after; one
@@ -46,7 +52,8 @@ setting is printed.  Phases, each printing one JSON line:
              merge 70); a finite best, valid tours, and the last epoch's
              scores on the card against the same scoring on the CPU;
 9. profile (with --profile) - device time by kernel and the idle share
-             over a few plain and a few surrogate-scored engine steps;
+             over a few plain and a few surrogate-scored engine steps,
+             and the device time of each pass of C and D;
 10. kernels - one entry per kernel: launches on the main path, error
              against the plain version (and, for the GP kernels, its
              largest ratio to the tolerance), times and bound.
@@ -72,6 +79,7 @@ sys.path.insert(0, str(ROOT))
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12    # dense, on the tensor cores
 REPS = 50
 # the engine run: the flagship at the size of the JAX package's TPU
 # headline (bench.py), 6040 rows a step into a 2^15-row history
@@ -87,12 +95,24 @@ TIMED = "cap32768_b6040_full"
 # the manager's smallest pool routed to the fused top-k (propose_batch 128
 # x pool_mult 32 = 4096 = PALLAS_MIN_POOL)
 N_TRAIN, N_PADDED, N_SMALL, TOP_K = 1024, 700, 256, 128
+# a training set whose N is not a multiple of the tensor-core tiles, and
+# how far the near-training queries sit from their training rows (each
+# continuous lane moved by +-NEAR, seeded)
+N_RAGGED, NEAR = 300, 0.01
+# query rows for a top-k whose candidates span several merge groups
+MANY_ROWS = 20000
 SURR_STEPS, TOPK_EPOCHS, FLAT_STEPS = 50, 50, 10
 # tolerances (tests/test_pallas_score.py:31,137-139): the posterior mean,
 # and sd / EI / LCB
 MEAN_TOL = {"rtol": 1e-4, "atol": 1e-5}
 SD_TOL = {"rtol": 1e-3, "atol": 1e-5}
-KIND_TOL = {"mean": MEAN_TOL, "ei": SD_TOL, "lcb": SD_TOL}
+BETA = 2.0
+# a utility is held to the tolerances of the moments it is made of: LCB
+# = -(mean - beta sd) to the mean's plus beta times the sd's, EI (whose
+# derivatives in mean and sd are at most 1 in size) to the mean's plus
+# the sd's; -mean to the mean's
+UTILITY_TOL = {"mean": "mean", "ei": "mean + sd", "lcb": "mean + beta sd"}
+NEAR_CASE = "mixed_n1024_near_training"
 
 
 def emit(obj) -> None:
@@ -264,6 +284,15 @@ def surrogate_phase(dev) -> tuple:
     allcat = gp.precompute_kinv(gp.fit_auto_bucketed(
         xs[:, nc:].contiguous(), ys, max_points=N_TRAIN, n_cont=0,
         n_cat=ncat))
+    ragged = gp.precompute_kinv(gp.fit(
+        x[:N_RAGGED], y[:N_RAGGED], main.lengthscale, main.noise,
+        n_cont=nc, n_cat=ncat, ls_cat=main.ls_cat))
+    # the training rows themselves, each continuous lane moved by +-NEAR:
+    # the posterior sd is small there and k K^-1 cancels the most
+    gen = torch.Generator().manual_seed(SEED + 5)
+    sign = torch.randint(0, 2, (N_TRAIN, nc), generator=gen) * 2.0 - 1.0
+    near = x.clone()
+    near[:, :nc] += NEAR * sign.to(dev)
     cases = {
         "mixed_n1024": (main, xq, float(y.min()), nc, ncat),
         "mixed_n700_in_1024": (padded, xq, float(y[:N_PADDED].min()), nc,
@@ -272,6 +301,9 @@ def surrogate_phase(dev) -> tuple:
                        None, 0),
         "allcat_n256": (allcat, xq[:, nc:].contiguous(), float(ys.min()),
                         0, ncat),
+        "mixed_n300_ragged": (ragged, xq, float(y[:N_RAGGED].min()), nc,
+                              ncat),
+        NEAR_CASE: (main, near.contiguous(), float(y.min()), nc, ncat),
     }
     out = {"phase": "surrogate", "features": int(x.shape[1]),
            "n_cont": nc, "n_cat": ncat, "fit_auto_bucketed_s": fit_s,
@@ -317,18 +349,29 @@ def topk_index_mismatches(iw, vw, ig, tol) -> int:
     return int((ig[apart] != iw[apart]).sum())
 
 
-def gp_bound(b: int, n: int, f: int, var: bool, out_bytes: int) -> dict:
+def gp_bound(b: int, n: int, f: int, var: bool, out_bytes: int,
+             tensor_cores: bool = False) -> dict:
     """The least time for one call: its FLOPs (distances 2BNF, mean 2BN,
     and for the variance kinds k K^-1 2BN^2 plus q 2BN) over the f32 rate,
     or its bytes (queries, training rows, alpha, K^-1, outputs, each once)
-    over HBM's, whichever is larger."""
-    flops = 2 * b * n * f + 2 * b * n + (2 * b * n * n + 2 * b * n
-                                         if var else 0)
+    over HBM's, whichever is larger.  With `tensor_cores` (C and D), k K^-1
+    counts as the 3 x 2BN^2 TF32 FLOPs of the 3xTF32 scheme, which keeps
+    f32's accuracy, at the dense TF32 rate; `bound_f32_ms` is then the
+    f32 bound beside it."""
+    mm = 2 * b * n * n if var else 0
+    rest = 2 * b * n * f + 2 * b * n + (2 * b * n if var else 0)
     nbytes = 4 * (b * f + n * f + n + (n * n if var else 0)) + out_bytes
-    t_ops, t_bytes = flops / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    return {"flops": flops, "bytes": nbytes,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    t_f32 = (mm + rest) / FP32_FLOP_PER_S
+    t_ops = (3 * mm / TF32_FLOP_PER_S + rest / FP32_FLOP_PER_S
+             if tensor_cores else t_f32)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    out = {"flops": mm + rest, "bytes": nbytes,
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    if tensor_cores:
+        out["tf32_flops"] = 3 * mm
+        out["bound_f32_ms"] = max(t_f32, t_bytes) * 1e3
+    return out
 
 
 def gp_kernels_phase(cases) -> tuple:
@@ -337,61 +380,106 @@ def gp_kernels_phase(cases) -> tuple:
     tolerances; then times and bounds at the main state."""
     from uptune_tpu_torch.ops import acquire as acq
     from uptune_tpu_torch.surrogate import pallas_score as ps
-    out = {"phase": "gp_kernels", "tolerances": KIND_TOL,
-           "tolerance_units": "the GP's standardized units: (v - y_mean) "
-                              "/ y_std for means and LCB, v / y_std for "
-                              "sd and EI", "cases": []}
+    out = {"phase": "gp_kernels",
+           "tolerances": {"mean": MEAN_TOL, "sd": SD_TOL, "beta": BETA,
+                          "utilities": UTILITY_TOL},
+           "tolerance_units": "the GP's standardized units: (mean - "
+                              "y_mean) / y_std, sd / y_std; each limit "
+                              "atol + rtol |plain value| per row",
+           "f64": "kernel_f64_err_over_tol / plain_f64_err_over_tol: the "
+                  "kernel's and the plain version's distance from the same "
+                  "function in float64, over the same limits",
+           "cases": []}
     err = {"gp_mean": 0.0, "gp_mean_var": 0.0, "acquire_scores": 0.0,
            "acquire_topk": 0.0}
     over = dict(err)
     bad = []
 
-    def record(case, kernel, what, got, want, tol, st, offset):
-        # in the GP's standardized units (v - offset) / y_std, the units
-        # of the reference's tolerances (its fixtures have y_std ~ 1);
-        # max_abs_err stays in target units
-        e, x = tol_excess(got, want, tol, float(st.y_std), offset)
+    def record(case, kernel, what, got, want, lim, scale, ref):
+        # |got - want| / y_std against the per-row limit in the GP's
+        # standardized units, the units of the reference's tolerances (its
+        # fixtures have y_std ~ 1); max_abs_err stays in target units
+        d = (got.double() - want.double()).abs()
+        e, x = float(d.max()), float((d / scale / lim).max())
         err[kernel] = max(err[kernel], e)
         over[kernel] = max(over[kernel], x)
-        out["cases"].append({"case": case, "kernel": kernel, "what": what,
-                             "max_abs_err": e, "err_over_tol": x})
+        out["cases"].append({
+            "case": case, "kernel": kernel, "what": what, "max_abs_err": e,
+            "err_over_tol": x,
+            "kernel_f64_err_over_tol": float(
+                ((got.double() - ref).abs() / scale / lim).max()),
+            "plain_f64_err_over_tol": float(
+                ((want.double() - ref).abs() / scale / lim).max())})
         if not x <= 1.0:
             bad.append(f"{case} {kernel} {what}: {e} ({x:.3g}x the "
                        f"tolerance)")
 
+    def limit(tol, v):               # atol + rtol |v|, v standardized
+        return tol["atol"] + tol["rtol"] * v.double().abs()
+
     for case, (st, xq, best, nc, ncat) in cases.items():
-        blocks, kinv, params = acq.prep(st, xq, "ei", best, 2.0, nc, ncat)
+        blocks, kinv, params = acq.prep(st, xq, "ei", best, BETA, nc, ncat)
+        ys, ym = float(st.y_std), float(st.y_mean)
 
         def moments(mu_n, q=None):      # (mean, sd) in target units
             return ps.target_moments(mu_n, q, st.noise, st.y_mean, st.y_std)
-        ym = float(st.y_mean)
+        # the same function in float64, from the same float32 operands
+        b64 = [None if t is None else t.double() for t in blocks]
+        mu64, q64 = ps.tile_moments(ps.kernel_tile(*b64[:4]), b64[4],
+                                    kinv.double())
+        m64, s64 = moments(mu64, q64)
+        (mw, sw) = moments(*ps.mean_var_tile_plain(*blocks, kinv))
+        lim = {"mean": limit(MEAN_TOL, (mw - ym) / ys),
+               "sd": limit(SD_TOL, sw / ys)}
+        lim["ei"] = lim["mean"] + lim["sd"]
+        lim["lcb"] = lim["mean"] + BETA * lim["sd"]
         record(case, "gp_mean", "mean", moments(ps.mean_tile_cuda(*blocks))[0],
-               moments(ps.mean_tile_plain(*blocks))[0], MEAN_TOL, st, ym)
-        (mg, sg), (mw, sw) = (moments(*ps.mean_var_tile_cuda(*blocks, kinv)),
-                              moments(*ps.mean_var_tile_plain(*blocks, kinv)))
-        record(case, "gp_mean_var", "mean", mg, mw, MEAN_TOL, st, ym)
-        record(case, "gp_mean_var", "sd", sg, sw, SD_TOL, st, 0.0)
+               moments(ps.mean_tile_plain(*blocks))[0], lim["mean"], ys, m64)
+        mg, sg = moments(*ps.mean_var_tile_cuda(*blocks, kinv))
+        record(case, "gp_mean_var", "mean", mg, mw, lim["mean"], ys, m64)
+        record(case, "gp_mean_var", "sd", sg, sw, lim["sd"], ys, s64)
         for kind in ("mean", "ei", "lcb"):
             kv = None if kind == "mean" else kinv
+            ref = acq.utilities(mu64, None if kind == "mean" else q64,
+                                params.double(), kind)
             record(case, "acquire_scores", kind,
                    acq.scores_cuda(*blocks, kv, params, kind),
                    acq.utilities_plain(*blocks, kv, params, kind),
-                   KIND_TOL[kind], st, 0.0 if kind == "ei" else -ym)
+                   lim[kind], ys, ref)
         vg, ig = acq.topk_cuda(*blocks, kinv, params, "ei", TOP_K)
         vw, iw = acq.topk_plain(*blocks, kinv, params, "ei", TOP_K)
-        record(case, "acquire_topk", f"ei k={TOP_K} values", vg, vw, SD_TOL,
-               st, 0.0)
+        ref = acq.utilities(mu64, q64, params.double(), "ei")[iw.long()]
+        record(case, "acquire_topk", f"ei k={TOP_K} values", vg, vw,
+               lim["ei"][iw.long()], ys, ref)
         miss = topk_index_mismatches(iw, vw / float(st.y_std), ig, SD_TOL)
         out["cases"][-1]["index_mismatches"] = miss
         if miss or not bool((vg[1:] <= vg[:-1]).all()):
             bad.append(f"{case} acquire_topk: {miss} separated ranks with "
                        f"other indices, or values not descending")
 
+    # the near-training case: the smallest sd there, B's sd error and the
+    # largest error of C's and D's sd-carrying utilities (EI, LCB), each
+    # over its tolerance
+    st, xq, _, nc, ncat = cases[NEAR_CASE]
+    blocks, kinv, _ = acq.prep(st, xq, "ei", 0.0, BETA, nc, ncat)
+    sd = ps.target_moments(*ps.mean_var_tile_plain(*blocks, kinv), st.noise,
+                           st.y_mean, st.y_std)[1]
+    out["near_training"] = {
+        "rows": int(xq.shape[0]), "shift": NEAR,
+        "min_sd_over_y_std": float(sd.min() / st.y_std),
+        "sd_err_over_tol": max(c["err_over_tol"] for c in out["cases"]
+                               if c["case"] == NEAR_CASE
+                               and c["what"] == "sd"),
+        "ei_lcb_err_over_tol": max(c["err_over_tol"] for c in out["cases"]
+                                   if c["case"] == NEAR_CASE
+                                   and c["kernel"].startswith("acquire")
+                                   and c["what"] != "mean")}
+
     # exact ties: every query row twice, at i and i + half
     st, xq, best, nc, ncat = cases["mixed_n1024"]
     half = xq.shape[0] // 2
     blocks, kinv, params = acq.prep(
-        st, torch.cat([xq[:half], xq[:half]]), "ei", best, 2.0, nc, ncat)
+        st, torch.cat([xq[:half], xq[:half]]), "ei", best, BETA, nc, ncat)
     vg, ig = acq.topk_cuda(*blocks, kinv, params, "ei", TOP_K)
     vw, iw = acq.topk_plain(*blocks, kinv, params, "ei", TOP_K)
     tie = {"case": "mixed_n1024_duplicated_rows", "kernel": "acquire_topk",
@@ -405,6 +493,33 @@ def gp_kernels_phase(cases) -> tuple:
     if not (tie["pairs_tied"] and tie["lowest_first"]) or \
             tie["index_mismatches"]:
         bad.append(f"exact-tie top-k: {tie}")
+
+    # more rows than one merge group holds (D then writes several lists
+    # and the wrapper merges them): the query rows four times over, cut
+    # to MANY_ROWS, so exact ties also span groups
+    b0 = xq.shape[0]
+    blocks, kinv, params = acq.prep(st, torch.cat([xq] * 4)[:MANY_ROWS],
+                                    "ei", best, BETA, nc, ncat)
+    vg, ig = acq.topk_cuda(*blocks, kinv, params, "ei", TOP_K)
+    vw, iw = acq.topk_plain(*blocks, kinv, params, "ei", TOP_K)
+    runs = torch.split(ig.long(), torch.unique_consecutive(
+        vg, return_counts=True)[1].tolist())
+    many = {"case": f"mixed_n1024_{MANY_ROWS}_rows", "kernel": "acquire_topk",
+            "what": "several candidate lists",
+            "candidate_slots": acq.TOPK_KERNEL.query(
+                "ut_acquire_topk_slots", MANY_ROWS, TOP_K),
+            "ties_lowest_first": all(
+                bool((r[1:] > r[:-1]).all()) and bool((r % b0 == r[0] % b0).all())
+                for r in runs),
+            "values_max_err_over_tol": float(
+                ((vg.double() - vw.double()).abs() / float(st.y_std)
+                 / (SD_TOL["atol"] + SD_TOL["rtol"]
+                    * (vw.double() / float(st.y_std)).abs())).max())}
+    out["cases"].append(many)
+    if not (many["ties_lowest_first"] and many["values_max_err_over_tol"] <= 1
+            and many["candidate_slots"] > TOP_K
+            and bool((vg[1:] <= vg[:-1]).all())):
+        bad.append(f"top-k over several lists: {many}")
     torch.cuda.synchronize()
     if bad:
         emit(out)
@@ -413,20 +528,22 @@ def gp_kernels_phase(cases) -> tuple:
 
     # times at the main state: B = 6040, N = 1024, F = 31, EI, k = 128
     st, xq, best, nc, ncat = cases["mixed_n1024"]
-    blocks, kinv, params = acq.prep(st, xq, "ei", best, 2.0, nc, ncat)
+    blocks, kinv, params = acq.prep(st, xq, "ei", best, BETA, nc, ncat)
     b, f = xq.shape
     n = st.x.shape[0]
     shape = f"B={b} N={n} F={f} (Fc={nc} Fk={f - nc})"
     # the launch geometry the library reports: the largest N at F
     # features must cover the manager's largest bucket (N_TRAIN)
-    out["max_train_rows"] = ps.MEAN_VAR_KERNEL.query(
-        "ut_gp_max_train_rows", f, 1)
-    out["topk_chunk"] = acq.TOPK_KERNEL.query("ut_gp_topk_chunk")
-    if out["max_train_rows"] < N_TRAIN:
-        emit(out)
-        raise AssertionError(f"the variance launchers take at most "
-                             f"{out['max_train_rows']} training rows at "
-                             f"F={f}, fewer than {N_TRAIN}")
+    for kern in (ps.MEAN_VAR_KERNEL, acq.SCORES_KERNEL):
+        out[f"{kern.name}_max_train_rows"] = lim = kern.query(kern.limit, f, 1)
+        if lim < N_TRAIN:
+            emit(out)
+            raise AssertionError(f"{kern.name} takes at most {lim} training "
+                                 f"rows at F={f}, fewer than {N_TRAIN}")
+    out["acquire_topk_slots"] = acq.TOPK_KERNEL.query(
+        "ut_acquire_topk_slots", b, TOP_K)
+    out["acquire_scratch_bytes"] = 4 * acq.scratch_words(
+        acq.TOPK_KERNEL, b, n, "ei", TOP_K)
 
     def lib_mean():                  # the materialized [B, N] cross-kernel
         return ps.tile_moments(ps.kernel_tile(*blocks[:4]), blocks.alpha)[0]
@@ -446,13 +563,13 @@ def gp_kernels_phase(cases) -> tuple:
             lambda: acq.scores_cuda(*blocks, kinv, params, "ei"),
             lambda: acq.utilities_plain(*blocks, kinv, params, "ei"),
             lambda: acq.utilities_ref(*blocks, kinv, params, "ei"),
-            gp_bound(b, n, f, True, 4 * b + 20), shape + " kind=ei"),
+            gp_bound(b, n, f, True, 4 * b + 20, True), shape + " kind=ei"),
         "acquire_topk": (
             lambda: acq.topk_cuda(*blocks, kinv, params, "ei", TOP_K),
             lambda: acq.topk_plain(*blocks, kinv, params, "ei", TOP_K),
             lambda: acq.select_topk(
                 acq.utilities_ref(*blocks, kinv, params, "ei"), TOP_K),
-            gp_bound(b, n, f, True, 8 * TOP_K + 20),
+            gp_bound(b, n, f, True, 8 * TOP_K + 20, True),
             shape + f" kind=ei k={TOP_K}"),
     }
     times = {}
@@ -462,6 +579,9 @@ def gp_kernels_phase(cases) -> tuple:
                            ms=median_ms(kern), call_ms=call_ms(kern),
                            plain_ms=median_ms(plain),
                            library_ms=median_ms(lib))
+    for name in ("acquire_scores", "acquire_topk"):
+        times[name]["ms_over_gp_mean_var_ms"] = (times[name]["ms"]
+                                                 / times["gp_mean_var"]["ms"])
     out["timed"] = times
     emit(out)
     return out, times
@@ -692,7 +812,9 @@ def ptxas_summary(log: str) -> list:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            short = re.search(r"(merge_rows_kernel|topk_select_kernel|"
+            short = re.search(r"(merge_rows_kernel|kinv_prep_kernel|"
+                              r"wq_kernel|topk_merge_kernel|final_kernelILb\dE|"
+                              r"krows_kernelILb\dELb\dELb\dE|"
                               r"gp_tile_kernelILb\dELb\dELb\dELi\dE)",
                               m.group(1))
             fn = short.group(1) if short else m.group(1)
@@ -729,6 +851,36 @@ def profile_phase(eng, st, ms_per_step: float, steps: int = 5,
           "top": [{"name": k[:90], "device_us_per_step": us / steps,
                    "count_per_step": n / steps}
                   for us, k, n in rows[:20]]})
+
+
+def passes_profile(cases, calls: int = 10) -> None:
+    """Device time by kernel of C's and D's passes at the main state: a
+    torch.profiler window over `calls` calls of each launcher."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from uptune_tpu_torch.ops import acquire as acq
+    st, xq, best, nc, ncat = cases["mixed_n1024"]
+    blocks, kinv, params = acq.prep(st, xq, "ei", best, BETA, nc, ncat)
+    runs = {"acquire_scores": lambda: acq.scores_cuda(*blocks, kinv, params,
+                                                      "ei"),
+            "acquire_topk": lambda: acq.topk_cuda(*blocks, kinv, params, "ei",
+                                                  TOP_K)}
+    for name, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = sorted(((e.self_device_time_total, e.key, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA), reverse=True)
+        emit({"phase": "profile", "path": f"{name}_passes", "calls": calls,
+              "device_us_per_call": sum(r[0] for r in rows) / calls,
+              "passes": [{"name": k[:90], "device_us_per_call": us / calls,
+                          "count_per_call": c / calls}
+                         for us, k, c in rows]})
 
 
 # -- main --------------------------------------------------------------------------
@@ -772,6 +924,7 @@ def main() -> int:
         profile_phase(eng, st, engine["ms_per_step"])
         profile_phase(eng, st_s, surr["fused_ms_per_step"], eval_fn=ev,
                       name="surrogate_engine")
+        passes_profile(cases)
 
     entries = []
     for k in kernels:
@@ -796,7 +949,9 @@ def main() -> int:
             ms=t["ms"],
             kernel_ms=t["ms"], call_ms=t["call_ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            **{key: t[key] for key in ("bound_f32_ms", "ms_over_gp_mean_var_ms")
+               if key in t}))
     emit({"kernels": entries})
     torch.cuda.synchronize()
     print(smi, flush=True)

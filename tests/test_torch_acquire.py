@@ -228,3 +228,148 @@ def test_wrappers_refuse_training_rows_over_the_librarys_limit(monkeypatch):
     tps.check_train_rows(native.GP_MEAN_VAR, 7, 8, False)
     assert asked == [("ut_gp_max_train_rows", (31, 1))] * 2 + [
         ("ut_gp_max_train_rows", (8, 0))]
+
+
+# -- launcher D's two-level selection, in plain torch ---------------------------------
+def sort_pairs(v, i):
+    """(value desc, index asc), the order of D's bitonic networks."""
+    o = torch.sort(i, stable=True).indices
+    v, i = v[o], i[o]
+    o = torch.sort(v, descending=True, stable=True).indices
+    return v[o], i[o]
+
+
+def chunked_topk(u, k, chunk, group):
+    """What D does on the card, step by step: each `chunk` rows (rows past
+    B enter as (-inf, index)) keep their min(k, chunk) best; each `group`
+    such lists (slots past their entries filled with (-inf, INT_MAX))
+    keep min(k, group k1); the wrapper's stable sort over the lists
+    unless there is one list of k, then the clamp of unfilled lanes to
+    B - 1.  On the card chunk is 256 and group 8192 // min(k, 256)."""
+    b = u.shape[0]
+    n1, k1 = -(-b // chunk), min(k, chunk)
+    v = torch.full((n1 * chunk,), float("-inf"))
+    v[:b] = u
+    i = torch.arange(n1 * chunk, dtype=torch.int32)
+    lists = [sort_pairs(v[c * chunk:(c + 1) * chunk],
+                     i[c * chunk:(c + 1) * chunk]) for c in range(n1)]
+    lists = [(lv[:k1], li[:k1]) for lv, li in lists]
+    k2 = min(k, group * k1)
+    vals, idx = [], []
+    for g in range(0, n1, group):
+        gv = torch.cat([lv for lv, _ in lists[g:g + group]])
+        gi = torch.cat([li for _, li in lists[g:g + group]])
+        pad = group * k1 - gv.numel()
+        gv = torch.cat([gv, torch.full((pad,), float("-inf"))])
+        gi = torch.cat([gi, torch.full((pad,), 2**31 - 1, dtype=torch.int32)])
+        gv, gi = sort_pairs(gv, gi)
+        vals.append(gv[:k2])
+        idx.append(gi[:k2])
+    vals, idx = torch.cat(vals), torch.cat(idx)
+    if vals.numel() != k:
+        vals, pos = tacq.select_topk(vals, k)
+        idx = idx[pos.long()]
+    return vals, torch.clamp_max(idx, b - 1)
+
+
+@pytest.mark.parametrize("b,k,chunk,group", [
+    (1, 1, 256, 8192), (7, 7, 4, 2), (300, 5, 16, 2), (1000, 128, 256, 8),
+    (6040, 128, 256, 64), (6040, 300, 256, 32), (2049, 2049, 256, 32),
+    (517, 40, 16, 4), (20000, 1, 256, 8192)])
+def test_chunked_selection_matches_select_topk(b, k, chunk, group):
+    """D's selection, whatever its chunk and group sizes, gives the
+    order of one stable sort: values descending, exact ties to the lowest
+    index, with -inf utilities in the tail."""
+    rng = np.random.RandomState(b + k + chunk)
+    u = np.round(rng.randn(b), 2).astype(np.float32)    # many exact ties
+    u[rng.randint(0, b, b // 3)] = u.max()              # ties at the top
+    u[rng.rand(b) < 0.1] = -np.inf
+    vt, it = chunked_topk(torch.from_numpy(u), k, chunk, group)
+    vw, iw = tacq.select_topk(torch.from_numpy(u), k)
+    torch.testing.assert_close(vt, vw, rtol=0, atol=0)
+    assert torch.equal(it, iw)
+
+
+# -- the C and D wrappers' checks, on any device ---------------------------------------
+def geometry(monkeypatch, words=1000, limit=2**31 - 1):
+    """Stand in for the library's queries; returns the list of asks."""
+    from uptune_tpu_torch import native
+    asked = []
+    answers = {"ut_acquire_scratch_words": words,
+               "ut_acquire_max_train_rows": limit,
+               "ut_gp_max_train_rows": 3584}
+
+    def query(symbol, *args, **kw):
+        asked.append((symbol, args))
+        return answers[symbol]
+    for kern in (native.ACQ_SCORES, native.ACQ_TOPK, native.GP_MEAN_VAR):
+        monkeypatch.setattr(kern, "query", query)
+    return asked
+
+
+def test_acquire_wrappers_refuse_wrong_operand_shapes(mixed):
+    """Shapes, dtypes and the scalar pack are checked before the device,
+    so a wrong operand is named on the CPU too."""
+    _, st, xq, best, nc, ncat = mixed
+    blocks, kinv, params = tacq.prep(st, T(xq), "ei", best, 2.0, nc, ncat)
+    qc, qk, xc, xk, alpha = blocks
+    with pytest.raises(ValueError, match="kinv has shape"):
+        tacq.scores_cuda(*blocks, kinv[:-1], params, "ei")
+    with pytest.raises(ValueError, match="xk has shape"):
+        tacq.topk_cuda(qc, qk, xc, xk[:-1], alpha, kinv, params, "ei", 3)
+    with pytest.raises(ValueError, match="qk has shape"):
+        tacq.scores_cuda(qc, qk[:-1], xc, xk, alpha, kinv, params, "lcb")
+    with pytest.raises(TypeError, match="xc is torch.float64"):
+        tacq.topk_cuda(qc, qk, xc.double(), xk, alpha, kinv, params, "ei", 3)
+    with pytest.raises(ValueError, match="params must be"):
+        tacq.topk_cuda(*blocks, kinv, params[:4], "ei", 3)
+    with pytest.raises(ValueError, match="takes kinv None"):
+        tacq.scores_cuda(*blocks, kinv, params, "mean")
+    with pytest.raises(ValueError, match="k must be"):
+        tacq.topk_cuda(*blocks, kinv, params, "ei", 0)
+
+
+def test_acquire_wrappers_refuse_a_wrong_scratch(mixed, monkeypatch):
+    """A given scratch is held to the library's size, dtype, layout and
+    device before the launch; a right one passes to the device check."""
+    _, st, xq, best, nc, ncat = mixed
+    blocks, kinv, params = tacq.prep(st, T(xq), "ei", best, 2.0, nc, ncat)
+    asked = geometry(monkeypatch, words=1000)
+    bad = [torch.empty(999), torch.empty(1000, dtype=torch.float64),
+           torch.empty(10, 100), torch.empty(2000)[::2]]
+    for scratch in bad:
+        with pytest.raises(ValueError, match="scratch must be"):
+            tacq.scores_cuda(*blocks, kinv, params, "ei", scratch=scratch)
+        with pytest.raises(ValueError, match="scratch must be"):
+            tacq.topk_cuda(*blocks, kinv, params, "ei", 9, scratch=scratch)
+    for run in (lambda s: tacq.scores_cuda(*blocks, None, params, "mean",
+                                           scratch=s),
+                lambda s: tacq.topk_cuda(*blocks, kinv, params, "lcb", 9,
+                                         scratch=s)):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            run(torch.empty(1000))
+    b, n = xq.shape[0], kinv.shape[0]
+    assert ("ut_acquire_scratch_words", (b, n, 1, 0)) in asked
+    assert ("ut_acquire_scratch_words", (b, n, 1, 9)) in asked
+    assert ("ut_acquire_scratch_words", (b, n, 0, 0)) in asked
+
+
+def test_acquire_launchers_take_n_above_the_tile_limit(monkeypatch):
+    """C and D keep nothing of size N in shared memory: where the library
+    reports no limit they take an N that B's tile (3584 at F = 31) does
+    not, and the scratch is sized by the library."""
+    from uptune_tpu_torch import native
+    asked = geometry(monkeypatch, words=77)
+    monkeypatch.setattr(tacq, "require_cuda", lambda kernel, dev: None)
+    n, b, fc, fk = 3600, 8, 23, 8
+    g = np.random.RandomState(0)
+    ops = [torch.from_numpy(g.rand(*s).astype(np.float32))
+           for s in ((b, fc), (b, fk), (n, fc), (n, fk), (n,))]
+    kinv = torch.zeros(n, n)
+    params = torch.zeros(5)
+    for kern, k in ((native.ACQ_SCORES, None), (native.ACQ_TOPK, 5)):
+        dims = tacq._check_launch(kern, "ei", *ops, kinv, params, None, k)
+        assert dims[:4] == (b, n, fc, fk) and dims[4].shape == (77,)
+    assert ("ut_acquire_max_train_rows", (31, 1)) in asked
+    with pytest.raises(ValueError, match=r"N=3600 .*\(at most 3584\)"):
+        tps.check_train_rows(native.GP_MEAN_VAR, n, 31, True)

@@ -1,7 +1,7 @@
-// Fused GP scoring and acquisition tiles, for Hopper (sm_90a).
+// Fused GP scoring and acquisition kernels, for Hopper (sm_90a).
 //
-// One templated tile routine and four launchers.  They replace the eight
-// Pallas TPU kernels of the surrogate and acquisition path:
+// Four launchers.  They replace the eight Pallas TPU kernels of the
+// surrogate and acquisition path:
 //   A  ut_gp_mean        uptune_tpu/surrogate/pallas_score.py:66
 //                        _score_kernel, :77 _score_kernel_mixed, :89
 //                        _score_kernel_expham              -> mu_n [B]
@@ -10,13 +10,13 @@
 //                                                          -> mu_n, q [B]
 //   C  ut_acquire_scores uptune_tpu/ops/acquire.py:151 _scores_kernel
 //                                             -> EI / -LCB / -mean [B]
-//   D  ut_acquire_topk   acquire.py:157 _topk_kernel -> per-chunk top-k
+//   D  ut_acquire_topk   acquire.py:157 _topk_kernel -> top-k candidates
 // The TPU's `_expham`/`_mixed` variants exist only because a zero-width
 // block does not lower through Mosaic; here the compile-time flags kCont
 // and kCat cover them.
 //
-// The tile function (the JAX `_utility_tile`): for query row r and
-// training row n,
+// The function (the JAX `_utility_tile`): for query row r and training
+// row n,
 //   k[r, n] = matern52(|qc_r - xc_n|^2) * exp(-|qk_r - xk_n|^2)
 // (the continuous block pre-scaled by 1/ls, the one-hot block by
 // sqrt(1/(n_cat ls_cat)), alpha and K^-1 premasked by the caller), then
@@ -25,31 +25,54 @@
 // and one epilogue.  Distances sum (a - b)^2 directly, which is more
 // exact than the |a|^2 + |b|^2 - 2ab identity the plain version follows.
 //
-// Design.  A block of kThreads threads holds kRows query rows.  Phase 1:
-// each thread takes training rows n = tid, tid + kThreads, ...; for each
-// it accumulates the kRows distances (the query rows sit in shared
-// memory and are read as broadcasts), forms k, adds k * alpha[n] to its
-// kRows partial means and, for the variance kinds, stores k in the
-// block's [kRows, N] shared tile (64 KB at N = 1024; dynamic shared
-// memory above 48 KB).  Phase 2 (variance kinds): K^-1 streams through
-// the block once, in passes of kThreads * kCols columns; each thread
-// keeps kRows x kCols accumulators of w = k K^-1 in registers, reads
-// K^-1 rows coalesced and the k tile as float4 broadcasts (16 FMAs per
-// shared load), and folds w * k into its partial q.  Per-row sums reduce
-// over warps (shuffles) and then over the block, in a fixed order, so a
-// row's result does not depend on where it sits: duplicated query rows
-// tie exactly.  Launcher D writes the utilities to a scratch vector, then
-// a selection kernel sorts each 1024-row chunk by (value desc, index asc)
-// with a bitonic network in shared memory and writes its first ksel
-// entries; the wrapper merges the chunks with one stable sort.
+// A and B: one tile routine.  A block of kThreads threads holds kRows
+// query rows.  Phase 1: each thread takes training rows n = tid, tid +
+// kThreads, ...; for each it accumulates the kRows distances (the query
+// rows sit in shared memory and are read as broadcasts), forms k, adds
+// k * alpha[n] to its kRows partial means and, for B, stores k in the
+// block's [kRows, N] shared tile (64 KB at N = 1024).  Phase 2 (B): K^-1
+// streams through the block once, in passes of kThreads * kCols columns,
+// on CUDA cores; each thread keeps kRows x kCols accumulators of
+// w = k K^-1 and folds w * k into its partial q.  Bound (B = 6040 queries,
+// N = 1024, F = 31): 2BN^2 = 12.7 GFLOP at the f32 rate, 67 TFLOP/s,
+// about 0.195 ms; A's 2BNF FLOP take about 6 us at that rate.
 //
-// Bound (B = 6040 queries, N = 1024, F = 31).  The variance kinds do
-// 2BN^2 FLOP for k K^-1 (12.7 GFLOP) against about 5 MB of input: bound
-// by the f32 (non-tensor-core) rate, 67 TFLOP/s, about 0.195 ms.  The
-// design keeps the [B, N] products out of device memory, but every block
-// re-reads K^-1 (4 MB) from L2 and the FMAs run on CUDA cores, not
-// tensor cores; a tensor-core (TF32 or 3xTF32) redesign is later work.
-// The mean kinds do 2BNF FLOP (0.4 GFLOP, about 6 us at that rate).
+// C and D: the same function in passes through a scratch buffer the
+// wrapper allocates (the kernels allocate nothing).
+//   1. kinv_prep: K^-1 [N, N] -> its transpose, zero-padded to [Np, Np]
+//      (Np = N rounded up to kTileN) and split into TF32 hi and lo planes:
+//      wgmma takes TF32 operands K-major only, and K^-1 from cho_solve is
+//      symmetric only to rounding, so it is transposed, not read as K^-T.
+//   2. krows: the kernel rows k [Bp, Np] (zero outside B x N) and the
+//      mean's partial sums, one per kTileN-column tile, each reduced in
+//      one fixed order (a warp shuffle tree, then the warps in turn).
+//   3. wq: W = k K^-1 on the tensor cores in 3xTF32, wgmma m64n128k8:
+//      k (in registers) and K^-T (in shared memory) each stand as a TF32
+//      high part plus a TF32 residual, and every 8-deep step adds lo*hi
+//      and hi*lo before hi*hi; each 32-deep stage's products go into a
+//      fresh f32 accumulator that is then added to the total, since the
+//      tensor cores' sums truncate.  Single TF32 misses the sd tolerance
+//      near the training rows; this scheme lands nearer the float64
+//      result than the f32 plain version.  A block holds a kTileM x
+//      kTileN tile of W; k and K^-T tiles stream through shared memory
+//      with cp.async, kStages deep, 128-byte swizzled; mbarriers, not
+//      block barriers, pace the stages, so the two warpgroups drift
+//      apart and the tensor cores take one's products while the other
+//      adds.  The epilogue folds W * k over the block's columns into one
+//      partial q per row ([Np / kTileN, Bp]); W never leaves registers.
+//   4. final: each row's partials summed in tile order, then the utility
+//      (EI / -LCB / -mean).  For D the same pass sorts each kSel-row chunk
+//      by (value desc, index asc) in shared memory and keeps its best
+//      min(k, kSel); then topk_merge ranks every kept entry within its
+//      group of lists (binary searches in the other lists) and writes the
+//      group's best min(k, ...) in order.  At B = 6040, k = 128 that is
+//      one group: D's output is the top k, and the wrapper sorts nothing.
+// Every row's k, partial sums and utility follow one order whatever its
+// place in a tile, with no atomics, so duplicated query rows tie bitwise.
+// Bound of C and D (B = 6040, N = 1024, F = 31): 3 x 2BN^2 = 38 GFLOP of
+// TF32 at 495 TFLOP/s dense, plus the distances, mean and q at the f32
+// rate: about 0.083 ms.  K^-1 is read from L2 once per kTileM query rows
+// (48 times) where B's tile reads it once per kRows (378 times).
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -59,16 +82,30 @@
 
 namespace {
 
-constexpr int kRows = 16;          // query rows per block
+constexpr int kRows = 16;          // A and B: query rows per block
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 4;           // K^-1 columns per thread per pass
-constexpr int kChunk = 1024;       // rows per top-k selection block
-constexpr int kSelThreads = 512;
+constexpr int kCols = 4;           // B: K^-1 columns per thread per pass
 constexpr int kMaxShared = 232448;  // one block's shared memory on Hopper
 constexpr int kMaxDevices = 64;
 
-enum Epilogue { kStoreMean = 0, kStoreMeanQ = 1, kUtility = 2 };
+// C and D
+constexpr int kTileM = 128;        // query rows of one W tile
+constexpr int kTileN = 128;        // K^-1 columns of one W tile
+constexpr int kTileK = 32;         // depth of one pipeline stage
+constexpr int kStages = 4;
+constexpr int kLdA = kTileK + 4;   // k rows' shared stride: conflict-free
+                                   // A fragment loads
+// one stage: the k tile, then the K^-T hi and lo tiles
+constexpr int kStageWords = kTileM * kLdA + 2 * kTileN * kTileK;
+// the stages, then a "full" and an "empty" mbarrier per stage
+constexpr int kWqShared = kStages * kStageWords * 4 + 2 * kStages * 8;
+constexpr int kKRows = 32;         // query rows of one krows block
+constexpr int kSel = 256;          // rows of one first-level selection
+constexpr int kMergeSlots = 8192;  // candidates one merge block ranks
+constexpr int kMergeShared = kMergeSlots * 8;
+
+enum Epilogue { kStoreMean = 0, kStoreMeanQ = 1 };
 enum Kind { kKindMean = 0, kKindEI = 1, kKindLCB = 2 };
 
 __device__ __forceinline__ float matern52(float d2) {
@@ -101,14 +138,14 @@ __device__ __forceinline__ float block_sum(const float (&part)[kRows],
   return tot;
 }
 
-// params: noise, y_mean, y_std, best_y, beta (the JAX (1, 8) scalar pack)
+// A and B
 template <bool kCont, bool kCat, bool kVar, int kEpi>
 __global__ void __launch_bounds__(kThreads) gp_tile_kernel(
     const float* __restrict__ qc, const float* __restrict__ qk,
     const float* __restrict__ xc, const float* __restrict__ xk,
     const float* __restrict__ alpha, const float* __restrict__ kinv,
-    const float* __restrict__ params, float* __restrict__ out0,
-    float* __restrict__ out1, int b, int n, int fc, int fk, int kind) {
+    float* __restrict__ out0, float* __restrict__ out1, int b, int n,
+    int fc, int fk) {
   extern __shared__ __align__(16) float smem[];
   const int f = fc + fk;
   const int np = (n + 3) & ~3;
@@ -238,29 +275,445 @@ __global__ void __launch_bounds__(kThreads) gp_tile_kernel(
 
   const int r = row0 + threadIdx.x;
   if (threadIdx.x >= kRows || r >= b) return;
-  if (kEpi == kStoreMean) {
-    out0[r] = mu_n;
-  } else if (kEpi == kStoreMeanQ) {
-    out0[r] = mu_n;
-    out1[r] = q_tot;
-  } else {
-    const float noise = params[0], y_mean = params[1], y_std = params[2];
-    const float best_y = params[3], beta = params[4];
-    const float mu = mu_n * y_std + y_mean;
-    float u = -mu;
-    if (kind != kKindMean) {
-      const float sd = sqrtf(fmaxf(1.0f + noise - q_tot, 1e-9f)) * y_std;
-      if (kind == kKindEI) {
-        const float s = fmaxf(sd, 1e-9f);
-        const float z = (best_y - mu) / s;
-        const float pdf = expf(-0.5f * z * z) / 2.5066282746310002f;
-        const float cdf = 0.5f * (1.0f + erff(z / 1.4142135623730951f));
-        u = (best_y - mu) * cdf + s * pdf;
-      } else {
-        u = -(mu - beta * sd);
+  out0[r] = mu_n;
+  if (kEpi == kStoreMeanQ) out1[r] = q_tot;
+}
+
+// -- C and D ------------------------------------------------------------------
+
+// The utility of one row from its moments; params: noise, y_mean, y_std,
+// best_y, beta (the JAX (1, 8) scalar pack)
+__device__ __forceinline__ float utility(float mu_n, float q,
+                                         const float* __restrict__ params,
+                                         int kind) {
+  const float noise = params[0], y_mean = params[1], y_std = params[2];
+  const float best_y = params[3], beta = params[4];
+  const float mu = mu_n * y_std + y_mean;
+  if (kind == kKindMean) return -mu;
+  const float sd = sqrtf(fmaxf(1.0f + noise - q, 1e-9f)) * y_std;
+  if (kind == kKindEI) {
+    const float s = fmaxf(sd, 1e-9f);
+    const float z = (best_y - mu) / s;
+    const float pdf = expf(-0.5f * z * z) / 2.5066282746310002f;
+    const float cdf = 0.5f * (1.0f + erff(z / 1.4142135623730951f));
+    return (best_y - mu) * cdf + s * pdf;
+  }
+  return -(mu - beta * sd);
+}
+
+// x rounded to TF32 (10 fraction bits), to nearest with ties away from
+// zero: what cvt.rna.tf32.f32 gives for finite x, in two integer
+// operations where the conversion unit runs at a fraction of the rate
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, both TF32; hi carries x's first 11 significant bits, lo
+// the next 11
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// K^-1 [n, n] -> the zero-padded transpose [np, np] split in two TF32
+// planes: hi[c][r] + lo[c][r] = K^-1[r][c] to 22 significant bits.  A
+// 32 x 32 tile goes through shared memory, so reads and writes coalesce.
+__global__ void __launch_bounds__(kThreads) kinv_prep_kernel(
+    const float* __restrict__ kinv, int n, int np, float* __restrict__ hi,
+    float* __restrict__ lo) {
+  __shared__ float t[32][33];
+  const int r0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int y = ty; y < 32; y += kThreads / 32) {
+    const int r = r0 + y, c = c0 + tx;
+    t[y][tx] = (r < n && c < n) ? kinv[static_cast<size_t>(r) * n + c] : 0.f;
+  }
+  __syncthreads();
+  for (int y = ty; y < 32; y += kThreads / 32) {
+    uint32_t h, l;
+    split_tf32(t[tx][y], h, l);
+    const size_t o = static_cast<size_t>(c0 + y) * np + r0 + tx;
+    hi[o] = __uint_as_float(h);
+    lo[o] = __uint_as_float(l);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+               "l"(src));
+}
+
+// 4 bytes, or a zero when !ok (src is then not read)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// rows [w] floats of a row-major block, read in flat order (coalesced,
+// four loads in flight a thread), into dst[r * rs + j * cs]; rows from
+// `have` on as zeros.  The row of flat index i is (i + 1/2) / w rounded
+// down in float, exact for the blocks here (i < 2^20).
+__device__ __forceinline__ void stage_rows(float* dst, int rs, int cs,
+                                           const float* __restrict__ src,
+                                           int w, int have, int rows) {
+  const float inv = 1.0f / static_cast<float>(w);
+  const int total = rows * w, avail = have * w;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < total; i += kThreads) {
+    const int r = __float2int_rz((static_cast<float>(i) + 0.5f) * inv);
+    const int j = i - r * w;
+    dst[r * rs + j * cs] = i < avail ? src[i] : 0.f;
+  }
+}
+
+// Block (tile t, row block y): kKRows query rows against the kTileN
+// training rows of tile t.  Thread tid takes column tid % kTileN and the
+// kPer rows (tid / kTileN) kPer + i; the query rows sit transposed in
+// shared memory, so one float4 broadcast brings four rows' feature j.
+// Writes k (kStoreK) and the tile's partial mean of each row,
+// mupart[t * bp + row].  The mixed kernel takes one exp:
+// matern52(dc) exp(-dk) = (1 + s5d + 5/3 dc) exp(-(s5d + dk)).
+template <bool kCont, bool kCat, bool kStoreK>
+__global__ void __launch_bounds__(kThreads) krows_kernel(
+    const float* __restrict__ qc, const float* __restrict__ qk,
+    const float* __restrict__ xc, const float* __restrict__ xk,
+    const float* __restrict__ alpha, int b, int n, int fc, int fk, int np,
+    int bp, float* __restrict__ kscr, float* __restrict__ mupart) {
+  constexpr int kPer = kKRows * kTileN / kThreads;  // rows per thread: 16
+  constexpr int kHalves = kThreads / kTileN;
+  extern __shared__ __align__(16) float smem[];
+  const int f = fc + fk, fs = f | 1;        // odd stride: no bank conflicts
+  float* s_q = smem;                        // [f][kKRows]
+  float* s_x = s_q + f * kKRows;            // [kTileN][fs]
+  float* s_red = s_x + kTileN * fs;         // [kWarps][kPer]
+  const int col0 = blockIdx.x * kTileN, row0 = blockIdx.y * kKRows;
+  const int xrows = max(0, min(kTileN, n - col0));
+  const int qrows = max(0, min(kKRows, b - row0));
+  if (kCont) {
+    stage_rows(s_x, fs, 1, xc + static_cast<size_t>(col0) * fc, fc, xrows,
+               kTileN);
+    stage_rows(s_q, 1, kKRows, qc + static_cast<size_t>(row0) * fc, fc,
+               qrows, kKRows);
+  }
+  if (kCat) {
+    stage_rows(s_x + fc, fs, 1, xk + static_cast<size_t>(col0) * fk, fk,
+               xrows, kTileN);
+    stage_rows(s_q + fc * kKRows, 1, kKRows,
+               qk + static_cast<size_t>(row0) * fk, fk, qrows, kKRows);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  const int c = threadIdx.x % kTileN, half = threadIdx.x / kTileN;
+  const int col = col0 + c;
+  float dc[kPer], dk[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) dc[i] = dk[i] = 0.f;
+  for (int j = 0; j < f; ++j) {
+    const float xv = s_x[c * fs + j];
+    const float4* qj = reinterpret_cast<const float4*>(s_q + j * kKRows +
+                                                       half * kPer);
+    float qv[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer / 4; ++i) {
+      const float4 v = qj[i];
+      qv[4 * i] = v.x;
+      qv[4 * i + 1] = v.y;
+      qv[4 * i + 2] = v.z;
+      qv[4 * i + 3] = v.w;
+    }
+    if (kCont && (!kCat || j < fc)) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const float d = qv[i] - xv;
+        dc[i] = fmaf(d, d, dc[i]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const float d = qv[i] - xv;
+        dk[i] = fmaf(d, d, dk[i]);
       }
     }
-    out0[r] = u;
+  }
+  const float a = col < n ? alpha[col] : 0.f;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int r = row0 + half * kPer + i;
+    float k = 0.f;
+    if (col < n && r < b) {
+      if (kCont && kCat) {
+        const float s5d = 2.2360679774997896f * sqrtf(dc[i] + 1e-12f);
+        k = (1.0f + s5d + (5.0f / 3.0f) * dc[i]) * expf(-(s5d + dk[i]));
+      } else if (kCont) {
+        k = matern52(dc[i]);
+      } else {
+        k = expf(-dk[i]);
+      }
+    }
+    if (kStoreK) kscr[static_cast<size_t>(r) * np + col] = k;
+    const float v = warp_sum(k * a);
+    if (lane == 0) s_red[warp * kPer + i] = v;
+  }
+  __syncthreads();
+  // row t sums the warps of its half in column order
+  if (threadIdx.x < kKRows) {
+    const int t = threadIdx.x, h = t / kPer, i = t % kPer;
+    constexpr int kWarpsPerHalf = kWarps / kHalves;
+    float tot = 0.f;
+    for (int w = 0; w < kWarpsPerHalf; ++w) {
+      tot += s_red[(h * kWarpsPerHalf + w) * kPer + i];
+    }
+    mupart[static_cast<size_t>(blockIdx.x) * bp + row0 + t] = tot;
+  }
+}
+
+// The K^-T tiles sit in shared memory in wgmma's 128-byte swizzle: 8
+// rows of kTileK = 32 floats (128 bytes) make a 1024-byte atom, and the
+// 16-byte chunk c of row r within its atom is stored at chunk c ^ (r % 8),
+// so neither the copies in nor the tensor cores' reads collide on a bank.
+constexpr int kAtomWords = 8 * kTileK;        // 256 floats, 1024 bytes
+static_assert(kTileK * 4 == 128, "one 128-byte swizzle row per K tile");
+__device__ __forceinline__ int swizzled(int r, int c4) {
+  return (r >> 3) * kAtomWords + (r & 7) * kTileK + ((c4 ^ (r & 7)) << 2);
+}
+// The wgmma descriptor of such a tile: start address, stride between
+// atoms along N (1024 bytes), 128-byte swizzle.
+__device__ __forceinline__ uint64_t smem_desc(const float* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(kAtomWords * 4 >> 4) << 32) | (1ull << 62);
+}
+
+// Keep a register that an asynchronous wgmma reads or writes live, and
+// in place, up to this point: the compiler does not know the wgmma runs
+// on after its instruction.
+__device__ __forceinline__ void hold(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+__device__ __forceinline__ void hold(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// d (+)= a b over one 64 x 128 x 8 step of the warpgroup: a, TF32, from
+// registers (the m16n8k8 A fragment of this warp's 16 rows), b, TF32,
+// K-major from shared memory; scale_d 0 starts d afresh.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// One stage: k rows [row0, +kTileM) x depth [kk, +kTileK) into sa (row
+// stride kLdA), K^-T hi / lo rows [col0, +kTileN) x depth [kk, +kTileK)
+// into sh / sl, swizzled; 16 bytes a copy.
+__device__ __forceinline__ void wq_load(float* sa, float* sh, float* sl,
+                                        const float* __restrict__ kscr,
+                                        const float* __restrict__ khi,
+                                        const float* __restrict__ klo, int np,
+                                        int row0, int col0, int kk) {
+  constexpr int kChunks = kTileM * kTileK / 4, kPerRow = kTileK / 4;
+  static_assert(kTileM == kTileN && kChunks % kThreads == 0,
+                "whole copies per thread");
+#pragma unroll
+  for (int j = 0; j < kChunks / kThreads; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    const int r = i / kPerRow, c4 = i % kPerRow;
+    cp_async16(sa + r * kLdA + c4 * 4,
+               kscr + static_cast<size_t>(row0 + r) * np + kk + c4 * 4);
+    const size_t src = static_cast<size_t>(col0 + r) * np + kk + c4 * 4;
+    cp_async16(sh + swizzled(r, c4), khi + src);
+    cp_async16(sl + swizzled(r, c4), klo + src);
+  }
+}
+
+// This warp's A fragments of one stage (rows rbase + g, + 8; depth ks * 8
+// + tq, + 4), split into TF32 hi and lo.
+__device__ __forceinline__ void wq_split(const float* sa, int rbase,
+                                         uint32_t (&hi)[kTileK / 8][4],
+                                         uint32_t (&lo)[kTileK / 8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < kTileK / 8; ++ks) {
+    const float* p = sa + (rbase + g) * kLdA + ks * 8 + tq;
+    split_tf32(p[0], hi[ks][0], lo[ks][0]);
+    split_tf32(p[8 * kLdA], hi[ks][1], lo[ks][1]);
+    split_tf32(p[4], hi[ks][2], lo[ks][2]);
+    split_tf32(p[8 * kLdA + 4], hi[ks][3], lo[ks][3]);
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* m, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(m)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* m) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}" ::"r"(
+          smem_u32(m))
+      : "memory");
+}
+// the barrier counts one arrival when this thread's earlier cp.async
+// copies have landed
+__device__ __forceinline__ void mbar_arrive_copies(uint64_t* m) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_u32(m))
+               : "memory");
+}
+// Wait for the phase of the given parity to complete; a wait that never
+// ends is a fault, so it traps (the launch then fails) rather than hang.
+__device__ __forceinline__ void mbar_wait(uint64_t* m, int parity) {
+  uint32_t done = 0;
+  for (long long spin = 0; !done; ++spin) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_u32(m)), "r"(parity)
+        : "memory");
+    if (spin > (1ll << 26)) __trap();
+  }
+}
+
+// Block (column tile t, row tile y): W = k K^-1 over a kTileM x kTileN
+// tile in 3xTF32, then qpart[t * bp + row] = sum over the tile's columns
+// of W * k.  Warpgroup w takes rows 64w + [0, 64) and all kTileN columns
+// in wgmma m64n128k8 steps, A from registers and K^-T from shared memory.
+// Each stage's products start a fresh f32 accumulator that is then added
+// to the total: the tensor cores' sums truncate, and one chain over all
+// of N would miss the sd tolerance near the training rows.  A warpgroup
+// waits for its own products before that add, so the two warpgroups are
+// not tied by a block barrier: a stage's copies complete a "full"
+// mbarrier, and its reuse waits for an "empty" one that every thread
+// arrives on when done with it; the tensor cores then take one
+// warpgroup's products while the other adds and splits.
+__global__ void __launch_bounds__(kThreads, 1) wq_kernel(
+    const float* __restrict__ kscr, const float* __restrict__ khi,
+    const float* __restrict__ klo, int np, int bp,
+    float* __restrict__ qpart) {
+  extern __shared__ __align__(1024) float smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageWords);
+  uint64_t* empty = full + kStages;
+  const int col0 = blockIdx.x * kTileN, row0 = blockIdx.y * kTileM;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int rbase = warp * 16;          // (64 * warpgroup + 16 * warp in it)
+  const int kt_n = np / kTileK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, kThreads);
+      mbar_init(empty + s, kThreads);
+    }
+  }
+  __syncthreads();
+  auto stage = [&](int t) { return smem + (t % kStages) * kStageWords; };
+  // every thread copies its share of tile t and arrives on its "full"
+  // barrier when the copies land
+  auto load = [&](int t) {
+    float* st = stage(t);
+    wq_load(st, st + kTileM * kLdA, st + kTileM * kLdA + kTileN * kTileK,
+            kscr, khi, klo, np, row0, col0, t * kTileK);
+    mbar_arrive_copies(full + t % kStages);
+  };
+
+  float tot[64], acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) tot[i] = acc[i] = 0.f;
+  for (int t = 0; t < kStages - 1 && t < kt_n; ++t) load(t);
+  uint32_t ahi[kTileK / 8][4], alo[kTileK / 8][4];
+  for (int kt = 0; kt < kt_n; ++kt) {
+    // the (kt / kStages)-th use of this stage has landed
+    mbar_wait(full + kt % kStages, (kt / kStages) & 1);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    wq_split(stage(kt), rbase, ahi, alo);
+    const float* sh = stage(kt) + kTileM * kLdA;
+    const uint64_t dh = smem_desc(sh), dl = smem_desc(sh + kTileN * kTileK);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) hold(acc[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kTileK / 8; ++ks) {
+      // 8 deep = 32 bytes into the swizzled rows: 2 descriptor units
+      const uint64_t step = static_cast<uint64_t>(ks * 2);
+      wgmma_tf32(acc, alo[ks], dh + step, ks > 0);
+      wgmma_tf32(acc, ahi[ks], dl + step, 1);
+      wgmma_tf32(acc, ahi[ks], dh + step, 1);
+    }
+    wgmma_commit();
+    // the next tile goes into the stage of tile kt - 1, once every thread
+    // is done with that tile
+    const int t = kt + kStages - 1;
+    if (t < kt_n) {
+      if (kt >= 1) mbar_wait(empty + t % kStages, ((kt - 1) / kStages) & 1);
+      load(t);
+    }
+    wgmma_wait_all();
+#pragma unroll
+    for (int ks = 0; ks < kTileK / 8; ++ks) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        hold(ahi[ks][e]);
+        hold(alo[ks][e]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      hold(acc[i]);
+      tot[i] += acc[i];
+    }
+    mbar_arrive(empty + kt % kStages);
+  }
+
+  // epilogue: element i of this thread is row g + 8 ((i / 2) % 2), column
+  // 8 (i / 4) + 2 tq + i % 2; each row's sum of W * k over its 32 columns
+  // in this thread, then over the 4 threads of its quad
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + rbase + g + 8 * h;
+    const float* kr = kscr + static_cast<size_t>(r) * np + col0 + 2 * tq;
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 kv = *reinterpret_cast<const float2*>(kr + 8 * j);
+      s = fmaf(tot[4 * j + 2 * h], kv.x, s);
+      s = fmaf(tot[4 * j + 2 * h + 1], kv.y, s);
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    if (tq == 0) qpart[static_cast<size_t>(blockIdx.x) * bp + r] = s;
   }
 }
 
@@ -268,53 +721,137 @@ __device__ __forceinline__ bool before(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
 }
 
-// Sort one chunk of kChunk utilities by (value desc, index asc) and write
-// its first ksel entries; rows past b enter as (-inf, index).
-__global__ void __launch_bounds__(kSelThreads) topk_select_kernel(
-    const float* __restrict__ u, int b, int ksel, float* __restrict__ vals,
-    int32_t* __restrict__ idx) {
-  __shared__ float sv[kChunk];
-  __shared__ int si[kChunk];
-  const int base = blockIdx.x * kChunk;
-  for (int i = threadIdx.x; i < kChunk; i += kSelThreads) {
-    const int g = base + i;
-    sv[i] = g < b ? u[g] : __int_as_float(0xff800000);
-    si[i] = g;
+// One thread per row: the moments from the tn partials (in tile order),
+// the utility into u; with kSelect, block x then sorts its kSel rows by
+// (value desc, index asc) with a bitonic network (rows past b enter as
+// (-inf, index)) and keeps the first k1 in cand_v / cand_i.
+template <bool kSelect>
+__global__ void __launch_bounds__(kSel) final_kernel(
+    const float* __restrict__ mupart, const float* __restrict__ qpart,
+    const float* __restrict__ params, int b, int bp, int tn, int kind,
+    float* __restrict__ u, int k1, float* __restrict__ cand_v,
+    int32_t* __restrict__ cand_i) {
+  const int r = blockIdx.x * kSel + threadIdx.x;
+  float val = __int_as_float(0xff800000);
+  if (r < b) {
+    float mu_n = 0.f, q = 0.f;
+    for (int t = 0; t < tn; ++t) mu_n += mupart[static_cast<size_t>(t) * bp + r];
+    if (kind != kKindMean) {
+      for (int t = 0; t < tn; ++t) q += qpart[static_cast<size_t>(t) * bp + r];
+    }
+    val = utility(mu_n, q, params, kind);
+    u[r] = val;
   }
+  if (!kSelect) return;
+  __shared__ float sv[kSel];
+  __shared__ int si[kSel];
+  const int i = threadIdx.x;
+  sv[i] = val;
+  si[i] = r;
   __syncthreads();
-  for (int size = 2; size <= kChunk; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < kChunk; i += kSelThreads) {
-        const int j = i ^ stride;
-        if (j > i) {
-          const float vi = sv[i], vj = sv[j];
-          const int ii = si[i], ij = si[j];
-          const bool swap = ((i & size) == 0) ? before(vj, ij, vi, ii)
-                                              : before(vi, ii, vj, ij);
-          if (swap) {
-            sv[i] = vj;
-            sv[j] = vi;
-            si[i] = ij;
-            si[j] = ii;
-          }
+  for (int len = 2; len <= kSel; len <<= 1) {
+    for (int stride = len >> 1; stride > 0; stride >>= 1) {
+      const int j = i ^ stride;
+      if (j > i) {
+        const float vi = sv[i], vj = sv[j];
+        const int ii = si[i], ij = si[j];
+        if (((i & len) == 0) ? before(vj, ij, vi, ii)
+                             : before(vi, ii, vj, ij)) {
+          sv[i] = vj;
+          sv[j] = vi;
+          si[i] = ij;
+          si[j] = ii;
         }
       }
       __syncthreads();
     }
   }
-  for (int r = threadIdx.x; r < ksel; r += kSelThreads) {
-    vals[static_cast<size_t>(blockIdx.x) * ksel + r] = sv[r];
-    idx[static_cast<size_t>(blockIdx.x) * ksel + r] = si[r];
+  if (i < k1) {
+    cand_v[static_cast<size_t>(blockIdx.x) * k1 + i] = sv[i];
+    cand_i[static_cast<size_t>(blockIdx.x) * k1 + i] = si[i];
   }
 }
 
-// Dynamic shared memory of one block, in floats: the query rows, the
-// per-warp reduction scratch and, for the variance kinds, the [kRows, N]
-// kernel rows (N rounded up to 4).
+// The second level: first-level list l (n1 lists of k1, each sorted,
+// every index distinct) is block l; its group is the lists [l / group *
+// group, +group), and the group writes its k2 best, in order, to vals /
+// idx [(l / group) k2, +k2).  An entry's rank in its group is its place
+// in its own list plus, for every other list of the group, how many
+// entries come before it there (a binary search in shared memory), so no
+// entry waits on another.  The group's slots past its entries get
+// (-inf, INT_MAX).
+__global__ void __launch_bounds__(kSel) topk_merge_kernel(
+    const float* __restrict__ cand_v, const int32_t* __restrict__ cand_i,
+    int n1, int k1, int group, int k2, float* __restrict__ vals,
+    int32_t* __restrict__ idx) {
+  constexpr int kBatch = 8;               // searches in flight per thread
+  extern __shared__ __align__(16) float smem[];
+  float* sv = smem;                                   // [kMergeSlots]
+  int* si = reinterpret_cast<int*>(smem + kMergeSlots);
+  const int gid = blockIdx.x / group, own = blockIdx.x % group;
+  const int first = gid * group;
+  const int lists = min(group, n1 - first);
+  const int m = lists * k1;
+  const size_t base = static_cast<size_t>(first) * k1;
+  for (int e = threadIdx.x; e < m; e += kSel) {
+    cp_async4(sv + e, cand_v + base + e, true);
+    cp_async4(reinterpret_cast<float*>(si + e),
+              reinterpret_cast<const float*>(cand_i + base + e), true);
+  }
+  cp_async_commit();
+  const size_t out = static_cast<size_t>(gid) * k2;
+  if (own == 0) {
+    for (int e = m + threadIdx.x; e < k2; e += kSel) {
+      vals[out + e] = __int_as_float(0xff800000);
+      idx[out + e] = INT_MAX;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  int top = 1;                            // the largest power of 2 <= k1
+  while (top * 2 <= k1) top *= 2;
+  for (int p = threadIdx.x; p < k1; p += kSel) {
+    const float v = sv[own * k1 + p];
+    const int id = si[own * k1 + p];
+    int rank = p;
+    for (int l0 = 0; l0 < lists; l0 += kBatch) {
+      // pos[u]: how many entries of list l0 + u come before (v, id)
+      int pos[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) pos[u] = 0;
+      for (int step = top; step > 0; step >>= 1) {
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int l = l0 + u, q = pos[u] + step;
+          if (l < lists && l != own && q <= k1) {
+            const int at = l * k1 + q - 1;
+            if (before(sv[at], si[at], v, id)) pos[u] = q;
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) rank += pos[u];
+    }
+    if (rank < k2) {
+      vals[out + rank] = v;
+      idx[out + rank] = id;
+    }
+  }
+}
+
+// Dynamic shared memory of one A/B block, in floats: the query rows, the
+// per-warp reduction scratch and, for B, the [kRows, N] kernel rows (N
+// rounded up to 4).
 size_t shared_words(int n, int f, bool var) {
   const size_t np = static_cast<size_t>((n + 3) & ~3);
   return static_cast<size_t>(kRows) * f + 2 * kWarps * kRows +
          (var ? kRows * np : 0);
+}
+
+// Dynamic shared memory of one krows block, in floats.
+size_t krows_words(int f) {
+  return static_cast<size_t>(kKRows) * f + static_cast<size_t>(kTileN) * (f | 1) +
+         kWarps * (kKRows * kTileN / kThreads);
 }
 
 // Raise the kernel's dynamic shared memory limit to kMaxShared on the
@@ -334,9 +871,9 @@ cudaError_t allow_shared(Kern kern, std::atomic<bool>* done) {
 }
 
 struct Args {
-  const float *qc, *qk, *xc, *xk, *alpha, *kinv, *params;
+  const float *qc, *qk, *xc, *xk, *alpha, *kinv;
   float *out0, *out1;
-  int b, n, fc, fk, kind;
+  int b, n, fc, fk;
 };
 
 template <bool kCont, bool kCat, bool kVar, int kEpi>
@@ -349,8 +886,8 @@ cudaError_t launch_tile(const Args& a, cudaStream_t stream) {
   if (attr != cudaSuccess) return attr;
   const int blocks = (a.b + kRows - 1) / kRows;
   kern<<<blocks, kThreads, smem, stream>>>(a.qc, a.qk, a.xc, a.xk, a.alpha,
-                                           a.kinv, a.params, a.out0, a.out1,
-                                           a.b, a.n, a.fc, a.fk, a.kind);
+                                           a.kinv, a.out0, a.out1, a.b, a.n,
+                                           a.fc, a.fk);
   return cudaGetLastError();
 }
 
@@ -363,25 +900,140 @@ cudaError_t dispatch(const Args& a, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
-cudaError_t utilities(const Args& a, cudaStream_t stream) {
-  if (a.kind == kKindMean) return dispatch<false, kUtility>(a, stream);
-  if (a.kind == kKindEI || a.kind == kKindLCB) {
-    return dispatch<true, kUtility>(a, stream);
+// Where C and D keep their passes' data: offsets into the scratch buffer,
+// in 4-byte words (the k and K^-1 blocks 16-byte aligned), and the
+// selection's geometry (k = 0 for C).
+struct Plan {
+  int np, bp, tn, n1, k1, group, n2, k2;
+  size_t mupart, qpart, kscr, khi, klo, cand, words;
+};
+
+bool make_plan(int b, int n, int var, int k, Plan* p) {
+  if (b <= 0 || n <= 0 || k < 0 || k > b) return false;
+  const long long np = (static_cast<long long>(n) + kTileN - 1) / kTileN * kTileN;
+  const long long bp = (static_cast<long long>(b) + kTileM - 1) / kTileM * kTileM;
+  if (np > INT_MAX || bp > INT_MAX) return false;
+  p->np = static_cast<int>(np);
+  p->bp = static_cast<int>(bp);
+  p->tn = p->np / kTileN;
+  p->n1 = (b + kSel - 1) / kSel;
+  p->k1 = k < kSel ? k : kSel;
+  p->group = p->k1 > 0 ? kMergeSlots / p->k1 : 1;
+  p->n2 = (p->n1 + p->group - 1) / p->group;
+  p->k2 = k < p->group * p->k1 ? k : p->group * p->k1;
+  const size_t part = static_cast<size_t>(p->tn) * p->bp;
+  size_t off = 0;
+  p->mupart = off;
+  off += part;
+  p->qpart = off;
+  p->kscr = p->khi = p->klo = 0;
+  if (var) {
+    off += part;
+    p->kscr = off;
+    off += static_cast<size_t>(p->bp) * p->np;
+    p->khi = off;
+    off += static_cast<size_t>(p->np) * p->np;
+    p->klo = off;
+    off += static_cast<size_t>(p->np) * p->np;
   }
+  p->cand = off;
+  off += 2 * static_cast<size_t>(p->n1) * p->k1;
+  p->words = off;
+  return true;
+}
+
+struct Acquire {
+  const float *qc, *qk, *xc, *xk, *alpha, *kinv, *params;
+  float *u, *scratch, *vals;
+  int32_t* idx;
+  int b, n, fc, fk, kind, k;
+};
+
+template <bool kCont, bool kCat>
+cudaError_t launch_acquire(const Acquire& a, const Plan& p, cudaStream_t s) {
+  const bool var = a.kind != kKindMean;
+  float* mupart = a.scratch + p.mupart;
+  float* qpart = a.scratch + p.qpart;
+  float* kscr = a.scratch + p.kscr;
+  float* khi = a.scratch + p.khi;
+  float* klo = a.scratch + p.klo;
+  const int f = a.fc + a.fk;
+  const size_t kr_smem = krows_words(f) * sizeof(float);
+  if (kr_smem > static_cast<size_t>(kMaxShared)) return cudaErrorInvalidValue;
+  const dim3 kr_grid(p.tn, p.bp / kKRows);
+  cudaError_t e;
+  if (var) {
+    kinv_prep_kernel<<<dim3(p.np / 32, p.np / 32), kThreads, 0, s>>>(
+        a.kinv, a.n, p.np, khi, klo);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+    auto kr = krows_kernel<kCont, kCat, true>;
+    static std::atomic<bool> kr_allowed[kMaxDevices];
+    if ((e = allow_shared(kr, kr_allowed)) != cudaSuccess) return e;
+    kr<<<kr_grid, kThreads, kr_smem, s>>>(a.qc, a.qk, a.xc, a.xk, a.alpha,
+                                          a.b, a.n, a.fc, a.fk, p.np, p.bp,
+                                          kscr, mupart);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+    static std::atomic<bool> wq_allowed[kMaxDevices];
+    if ((e = allow_shared(wq_kernel, wq_allowed)) != cudaSuccess) return e;
+    wq_kernel<<<dim3(p.tn, p.bp / kTileM), kThreads, kWqShared, s>>>(
+        kscr, khi, klo, p.np, p.bp, qpart);
+  } else {
+    auto kr = krows_kernel<kCont, kCat, false>;
+    static std::atomic<bool> kr_allowed[kMaxDevices];
+    if ((e = allow_shared(kr, kr_allowed)) != cudaSuccess) return e;
+    kr<<<kr_grid, kThreads, kr_smem, s>>>(a.qc, a.qk, a.xc, a.xk, a.alpha,
+                                          a.b, a.n, a.fc, a.fk, p.np, p.bp,
+                                          nullptr, mupart);
+  }
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+  float* cand_v = a.scratch + p.cand;
+  int32_t* cand_i = reinterpret_cast<int32_t*>(cand_v + static_cast<size_t>(p.n1) * p.k1);
+  if (a.k == 0) {
+    final_kernel<false><<<p.n1, kSel, 0, s>>>(mupart, qpart, a.params, a.b,
+                                              p.bp, p.tn, a.kind, a.u, 0,
+                                              nullptr, nullptr);
+    return cudaGetLastError();
+  }
+  final_kernel<true><<<p.n1, kSel, 0, s>>>(mupart, qpart, a.params, a.b, p.bp,
+                                           p.tn, a.kind, a.u, p.k1, cand_v,
+                                           cand_i);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  static std::atomic<bool> merge_allowed[kMaxDevices];
+  if ((e = allow_shared(topk_merge_kernel, merge_allowed)) != cudaSuccess) {
+    return e;
+  }
+  topk_merge_kernel<<<p.n1, kSel, kMergeShared, s>>>(
+      cand_v, cand_i, p.n1, p.k1, p.group, p.k2, a.vals, a.idx);
+  return cudaGetLastError();
+}
+
+cudaError_t acquire(const Acquire& a, cudaStream_t s) {
+  if (a.kind < kKindMean || a.kind > kKindLCB) return cudaErrorInvalidValue;
+  if ((a.kind != kKindMean) != (a.kinv != nullptr)) return cudaErrorInvalidValue;
+  Plan p;
+  if (!make_plan(a.b, a.n, a.kind != kKindMean, a.k, &p)) {
+    return cudaErrorInvalidValue;
+  }
+  if (a.fc > 0 && a.fk > 0) return launch_acquire<true, true>(a, p, s);
+  if (a.fc > 0) return launch_acquire<true, false>(a, p, s);
+  if (a.fk > 0) return launch_acquire<false, true>(a, p, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Plain C interface (loaded with ctypes): two host-only queries of the
-// launch geometry, which the wrappers read, then the four launchers.
-// The geometry lives here alone.  Every launcher enqueues on
-// `stream`, allocates nothing, and returns the cudaError_t of its launch
+// Plain C interface (loaded with ctypes): host-only queries of the launch
+// geometry, which the wrappers read, then the four launchers.  The
+// geometry lives here alone.  Every launcher enqueues on `stream`,
+// allocates nothing, and returns the cudaError_t of its launches
 // (0 = success).  qc/xc (or qk/xk) are null when fc (or fk) is 0.
 
-// The largest number of training rows n a call with f = fc + fk features
-// takes (one block's shared memory); var != 0 for launcher B and the
-// variance kinds of C and D.  INT_MAX when n is not limited.
+// The largest number of training rows n that A (var 0) or B (var 1)
+// takes with f = fc + fk features (B's [kRows, n] tile fills one block's
+// shared memory); INT_MAX when n is not limited, 0 when f does not fit.
 extern "C" int ut_gp_max_train_rows(int f, int var) {
   const size_t cap = kMaxShared / sizeof(float);
   const size_t fixed = shared_words(0, f, false);
@@ -390,9 +1042,36 @@ extern "C" int ut_gp_max_train_rows(int f, int var) {
   return static_cast<int>((cap - fixed) / kRows) & ~3;
 }
 
-// Rows per selection block of launcher D: ksel is at most this, and D
-// writes ceil(b / chunk) * ksel candidates.
-extern "C" int ut_gp_topk_chunk() { return kChunk; }
+// The same for C and D (either kind): their passes keep nothing of size n
+// in shared memory, so n is not limited (INT_MAX); 0 when f features do
+// not fit the kernel-row block.
+extern "C" int ut_acquire_max_train_rows(int f, int var) {
+  (void)var;
+  if (f <= 0 || krows_words(f) * sizeof(float) > static_cast<size_t>(kMaxShared)) {
+    return 0;
+  }
+  return INT_MAX;
+}
+
+// The 4-byte words of scratch C (k = 0) or D (top-k, 1 <= k <= b) needs
+// for b query rows and n training rows; var != 0 for the variance kinds;
+// -1 when the arguments are out of range.
+extern "C" long long ut_acquire_scratch_words(int b, int n, int var, int k) {
+  Plan p;
+  if (!make_plan(b, n, var, k, &p)) return -1;
+  return static_cast<long long>(p.words);
+}
+
+// The candidate slots D writes into vals / idx for b rows and top k: one
+// list of min(k, group k1) entries per group of first-level lists (k1 =
+// min(k, kSel), group = kMergeSlots / k1), each sorted by (value desc,
+// index asc), in index order; -1 out of range.  When this is k, vals /
+// idx are the top k.
+extern "C" int ut_acquire_topk_slots(int b, int k) {
+  Plan p;
+  if (k < 1 || !make_plan(b, 1, 0, k, &p)) return -1;
+  return p.n2 * p.k2;
+}
 
 // A: mu_n [b] = k . alpha
 extern "C" int ut_gp_mean(const void* qc, const void* qk, const void* xc,
@@ -400,8 +1079,8 @@ extern "C" int ut_gp_mean(const void* qc, const void* qk, const void* xc,
                           int n, int fc, int fk, void* stream) {
   const Args a{static_cast<const float*>(qc), static_cast<const float*>(qk),
                static_cast<const float*>(xc), static_cast<const float*>(xk),
-               static_cast<const float*>(alpha), nullptr, nullptr,
-               static_cast<float*>(mu), nullptr, b, n, fc, fk, kKindMean};
+               static_cast<const float*>(alpha), nullptr,
+               static_cast<float*>(mu), nullptr, b, n, fc, fk};
   return static_cast<int>(
       dispatch<false, kStoreMean>(a, static_cast<cudaStream_t>(stream)));
 }
@@ -414,48 +1093,47 @@ extern "C" int ut_gp_mean_var(const void* qc, const void* qk, const void* xc,
   const Args a{static_cast<const float*>(qc), static_cast<const float*>(qk),
                static_cast<const float*>(xc), static_cast<const float*>(xk),
                static_cast<const float*>(alpha),
-               static_cast<const float*>(kinv), nullptr,
-               static_cast<float*>(mu), static_cast<float*>(q), b, n, fc, fk,
-               kKindMean};
+               static_cast<const float*>(kinv), static_cast<float*>(mu),
+               static_cast<float*>(q), b, n, fc, fk};
   return static_cast<int>(
       dispatch<true, kStoreMeanQ>(a, static_cast<cudaStream_t>(stream)));
 }
 
-// C: utilities [b] (kind 0 -mean, 1 EI, 2 -LCB); params [5] on the device
+// C: utilities [b] (kind 0 -mean, 1 EI, 2 -LCB; kinv null for kind 0);
+// params [5] on the device; scratch of ut_acquire_scratch_words(b, n,
+// kind != 0, 0) words
 extern "C" int ut_acquire_scores(const void* qc, const void* qk,
                                  const void* xc, const void* xk,
                                  const void* alpha, const void* kinv,
-                                 const void* params, void* u, int b, int n,
-                                 int fc, int fk, int kind, void* stream) {
-  const Args a{static_cast<const float*>(qc), static_cast<const float*>(qk),
-               static_cast<const float*>(xc), static_cast<const float*>(xk),
-               static_cast<const float*>(alpha),
-               static_cast<const float*>(kinv),
-               static_cast<const float*>(params), static_cast<float*>(u),
-               nullptr, b, n, fc, fk, kind};
-  return static_cast<int>(utilities(a, static_cast<cudaStream_t>(stream)));
+                                 const void* params, void* u, void* scratch,
+                                 int b, int n, int fc, int fk, int kind,
+                                 void* stream) {
+  const Acquire a{static_cast<const float*>(qc), static_cast<const float*>(qk),
+                  static_cast<const float*>(xc), static_cast<const float*>(xk),
+                  static_cast<const float*>(alpha),
+                  static_cast<const float*>(kinv),
+                  static_cast<const float*>(params), static_cast<float*>(u),
+                  static_cast<float*>(scratch), nullptr, nullptr,
+                  b, n, fc, fk, kind, 0};
+  return static_cast<int>(acquire(a, static_cast<cudaStream_t>(stream)));
 }
 
-// D: the utilities into `u` [b] (scratch), then per 1024-row chunk its
-// ksel best (value desc, index asc) into vals / idx [ceil(b/1024) * ksel]
+// D: the utilities into u [b], then the top k (1 <= k <= b) as the
+// ut_acquire_topk_slots(b, k) candidates in vals / idx; scratch of
+// ut_acquire_scratch_words(b, n, kind != 0, k) words
 extern "C" int ut_acquire_topk(const void* qc, const void* qk, const void* xc,
                                const void* xk, const void* alpha,
                                const void* kinv, const void* params, void* u,
-                               void* vals, void* idx, int b, int n, int fc,
-                               int fk, int kind, int ksel, void* stream) {
-  if (ksel < 1 || ksel > kChunk) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args a{static_cast<const float*>(qc), static_cast<const float*>(qk),
-               static_cast<const float*>(xc), static_cast<const float*>(xk),
-               static_cast<const float*>(alpha),
-               static_cast<const float*>(kinv),
-               static_cast<const float*>(params), static_cast<float*>(u),
-               nullptr, b, n, fc, fk, kind};
-  const cudaError_t err = utilities(a, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int chunks = (b + kChunk - 1) / kChunk;
-  topk_select_kernel<<<chunks, kSelThreads, 0, s>>>(
-      static_cast<const float*>(u), b, ksel, static_cast<float*>(vals),
-      static_cast<int32_t*>(idx));
-  return static_cast<int>(cudaGetLastError());
+                               void* vals, void* idx, void* scratch, int b,
+                               int n, int fc, int fk, int kind, int k,
+                               void* stream) {
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Acquire a{static_cast<const float*>(qc), static_cast<const float*>(qk),
+                  static_cast<const float*>(xc), static_cast<const float*>(xk),
+                  static_cast<const float*>(alpha),
+                  static_cast<const float*>(kinv),
+                  static_cast<const float*>(params), static_cast<float*>(u),
+                  static_cast<float*>(scratch), static_cast<float*>(vals),
+                  static_cast<int32_t*>(idx), b, n, fc, fk, kind, k};
+  return static_cast<int>(acquire(a, static_cast<cudaStream_t>(stream)));
 }

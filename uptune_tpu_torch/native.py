@@ -57,12 +57,15 @@ class Kernel:
     count of launches."""
 
     def __init__(self, name: str, source: str, symbol: str,
-                 argtypes: Sequence, replaces: Sequence[str]):
+                 argtypes: Sequence, replaces: Sequence[str],
+                 limit: Optional[str] = None):
         self.name = name
         self.source = CSRC / source
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.replaces = tuple(replaces)     # "path:line" of each TPU kernel
+        # the library's query of the largest N it takes, (f, var) -> int
+        self.limit = limit
         self.launches = 0
         self._lib = None
         self._fn = None
@@ -94,12 +97,13 @@ class Kernel:
             self._fn = fn
         return self._fn
 
-    def query(self, symbol: str, *args: int) -> int:
-        """Call a host-only C function of the library that takes and
-        returns ints (a launch-geometry limit the wrapper checks)."""
+    def query(self, symbol: str, *args: int, restype=ctypes.c_int) -> int:
+        """Call a host-only C function of the library that takes ints and
+        returns an integer of `restype` (a launch-geometry limit or a
+        scratch size the wrapper reads)."""
         fn = getattr(self.library(), symbol)
         fn.argtypes = [ctypes.c_int] * len(args)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         return int(fn(*args))
 
 
@@ -127,34 +131,43 @@ MERGE = Kernel(
 # The four launchers of csrc/gp_tile.cu; wrappers in
 # surrogate/pallas_score.py (A, B) and ops/acquire.py (C, D).
 # Their launch geometry lives in the .cu file alone; the wrappers read
-# it through `Kernel.query`: ut_gp_max_train_rows(f, var) and
-# ut_gp_topk_chunk().
-# A: ut_gp_mean(qc, qk, xc, xk, alpha, mu, b, n, fc, fk, stream)
+# it through `Kernel.query`: the largest N (`limit`, by features and
+# kind), and for C and D the scratch size (ut_acquire_scratch_words) and
+# D's candidate count (ut_acquire_topk_slots).
+# A: ut_gp_mean(qc, qk, xc, xk, alpha, mu, b, n, fc, fk, stream); one
+#    tile kernel on CUDA cores
 GP_MEAN = Kernel(
     name="gp_mean", source="gp_tile.cu", symbol="ut_gp_mean",
     argtypes=[_P] * 6 + [_I] * 4 + [_P],
     replaces=("uptune_tpu/surrogate/pallas_score.py:66",    # _score_kernel
               "uptune_tpu/surrogate/pallas_score.py:77",    # _mixed
-              "uptune_tpu/surrogate/pallas_score.py:89"))   # _expham
-# B: ut_gp_mean_var(qc, qk, xc, xk, alpha, kinv, mu, q, b, n, fc, fk, stream)
+              "uptune_tpu/surrogate/pallas_score.py:89"),   # _expham
+    limit="ut_gp_max_train_rows")
+# B: ut_gp_mean_var(qc, qk, xc, xk, alpha, kinv, mu, q, b, n, fc, fk,
+#    stream); the same tile, k K^-1 on CUDA cores
 GP_MEAN_VAR = Kernel(
     name="gp_mean_var", source="gp_tile.cu", symbol="ut_gp_mean_var",
     argtypes=[_P] * 8 + [_I] * 4 + [_P],
     replaces=("uptune_tpu/surrogate/pallas_score.py:107",   # _var_kernel
               "uptune_tpu/surrogate/pallas_score.py:112",   # _mixed
-              "uptune_tpu/surrogate/pallas_score.py:119"))  # _expham
-# C: ut_acquire_scores(qc, qk, xc, xk, alpha, kinv, params, u, b, n, fc,
-#    fk, kind, stream)
+              "uptune_tpu/surrogate/pallas_score.py:119"),  # _expham
+    limit="ut_gp_max_train_rows")
+# C: ut_acquire_scores(qc, qk, xc, xk, alpha, kinv, params, u, scratch, b,
+#    n, fc, fk, kind, stream); passes kinv_prep (K^-T), krows (k, mean),
+#    wq (k K^-1 on the tensor cores in 3xTF32, q) and final (utility)
 ACQ_SCORES = Kernel(
     name="acquire_scores", source="gp_tile.cu", symbol="ut_acquire_scores",
-    argtypes=[_P] * 8 + [_I] * 5 + [_P],
-    replaces=("uptune_tpu/ops/acquire.py:151",))        # _scores_kernel
-# D: ut_acquire_topk(qc, qk, xc, xk, alpha, kinv, params, u, vals, idx, b,
-#    n, fc, fk, kind, ksel, stream)
+    argtypes=[_P] * 9 + [_I] * 5 + [_P],
+    replaces=("uptune_tpu/ops/acquire.py:151",),        # _scores_kernel
+    limit="ut_acquire_max_train_rows")
+# D: ut_acquire_topk(qc, qk, xc, xk, alpha, kinv, params, u, vals, idx,
+#    scratch, b, n, fc, fk, kind, k, stream); C's passes with a per-chunk
+#    sort in the final pass, then topk_merge (ranks across chunks)
 ACQ_TOPK = Kernel(
     name="acquire_topk", source="gp_tile.cu", symbol="ut_acquire_topk",
-    argtypes=[_P] * 10 + [_I] * 6 + [_P],
-    replaces=("uptune_tpu/ops/acquire.py:157",))        # _topk_kernel
+    argtypes=[_P] * 11 + [_I] * 6 + [_P],
+    replaces=("uptune_tpu/ops/acquire.py:157",),        # _topk_kernel
+    limit="ut_acquire_max_train_rows")
 KERNELS = (MERGE, GP_MEAN, GP_MEAN_VAR, ACQ_SCORES, ACQ_TOPK)
 
 

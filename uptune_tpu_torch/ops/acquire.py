@@ -17,11 +17,12 @@ rows, values descending, ties broken to the lowest flat index (the
   `chip_smoke.py` holds the kernels against them on the card.
 * `scores_cuda` / `topk_cuda` — the wrappers of launchers C and D in
   `csrc/gp_tile.cu`, which replace the Pallas kernels `_scores_kernel`
-  and `_topk_kernel`.  D selects each chunk's best in the kernel (the
-  chunk size is the library's); one stable `torch.sort` over the
-  chunks' winners (they
-  concatenate in index order, so a positional tie-break is the global
-  one) gives the top k.
+  and `_topk_kernel`.  They allocate the passes' scratch (its size is
+  the library's).  D selects in two levels on the card and writes
+  candidate lists, each sorted by (value desc, index asc): at the main
+  path's sizes one list, the top k itself; otherwise one stable
+  `torch.sort` over them (they concatenate in index order, so a
+  positional tie-break is the global one) gives the top k.
 * `scores_tile` / `topk_tile` — route by the tensors' device: CPU
   tensors take the plain version, CUDA tensors launch or raise.
 * `acquire_scores` / `acquire_topk` — the entries (a GPState and a
@@ -35,16 +36,18 @@ The JAX package's route knob (`ops/routing.py`) and its TPU VMEM facts
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
 
 from .. import native
 from ..surrogate import gp
-from ..surrogate.pallas_score import (Blocks, check_operands, kernel_tile,
-                                      mean_tile_plain, mean_var_tile_plain,
-                                      prep_blocks, ptr, state_kinv,
-                                      stream_of, target_moments,
+from ..surrogate.pallas_score import (Blocks, check_train_rows,
+                                      kernel_tile, mean_tile_plain,
+                                      mean_var_tile_plain, operand_dims,
+                                      prep_blocks, ptr, require_cuda,
+                                      state_kinv, stream_of, target_moments,
                                       tile_moments)
 
 KINDS = ("mean", "ei", "lcb")
@@ -102,65 +105,103 @@ def _check(kind: str, best_y=0.0) -> None:
 
 
 def _check_launch(kernel: native.Kernel, kind: str, qc, qk, xc, xk, alpha,
-                  kinv, params) -> Tuple[int, int, int, int]:
-    """`check_operands`, the kind, K^-1 given for exactly the variance
-    kinds, and the [5] scalar pack; -> (B, N, Fc, Fk)."""
+                  kinv, params, scratch, k: Optional[int] = None
+                  ) -> Tuple[int, int, int, int, torch.Tensor]:
+    """Operands (`operand_dims`), the kind, K^-1 given for exactly the
+    variance kinds, the [5] scalar pack and a given scratch buffer, on any
+    device; then a CUDA device and N against the library's limit.  `k`
+    is D's top k (None for C).  -> (B, N, Fc, Fk, scratch), the scratch
+    allocated when None."""
     _check(kind)
     if (kind == "mean") != (kinv is None):
         raise ValueError(f"kind {kind!r} takes kinv "
                          f"{'None' if kind == 'mean' else '[N, N]'}")
-    dims = check_operands(kernel, qc, qk, xc, xk, alpha, kinv)
+    b, n, fc, fk = operand_dims(kernel, qc, qk, xc, xk, alpha, kinv)
     dev = alpha.device
     if (params.device != dev or params.dtype != torch.float32
             or tuple(params.shape) != (5,) or not params.is_contiguous()):
         raise ValueError(f"{kernel.name}: params must be a contiguous [5] "
                          f"float32 tensor on {dev}")
-    return dims
+    if k is not None and not 1 <= k <= b:
+        raise ValueError(f"k must be in [1, {b}]: {k}")
+    k = k or 0
+    if scratch is not None:
+        _check_scratch(kernel, scratch, scratch_words(kernel, b, n, kind, k),
+                       dev)
+    require_cuda(kernel, dev)
+    check_train_rows(kernel, n, fc + fk, kinv is not None)
+    if scratch is None:
+        scratch = torch.empty(scratch_words(kernel, b, n, kind, k),
+                              dtype=torch.float32, device=dev)
+    return b, n, fc, fk, scratch
 
 
-def scores_cuda(qc, qk, xc, xk, alpha, kinv, params, kind: str
-                ) -> torch.Tensor:
-    """Launch C (`ut_acquire_scores`): [B] utilities."""
-    b, n, fc, fk = _check_launch(SCORES_KERNEL, kind, qc, qk, xc, xk, alpha,
-                                 kinv, params)
+def scratch_words(kernel: native.Kernel, b: int, n: int, kind: str,
+                  k: int = 0) -> int:
+    """The float32 words of scratch launcher C (k = 0) or D (top k) needs
+    for B query and N training rows, as the library computes it."""
+    words = kernel.query("ut_acquire_scratch_words", b, n,
+                         int(kind != "mean"), k, restype=ctypes.c_longlong)
+    if words < 0:
+        raise ValueError(f"{kernel.name}: no launch for B={b}, N={n}, k={k}")
+    return words
+
+
+def _check_scratch(kernel: native.Kernel, scratch: torch.Tensor, words: int,
+                   dev: torch.device) -> None:
+    if (scratch.device != dev or scratch.dtype != torch.float32
+            or scratch.dim() != 1 or not scratch.is_contiguous()
+            or scratch.numel() < words):
+        raise ValueError(
+            f"{kernel.name}: scratch must be a contiguous 1-D float32 tensor "
+            f"of at least {words} elements on {dev}, got "
+            f"{scratch.dtype} {tuple(scratch.shape)} on {scratch.device}")
+
+
+def scores_cuda(qc, qk, xc, xk, alpha, kinv, params, kind: str,
+                scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch C (`ut_acquire_scores`): [B] utilities.  `scratch` holds the
+    passes' data (the [B, N] kernel rows among them); allocated when
+    None."""
+    b, n, fc, fk, scratch = _check_launch(SCORES_KERNEL, kind, qc, qk, xc,
+                                          xk, alpha, kinv, params, scratch)
     dev = alpha.device
     fn = SCORES_KERNEL.function()
     u = torch.empty(b, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = fn(ptr(qc), ptr(qk), ptr(xc), ptr(xk), ptr(alpha), ptr(kinv),
-                 ptr(params), ptr(u), b, n, fc, fk, KIND_CODE[kind],
-                 stream_of(dev))
+                 ptr(params), ptr(u), ptr(scratch), b, n, fc, fk,
+                 KIND_CODE[kind], stream_of(dev))
     native.check(err, SCORES_KERNEL)
     SCORES_KERNEL.launches += 1
     return u
 
 
-def topk_cuda(qc, qk, xc, xk, alpha, kinv, params, kind: str, k: int
+def topk_cuda(qc, qk, xc, xk, alpha, kinv, params, kind: str, k: int,
+              scratch: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch D (`ut_acquire_topk`): each chunk's min(k, chunk) best,
-    then one stable sort over the chunks' winners -> (values [k]
-    descending, flat indices [k] int32)."""
-    b, n, fc, fk = _check_launch(TOPK_KERNEL, kind, qc, qk, xc, xk, alpha,
-                                 kinv, params)
+    """Launch D (`ut_acquire_topk`): candidate lists of the k best, each
+    sorted, then one stable sort over them unless the card wrote a single
+    list -> (values [k] descending, flat indices [k] int32)."""
+    b, n, fc, fk, scratch = _check_launch(TOPK_KERNEL, kind, qc, qk, xc, xk,
+                                          alpha, kinv, params, scratch, k)
     dev = alpha.device
-    if not 1 <= k <= b:
-        raise ValueError(f"k must be in [1, {b}]: {k}")
     fn = TOPK_KERNEL.function()
-    chunk = TOPK_KERNEL.query("ut_gp_topk_chunk")
-    ksel = min(k, chunk)
-    chunks = -(-b // chunk)
+    slots = TOPK_KERNEL.query("ut_acquire_topk_slots", b, k)
     u = torch.empty(b, dtype=torch.float32, device=dev)
-    vals = torch.empty(chunks * ksel, dtype=torch.float32, device=dev)
-    idx = torch.empty(chunks * ksel, dtype=torch.int32, device=dev)
+    vals = torch.empty(slots, dtype=torch.float32, device=dev)
+    idx = torch.empty(slots, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = fn(ptr(qc), ptr(qk), ptr(xc), ptr(xk), ptr(alpha), ptr(kinv),
-                 ptr(params), ptr(u), ptr(vals), ptr(idx), b, n, fc, fk,
-                 KIND_CODE[kind], ksel, stream_of(dev))
+                 ptr(params), ptr(u), ptr(vals), ptr(idx), ptr(scratch), b, n,
+                 fc, fk, KIND_CODE[kind], k, stream_of(dev))
     native.check(err, TOPK_KERNEL)
     TOPK_KERNEL.launches += 1
-    top, pos = select_topk(vals, k)
+    if slots != k:                  # several lists: merge them here
+        vals, pos = select_topk(vals, k)
+        idx = idx[pos.long()]
     # the JAX clamp of unfilled lanes (acquire.py:275)
-    return top, torch.clamp_max(idx[pos.long()], b - 1)
+    return vals, torch.clamp_max(idx, b - 1)
 
 
 def scores_tile(qc, qk, xc, xk, alpha, kinv, params, kind: str):

@@ -128,11 +128,10 @@ def target_moments(mu_n: torch.Tensor, q: Optional[torch.Tensor], noise,
 
 
 # -- the CUDA wrappers ------------------------------------------------------------
-def check_operands(kernel: native.Kernel, qc, qk, xc, xk, alpha, kinv=None
-                   ) -> Tuple[int, int, int, int]:
-    """Device, dtype, shape and contiguity of one fused call's operands
-    on a CUDA device, and N against the largest the launcher's shared
-    memory takes (asked of the library); -> (B, N, Fc, Fk).  Raises on
+def operand_dims(kernel: native.Kernel, qc, qk, xc, xk, alpha, kinv=None
+                 ) -> Tuple[int, int, int, int]:
+    """Pairs, dtype, shape, contiguity and one device of a fused call's
+    operands, whatever that device is; -> (B, N, Fc, Fk).  Raises on
     anything the kernel does not take."""
     what = kernel.name
     if (qc is None) != (xc is None) or (qk is None) != (xk is None):
@@ -140,8 +139,6 @@ def check_operands(kernel: native.Kernel, qc, qk, xc, xk, alpha, kinv=None
     if qc is None and qk is None:
         raise ValueError(f"{what}: no feature block")
     dev = alpha.device
-    if dev.type != "cuda":
-        raise ValueError(f"{what} needs CUDA tensors, got {dev}")
     b = n_rows(qc, qk)
     n = alpha.shape[0]
     fc = 0 if qc is None else qc.shape[1]
@@ -164,19 +161,33 @@ def check_operands(kernel: native.Kernel, qc, qk, xc, xk, alpha, kinv=None
             raise ValueError(f"{what}: {name} is not contiguous")
     if b == 0 or n == 0:
         raise ValueError(f"{what}: empty operand (B={b}, N={n})")
+    return b, n, fc, fk
+
+
+def require_cuda(kernel: native.Kernel, dev: torch.device) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel.name} needs CUDA tensors, got {dev}")
+
+
+def check_operands(kernel: native.Kernel, qc, qk, xc, xk, alpha, kinv=None
+                   ) -> Tuple[int, int, int, int]:
+    """`operand_dims`, then a CUDA device, then N against the largest the
+    launcher takes (asked of the library); -> (B, N, Fc, Fk)."""
+    b, n, fc, fk = operand_dims(kernel, qc, qk, xc, xk, alpha, kinv)
+    require_cuda(kernel, alpha.device)
     check_train_rows(kernel, n, fc + fk, kinv is not None)
     return b, n, fc, fk
 
 
 def check_train_rows(kernel: native.Kernel, n: int, f: int, var: bool):
-    """Raise when N training rows of F features do not fit one block's
-    shared memory; the limit is the library's (`ut_gp_max_train_rows`),
-    so the launch geometry lives in csrc/gp_tile.cu alone."""
-    limit = kernel.query("ut_gp_max_train_rows", f, int(var))
+    """Raise when the launcher does not take N training rows of F
+    features; the limit is the library's (the kernel's `limit` query), so
+    the launch geometry lives in csrc/gp_tile.cu alone."""
+    limit = kernel.query(kernel.limit, f, int(var))
     if n > limit:
         raise ValueError(
-            f"{kernel.name}: N={n} training rows at F={f} do not fit one "
-            f"block's shared memory (at most {limit})")
+            f"{kernel.name}: N={n} training rows at F={f} do not fit the "
+            f"launcher's shared memory (at most {limit})")
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
