@@ -16,15 +16,22 @@ setting is printed.  Phases, each printing one JSON line:
              nvcc per source, started together), with ptxas's registers,
              spills and shared memory for every kernel function;
 3. merge   - the merge kernel against its plain version on the card, at
-             cap 2^15 / b 6040 (half-full and full history) and cap 2048 /
-             b 2048, all four columns bitwise; kernel, plain and library
-             times (CUDA events, median of 50 runs after warm-up);
+             cap 2^15 / b 6040 (half-full and full history), cap 2048 /
+             b 2048, and at the edges: b = 70,000 into cap 2^15 (most rows
+             land past cap), b = 1, b = cap with every new row before
+             every history row, and cap 5000 / b 777 (cap not a multiple
+             of a block's rows); all four columns bitwise; kernel, plain
+             and library times (CUDA events, median of 50 runs after
+             warm-up), and beside the byte bound the time of an empty
+             kernel of the same grid (`launch_floor_ms`); with --profile
+             also the kernel at 128, 256 and 512 rows a block;
 4. surrogate - the GP of the surrogate path: `fit_auto_bucketed` on 1024
              evaluated flagship configurations (43 Cholesky factorizations
              of 1024^2) and `precompute_kinv`; a padded-bucket state (700
              real rows in a 1024 bucket), a 300-row state (N off the
-             tensor-core tiles), and, at small size, a dense (n_cat = 0)
-             and an all-categorical (n_cont = 0) state;
+             tensor-core tiles), a 3700-row state (N not a multiple of
+             128, scored at 512 rows), and, at small size, a dense
+             (n_cat = 0) and an all-categorical (n_cont = 0) state;
 5. gp_kernels - launchers A-D of csrc/gp_tile.cu against their plain
              versions on the card, at the flagship's 6040 proposal rows
              against each state (every flag instance launches), and at
@@ -35,8 +42,9 @@ setting is printed.  Phases, each printing one JSON line:
              several lists; max error against the stated tolerance, in
              the GP's standardized units (the units of the reference's
              tolerances); then kernel, eager-call, plain and library
-             times and the bound at the main state (for C and D the
-             3xTF32 tensor-core bound and the f32 one);
+             times and the bound at the main state (for B, C and D the
+             3xTF32 tensor-core bound and the f32 one), and the time of C
+             with kind "mean" (its kernel rows and final passes alone);
 6. engine  - the flagship at scale 64 (6040 rows a step, a 2^15-row
              history): init, one warm step, then the timed steps with the
              launch counts set to 0 just before and read just after; one
@@ -52,8 +60,9 @@ setting is printed.  Phases, each printing one JSON line:
              merge 70); a finite best, valid tours, and the last epoch's
              scores on the card against the same scoring on the CPU;
 9. profile (with --profile) - device time by kernel and the idle share
-             over a few plain and a few surrogate-scored engine steps,
-             and the device time of each pass of C and D;
+             over a few plain and a few surrogate-scored engine steps
+             (scored by launcher C, then by `score_flat` through B),
+             and the device time of each pass of B, C and D;
 10. kernels - one entry per kernel: launches on the main path, error
              against the plain version (and, for the GP kernels, its
              largest ratio to the tolerance), times and bound.
@@ -62,6 +71,7 @@ setting is printed.  Phases, each printing one JSON line:
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import re
 import statistics
@@ -90,6 +100,9 @@ SIZES = (  # (name, cap, b, live history rows)
     ("cap2048_b2048", 2048, 2048, 2000),
 )
 TIMED = "cap32768_b6040_full"
+# rows a block of the merge kernel may take (csrc/merge.cu instantiates
+# these; the library reports the one the port uses)
+MERGE_ROWS = (128, 256, 512)
 # the surrogate path: the manager's max_points (its largest bucket), a
 # padded bucket, the small dense / all-categorical states, and k = 128,
 # the manager's smallest pool routed to the fused top-k (propose_batch 128
@@ -99,6 +112,10 @@ N_TRAIN, N_PADDED, N_SMALL, TOP_K = 1024, 700, 256, 128
 # how far the near-training queries sit from their training rows (each
 # continuous lane moved by +-NEAR, seeded)
 N_RAGGED, NEAR = 300, 0.01
+# a training set of more rows than a [16, N] tile in one block's shared
+# memory allows (3584 at 31 features), N not a multiple of the 128-wide
+# tiles; and the rows scored against it
+N_LARGE, LARGE_ROWS = 3700, 512
 # query rows for a top-k whose candidates span several merge groups
 MANY_ROWS = 20000
 SURR_STEPS, TOPK_EPOCHS, FLAT_STEPS = 50, 50, 10
@@ -223,20 +240,72 @@ def max_bit_err(a, b) -> int:
     return max(int((col_bits(x) - col_bits(y)).abs().max()) for x, y in zip(a, b))
 
 
-def merge_phase(dev) -> dict:
+def edge_merges(dev):
+    """(name, hist, new, pos) at the edges of the merge: more new rows
+    than one block's shared memory could hold positions of (58,112), most
+    of them past cap; one row, in the middle; a batch of cap rows that all
+    come before the history; a cap that no block size divides."""
+    yield ("cap32768_b70000_mostly_past_cap",
+           *merge_inputs(1 << 15, 70000, 1 << 15, 110, dev))
+    hist, new, pos = merge_inputs(1 << 15, 16, 1 << 14, 111, dev)
+    yield ("cap32768_b1", hist, tuple(c[7:8].contiguous() for c in new),
+           (pos[7:8] - 7).contiguous())
+    cap = 4096
+    hist, new, _ = merge_inputs(cap, cap, cap, 112, dev)
+    hist = (hist[0] + (1 << 20),) + hist[1:]
+    new = (torch.sort(new[0] % (1 << 20)).values,) + new[1:]
+    yield ("cap4096_b4096_new_before_history", hist, new,
+           torch.arange(cap, device=dev, dtype=torch.int32))
+    yield ("cap5000_b777", *merge_inputs(5000, 777, 4000, 113, dev))
+
+
+def merge_library(symbol: str, argtypes):
+    """A C function of the merge kernel's library that the port itself
+    does not call (the kernel at another block size, the empty kernel)."""
+    from uptune_tpu_torch import native
+    fn = getattr(native.MERGE.library(), symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def merge_phase(dev, sweep: bool) -> dict:
+    from uptune_tpu_torch import native
     from uptune_tpu_torch.ops import dedup
     out = {"phase": "merge", "tolerance": "bitwise", "cases": []}
     timed = None
-    for i, (name, cap, b, n_live) in enumerate(SIZES):
-        hist, new, pos = merge_inputs(cap, b, n_live, 100 + i, dev)
+    cases = [(name, *merge_inputs(cap, b, n_live, 100 + i, dev))
+             for i, (name, cap, b, n_live) in enumerate(SIZES)]
+    cases += list(edge_merges(dev))
+    with_rows = merge_library("ut_merge_rows_with", [ctypes.c_void_p] * 13
+                              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+    def merge_at(rows, hist, new, pos):
+        """The kernel at `rows` rows a block: not the port's wrapper, so
+        no launch is counted."""
+        res = tuple(torch.empty_like(h) for h in hist)
+        native.check(with_rows(
+            *(t.data_ptr() for t in hist), *(t.data_ptr() for t in new),
+            pos.data_ptr(), *(t.data_ptr() for t in res), hist[0].shape[0],
+            new[0].shape[0], rows, torch.cuda.current_stream().cuda_stream),
+            native.MERGE)
+        return res
+
+    for name, hist, new, pos in cases:
+        cap, b = hist[0].shape[0], new[0].shape[0]
         got = dedup.merge_rows_cuda(hist, new, pos)
         want = dedup.merge_rows(hist, new, pos)
         lib = library_merge(hist, new)
         torch.cuda.synchronize()
         err = max_bit_err(got, want)
         lib_err = max_bit_err(lib, want)
-        case = {"case": name, "cap": cap, "b": b, "live": n_live,
+        case = {"case": name, "cap": cap, "b": b,
+                "new_rows_kept": int((pos < cap).sum()),
                 "max_abs_err": err, "library_max_abs_err": lib_err}
+        if sweep:
+            case["max_abs_err_by_rows_per_block"] = {
+                r: max_bit_err(merge_at(r, hist, new, pos), want)
+                for r in MERGE_ROWS}
+            err = max(err, *case["max_abs_err_by_rows_per_block"].values())
         out["cases"].append(case)
         if err or lib_err:
             emit(out)
@@ -246,10 +315,33 @@ def merge_phase(dev) -> dict:
             timed = (hist, new, pos, case)
     hist, new, pos, case = timed
     cap, b = case["cap"], case["b"]
+    floor = merge_library("ut_merge_launch_floor",
+                          [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+    def floor_ms(rows):             # an empty kernel of the merge's grid
+        return median_ms(lambda: native.check(floor(
+            cap, rows, torch.cuda.current_stream().cuda_stream),
+            native.MERGE))
+    case["rows_per_block"] = native.MERGE.query("ut_merge_rows_per_block")
     case["ms"] = median_ms(lambda: dedup.merge_rows_cuda(hist, new, pos))
+    case["launch_floor_ms"] = floor_ms(0)
     case["call_ms"] = call_ms(lambda: dedup.merge_rows_cuda(hist, new, pos))
     case["plain_ms"] = median_ms(lambda: dedup.merge_rows(hist, new, pos))
     case["library_ms"] = median_ms(lambda: library_merge(hist, new))
+    if sweep:
+        # the block sizes in turns, three rounds: one round's order and
+        # the card's state weigh as much as the sizes differ
+        rounds = [{r: (median_ms(lambda: merge_at(r, hist, new, pos)),
+                       floor_ms(r)) for r in MERGE_ROWS} for _ in range(3)]
+        case["sweep"] = {
+            r: {"ms": statistics.median(x[r][0] for x in rounds),
+                "ms_rounds": [x[r][0] for x in rounds],
+                "launch_floor_ms": statistics.median(x[r][1] for x in rounds)}
+            for r in MERGE_ROWS}
+        # the port's own call once more, after the rounds: how far one
+        # kernel's time moves within this phase
+        case["ms_after_sweep"] = median_ms(
+            lambda: dedup.merge_rows_cuda(hist, new, pos))
     # the bytes a merge must move: each of the cap output rows (24 bytes:
     # h0, h1 int64, qor, age) written once and read once from its one
     # source row, new or history; every position read once.  Batch rows
@@ -264,7 +356,7 @@ def merge_phase(dev) -> dict:
 # -- the surrogate path ---------------------------------------------------------
 def surrogate_phase(dev) -> tuple:
     """The GP states the gp_kernels and surrogate_engine phases score
-    against: {case: (GPState, queries [6040, F], best_y, n_cont, n_cat)}."""
+    against: {case: (GPState, queries [rows, F], best_y, n_cont, n_cat)}."""
     from uptune_tpu_torch.flagship import flagship_surrogate
     from uptune_tpu_torch.surrogate import gp
     x, y, (nc, ncat) = flagship_surrogate(N_TRAIN, SEED + 1, dev)
@@ -287,6 +379,10 @@ def surrogate_phase(dev) -> tuple:
     ragged = gp.precompute_kinv(gp.fit(
         x[:N_RAGGED], y[:N_RAGGED], main.lengthscale, main.noise,
         n_cont=nc, n_cat=ncat, ls_cat=main.ls_cat))
+    xl, yl, _ = flagship_surrogate(N_LARGE, SEED + 6, dev)
+    large = gp.precompute_kinv(gp.fit(
+        xl, yl, main.lengthscale, main.noise, n_cont=nc, n_cat=ncat,
+        ls_cat=main.ls_cat))
     # the training rows themselves, each continuous lane moved by +-NEAR:
     # the posterior sd is small there and k K^-1 cancels the most
     gen = torch.Generator().manual_seed(SEED + 5)
@@ -304,6 +400,8 @@ def surrogate_phase(dev) -> tuple:
         "mixed_n300_ragged": (ragged, xq, float(y[:N_RAGGED].min()), nc,
                               ncat),
         NEAR_CASE: (main, near.contiguous(), float(y.min()), nc, ncat),
+        f"mixed_n{N_LARGE}": (large, xq[:LARGE_ROWS].contiguous(),
+                              float(yl.min()), nc, ncat),
     }
     out = {"phase": "surrogate", "features": int(x.shape[1]),
            "n_cont": nc, "n_cat": ncat, "fit_auto_bucketed_s": fit_s,
@@ -354,7 +452,7 @@ def gp_bound(b: int, n: int, f: int, var: bool, out_bytes: int,
     """The least time for one call: its FLOPs (distances 2BNF, mean 2BN,
     and for the variance kinds k K^-1 2BN^2 plus q 2BN) over the f32 rate,
     or its bytes (queries, training rows, alpha, K^-1, outputs, each once)
-    over HBM's, whichever is larger.  With `tensor_cores` (C and D), k K^-1
+    over HBM's, whichever is larger.  With `tensor_cores` (B, C and D), k K^-1
     counts as the 3 x 2BN^2 TF32 FLOPs of the 3xTF32 scheme, which keeps
     f32's accuracy, at the dense TF32 rate; `bound_f32_ms` is then the
     f32 bound beside it."""
@@ -542,8 +640,10 @@ def gp_kernels_phase(cases) -> tuple:
                                  f"rows at F={f}, fewer than {N_TRAIN}")
     out["acquire_topk_slots"] = acq.TOPK_KERNEL.query(
         "ut_acquire_topk_slots", b, TOP_K)
-    out["acquire_scratch_bytes"] = 4 * acq.scratch_words(
-        acq.TOPK_KERNEL, b, n, "ei", TOP_K)
+    out["acquire_scratch_bytes"] = 4 * ps.scratch_words(
+        acq.TOPK_KERNEL, b, n, True, TOP_K)
+    out["gp_mean_var_scratch_bytes"] = 4 * ps.scratch_words(
+        ps.MEAN_VAR_KERNEL, b, n, True)
 
     def lib_mean():                  # the materialized [B, N] cross-kernel
         return ps.tile_moments(ps.kernel_tile(*blocks[:4]), blocks.alpha)[0]
@@ -558,7 +658,8 @@ def gp_kernels_phase(cases) -> tuple:
                     gp_bound(b, n, f, False, 4 * b), shape),
         "gp_mean_var": (lambda: ps.mean_var_tile_cuda(*blocks, kinv),
                         lambda: ps.mean_var_tile_plain(*blocks, kinv),
-                        lib_mean_var, gp_bound(b, n, f, True, 8 * b), shape),
+                        lib_mean_var, gp_bound(b, n, f, True, 8 * b, True),
+                        shape),
         "acquire_scores": (
             lambda: acq.scores_cuda(*blocks, kinv, params, "ei"),
             lambda: acq.utilities_plain(*blocks, kinv, params, "ei"),
@@ -579,10 +680,11 @@ def gp_kernels_phase(cases) -> tuple:
                            ms=median_ms(kern), call_ms=call_ms(kern),
                            plain_ms=median_ms(plain),
                            library_ms=median_ms(lib))
-    for name in ("acquire_scores", "acquire_topk"):
-        times[name]["ms_over_gp_mean_var_ms"] = (times[name]["ms"]
-                                                 / times["gp_mean_var"]["ms"])
     out["timed"] = times
+    # C with kind "mean": the kernel rows without the k store, then the
+    # final pass; the same mean as A by another route
+    out["acquire_scores_kind_mean_ms"] = median_ms(
+        lambda: acq.scores_cuda(*blocks, None, params, "mean"))
     emit(out)
     return out, times
 
@@ -802,7 +904,7 @@ def surrogate_engine_phase(eng, cases, feats: tuple, dev) -> dict:
                 or int(torch.unique(idx).numel()) != TOP_K):
             raise AssertionError("propose_topk: a selection is not k "
                                  "distinct rows by descending utility")
-    return out, st, ev
+    return out, st, ev, ev_ei
 
 
 def ptxas_summary(log: str) -> list:
@@ -812,10 +914,11 @@ def ptxas_summary(log: str) -> list:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            short = re.search(r"(merge_rows_kernel|kinv_prep_kernel|"
-                              r"wq_kernel|topk_merge_kernel|final_kernelILb\dE|"
+            short = re.search(r"(merge_rows_kernelILi\d+E|launch_floor_kernel|"
+                              r"kinv_prep_kernel|wq_kernel|moments_kernel|"
+                              r"topk_merge_kernel|final_kernelILb\dE|"
                               r"krows_kernelILb\dELb\dELb\dE|"
-                              r"gp_tile_kernelILb\dELb\dELb\dELi\dE)",
+                              r"gp_tile_kernelILb\dELb\dE)",
                               m.group(1))
             fn = short.group(1) if short else m.group(1)
         elif fn and ("registers" in ln or "spill" in ln):
@@ -854,14 +957,16 @@ def profile_phase(eng, st, ms_per_step: float, steps: int = 5,
 
 
 def passes_profile(cases, calls: int = 10) -> None:
-    """Device time by kernel of C's and D's passes at the main state: a
-    torch.profiler window over `calls` calls of each launcher."""
+    """Device time by kernel of B's, C's and D's passes at the main state:
+    a torch.profiler window over `calls` calls of each launcher."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from uptune_tpu_torch.ops import acquire as acq
+    from uptune_tpu_torch.surrogate import pallas_score as ps
     st, xq, best, nc, ncat = cases["mixed_n1024"]
     blocks, kinv, params = acq.prep(st, xq, "ei", best, BETA, nc, ncat)
-    runs = {"acquire_scores": lambda: acq.scores_cuda(*blocks, kinv, params,
+    runs = {"gp_mean_var": lambda: ps.mean_var_tile_cuda(*blocks, kinv),
+            "acquire_scores": lambda: acq.scores_cuda(*blocks, kinv, params,
                                                       "ei"),
             "acquire_topk": lambda: acq.topk_cuda(*blocks, kinv, params, "ei",
                                                   TOP_K)}
@@ -914,16 +1019,18 @@ def main() -> int:
           "ptxas": {str(k.library_path().relative_to(ROOT)): ptxas_summary(
               k.build_log) for k in kernels}})
 
-    merge, timed = merge_phase(dev)
+    merge, timed = merge_phase(dev, args.profile)
     cases, feats = surrogate_phase(dev)
     _, gp_times = gp_kernels_phase(cases)
     eng, st, engine = engine_phase(dev)
     reference_phase(eng, st, dev)
-    surr, st_s, ev = surrogate_engine_phase(eng, cases, feats, dev)
+    surr, st_s, ev, ev_ei = surrogate_engine_phase(eng, cases, feats, dev)
     if args.profile:
         profile_phase(eng, st, engine["ms_per_step"])
         profile_phase(eng, st_s, surr["fused_ms_per_step"], eval_fn=ev,
                       name="surrogate_engine")
+        profile_phase(eng, st_s, surr["score_flat_ms_per_step"],
+                      eval_fn=ev_ei, name="score_flat_ei_engine")
         passes_profile(cases)
 
     entries = []
@@ -939,6 +1046,8 @@ def main() -> int:
                 ms=timed["ms"], kernel_ms=timed["ms"],
                 call_ms=timed["call_ms"], plain_ms=timed["plain_ms"],
                 bound_ms=timed["bound_ms"], bound_by="bytes",
+                launch_floor_ms=timed["launch_floor_ms"],
+                rows_per_block=timed["rows_per_block"],
                 library_ms=timed["library_ms"]))
             continue
         t = gp_times[k.name]
@@ -950,8 +1059,7 @@ def main() -> int:
             kernel_ms=t["ms"], call_ms=t["call_ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
-            **{key: t[key] for key in ("bound_f32_ms", "ms_over_gp_mean_var_ms")
-               if key in t}))
+            **{key: t[key] for key in ("bound_f32_ms",) if key in t}))
     emit({"kernels": entries})
     torch.cuda.synchronize()
     print(smi, flush=True)

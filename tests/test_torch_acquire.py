@@ -13,6 +13,8 @@ Tolerances: mean rtol 1e-4 / atol 1e-5, sd / EI / LCB rtol 1e-3 / atol
 equal at every rank whose value is apart from its neighbours by more
 than the tolerance; exact ties (duplicated rows) go to the lowest index.
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -211,23 +213,28 @@ def test_cuda_wrappers_refuse_cpu_tensors(mixed):
 
 
 def test_wrappers_refuse_training_rows_over_the_librarys_limit(monkeypatch):
-    """The largest N is asked of the library (`ut_gp_max_train_rows`,
-    by features and kind), and N above it is refused before a launch;
-    chip_smoke.py checks on the card that the limit at the flagship's 31
-    features covers the manager's 1024-row bucket."""
+    """The largest N is asked of the library (each launcher's `limit`
+    query, by features and kind), and N above it is refused before a
+    launch.  The library reports no limit for any launcher now, so the
+    mechanism is shown on a stand-in answer; chip_smoke.py checks on the
+    card that the real answer at the flagship's 31 features covers the
+    manager's 1024-row bucket."""
     from uptune_tpu_torch import native
     asked = []
 
     def query(symbol, *args):
         asked.append((symbol, args))
         return 1024
-    monkeypatch.setattr(native.GP_MEAN_VAR, "query", query)
+    for kern in (native.GP_MEAN, native.GP_MEAN_VAR):
+        monkeypatch.setattr(kern, "query", query)
     tps.check_train_rows(native.GP_MEAN_VAR, 1024, 31, True)
     with pytest.raises(ValueError, match=r"N=1025 .*\(at most 1024\)"):
         tps.check_train_rows(native.GP_MEAN_VAR, 1025, 31, True)
-    tps.check_train_rows(native.GP_MEAN_VAR, 7, 8, False)
-    assert asked == [("ut_gp_max_train_rows", (31, 1))] * 2 + [
-        ("ut_gp_max_train_rows", (8, 0))]
+    tps.check_train_rows(native.GP_MEAN, 7, 8, False)
+    with pytest.raises(ValueError, match=r"gp_mean: N=2000 .*\(at most 1024\)"):
+        tps.check_train_rows(native.GP_MEAN, 2000, 8, False)
+    assert asked == [("ut_acquire_max_train_rows", (31, 1))] * 2 + [
+        ("ut_gp_max_train_rows", (8, 0))] * 2
 
 
 # -- launcher D's two-level selection, in plain torch ---------------------------------
@@ -296,8 +303,7 @@ def geometry(monkeypatch, words=1000, limit=2**31 - 1):
     from uptune_tpu_torch import native
     asked = []
     answers = {"ut_acquire_scratch_words": words,
-               "ut_acquire_max_train_rows": limit,
-               "ut_gp_max_train_rows": 3584}
+               "ut_acquire_max_train_rows": limit}
 
     def query(symbol, *args, **kw):
         asked.append((symbol, args))
@@ -355,12 +361,12 @@ def test_acquire_wrappers_refuse_a_wrong_scratch(mixed, monkeypatch):
 
 
 def test_acquire_launchers_take_n_above_the_tile_limit(monkeypatch):
-    """C and D keep nothing of size N in shared memory: where the library
-    reports no limit they take an N that B's tile (3584 at F = 31) does
-    not, and the scratch is sized by the library."""
+    """B, C and D keep nothing of size N in shared memory: where the
+    library reports no limit they take an N that B's former tile (3584 at
+    F = 31) did not, and the scratch is sized by the library."""
     from uptune_tpu_torch import native
     asked = geometry(monkeypatch, words=77)
-    monkeypatch.setattr(tacq, "require_cuda", lambda kernel, dev: None)
+    monkeypatch.setattr(tps, "require_cuda", lambda kernel, dev: None)
     n, b, fc, fk = 3600, 8, 23, 8
     g = np.random.RandomState(0)
     ops = [torch.from_numpy(g.rand(*s).astype(np.float32))
@@ -371,5 +377,74 @@ def test_acquire_launchers_take_n_above_the_tile_limit(monkeypatch):
         dims = tacq._check_launch(kern, "ei", *ops, kinv, params, None, k)
         assert dims[:4] == (b, n, fc, fk) and dims[4].shape == (77,)
     assert ("ut_acquire_max_train_rows", (31, 1)) in asked
-    with pytest.raises(ValueError, match=r"N=3600 .*\(at most 3584\)"):
-        tps.check_train_rows(native.GP_MEAN_VAR, n, 31, True)
+    del asked[:]
+    scratch = tps.launch_scratch(native.GP_MEAN_VAR, b, n, fc + fk, True, 0,
+                                 None, torch.device("cpu"))
+    assert scratch.shape == (77,) and scratch.dtype == torch.float32
+    assert asked == [("ut_acquire_max_train_rows", (31, 1)),
+                     ("ut_acquire_scratch_words", (b, n, 1, 0))]
+
+
+# -- launcher B's wrapper, on any device -----------------------------------------------
+def test_mean_var_wrapper_sizes_and_checks_its_scratch(mixed, monkeypatch):
+    """B runs C's passes: its wrapper asks the library for the scratch of
+    (B, N, variance, no top-k), refuses a wrong scratch with C's message
+    before the device is looked at, and passes a right one on to the
+    device check."""
+    from uptune_tpu_torch import native
+    _, st, xq, best, nc, ncat = mixed
+    blocks, kinv, _ = tacq.prep(st, T(xq), "ei", best, 2.0, nc, ncat)
+    asked = geometry(monkeypatch, words=1000)
+    launches = native.GP_MEAN_VAR.launches
+    bad = {"size": torch.empty(999),
+           "dtype": torch.empty(1000, dtype=torch.float64),
+           "layout": torch.empty(10, 100), "stride": torch.empty(2000)[::2],
+           "device": torch.empty(1000, device="meta")}
+    for what, scratch in bad.items():
+        with pytest.raises(ValueError, match="gp_mean_var: scratch must be a "
+                           "contiguous 1-D float32 tensor of at least 1000"):
+            tps.mean_var_tile_cuda(*blocks, kinv, scratch=scratch)
+    b, n = xq.shape[0], kinv.shape[0]
+    assert asked == [("ut_acquire_scratch_words", (b, n, 1, 0))] * len(bad)
+    with pytest.raises(ValueError, match="gp_mean_var needs CUDA tensors"):
+        tps.mean_var_tile_cuda(*blocks, kinv, scratch=torch.empty(1000))
+    with pytest.raises(ValueError, match="kinv has shape"):
+        tps.mean_var_tile_cuda(*blocks, kinv[:-1])
+    assert native.GP_MEAN_VAR.launches == launches
+
+
+@pytest.mark.parametrize("n", [3600, 3585])
+def test_mean_var_wrapper_takes_n_above_its_former_limit(n, monkeypatch):
+    """N = 3600 at F = 31 passes every check of B's wrapper up to the
+    launch itself when the library reports no limit (the former tile
+    stopped at 3584); a library that reports a limit still refuses."""
+    from uptune_tpu_torch import native
+    asked = geometry(monkeypatch, words=55)
+    monkeypatch.setattr(tps, "require_cuda", lambda kernel, dev: None)
+    launched = []
+
+    def function():
+        def fn(*args):
+            launched.append(args)
+            return 0
+        return fn
+    monkeypatch.setattr(native.GP_MEAN_VAR, "function", function)
+    monkeypatch.setattr(tps, "stream_of", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    b, fc, fk = 8, 23, 8
+    g = np.random.RandomState(1)
+    ops = [torch.from_numpy(g.rand(*s).astype(np.float32))
+           for s in ((b, fc), (b, fk), (n, fc), (n, fk), (n,))]
+    before = native.GP_MEAN_VAR.launches
+    mu, q = tps.mean_var_tile_cuda(*ops, torch.zeros(n, n))
+    assert mu.shape == q.shape == (b,) and mu.dtype == torch.float32
+    assert native.GP_MEAN_VAR.launches == before + 1
+    native.GP_MEAN_VAR.launches = before
+    (args,) = launched
+    assert args[-5:-1] == (b, n, fc, fk) and len(args) == 14
+    assert ("ut_acquire_scratch_words", (b, n, 1, 0)) in asked
+    assert ("ut_acquire_max_train_rows", (31, 1)) in asked
+    geometry(monkeypatch, words=55, limit=3584)
+    with pytest.raises(ValueError, match=rf"N={n} .*\(at most 3584\)"):
+        tps.mean_var_tile_cuda(*ops, torch.zeros(n, n))

@@ -6,6 +6,9 @@ kernel in interpret mode, and `History.insert` / `contains` /
 The port's CUDA merge kernel cannot run here (no card); `chip_smoke.py`
 holds it against the plain version on the card.  On CPU tensors the
 kernel's wrapper takes the plain version, which these tests check too.
+What a block of the kernel does (its multiway search for its window of
+`pos_new`, the slot marks, the running count) is modelled here in plain
+torch, `block_merge`, and held bitwise to `merge_rows`.
 """
 import jax
 import jax.numpy as jnp
@@ -117,6 +120,152 @@ def test_merge_kernel_wrapper_checks_its_inputs():
     with pytest.raises(ValueError, match="CUDA"):
         tdedup.merge_rows_cuda(_t_rows(hist), _t_rows(new), T(pos))
     assert tdedup.MERGE_KERNEL.launches == 0
+
+
+def test_merge_kernel_wrapper_takes_any_batch_size():
+    """The kernel keeps no more of `pos_new` in a block than the block's
+    own rows, so the wrapper has no batch limit: b above the 58,112 rows
+    that once filled a block's shared memory gets as far as the device
+    check, and the CPU route merges it."""
+    assert not hasattr(tdedup, "MAX_BATCH")
+    cap, b = 64, 60000
+    hist, new, pos = _mk(np.random.RandomState(2), cap, b, 40)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tdedup.merge_rows_cuda(_t_rows(hist), _t_rows(new), T(pos))
+    out = tdedup.merge_rows_kernel(_t_rows(hist), _t_rows(new), T(pos))
+    assert_rows_equal(out, block_merge(_t_rows(hist), _t_rows(new), T(pos),
+                                       128))
+
+
+# -- the merge kernel's block algorithm, in plain torch ------------------------------
+def multiway_lower_bound(pos, p0, ways):
+    """#{i : pos[i] < p0} as one warp of the kernel finds it: each round
+    probes `ways` evenly spaced entries of the range the answer can still
+    lie in and keeps one gap.  -> (the count, the rounds taken)."""
+    lo, hi, rounds = 0, len(pos), 0
+    while lo < hi:
+        n = hi - lo
+        step = -(-n // ways)
+        probes = lo + (np.arange(ways) + 1) * step - 1
+        below = np.zeros(ways, bool)
+        ok = probes < hi
+        below[ok] = pos[probes[ok]] < p0
+        cnt = int(below.sum())
+        assert below[:cnt].all()            # a prefix: pos is increasing
+        nxt = lo + (cnt + 1) * step - 1
+        lo += cnt * step
+        hi = min(hi, nxt)
+        rounds += 1
+    return lo, rounds
+
+
+def block_merge(hist, new, pos_new, rows, ways=128):
+    """The merge as the kernel's blocks do it, `rows` output rows a block:
+    the block's window of `pos_new` starts at lo = #{pos_new < p0} and
+    holds at most `rows` entries; entry i marks slot[pos_new[i] - p0] =
+    i + 1; a marked row comes from new row slot - 1, any other from
+    history row p - (lo + the marks before it)."""
+    cap, b = hist[0].shape[0], new[0].shape[0]
+    pos = pos_new.numpy().astype(np.int64)
+    out = tuple(torch.empty_like(h) for h in hist)
+    both = tuple(torch.cat([n, h]) for h, n in zip(hist, new))
+    for p0 in range(0, cap, rows):
+        lo, _ = multiway_lower_bound(pos, p0, ways)
+        assert lo == np.searchsorted(pos, p0, side="left")
+        slot = np.zeros(rows, np.int64)
+        i = lo + np.arange(rows)
+        i = i[i < b]                        # thread t reads pos_new[lo + t]
+        i = i[pos[i] - p0 < rows]
+        assert (pos[i] >= p0).all()
+        slot[pos[i] - p0] = i + 1
+        is_new = slot != 0
+        before = np.cumsum(is_new) - is_new
+        p = p0 + np.arange(rows)
+        src_hist = p - (lo + before)
+        live = p < cap
+        assert ((src_hist >= 0) & (src_hist < cap))[live & ~is_new].all()
+        src = torch.from_numpy(np.where(is_new, slot - 1, b + src_hist)[live])
+        for o, rows_both in zip(out, both):
+            o[p0:p0 + int(live.sum())] = rows_both[src]
+    return out
+
+
+def assert_rows_equal(got, want):
+    for name, g, w in zip(("h0", "h1", "qor", "age"), got, want):
+        assert_bitwise(N(w), N(g), name)
+
+
+def _edge(case):
+    """(hist, new, pos) of one edge of the merge, as numpy rows."""
+    rng = np.random.RandomState(len(case))
+    if case == "empty_batch":
+        return _mk(rng, 300, 0, 200)
+    if case == "one_row":
+        hist, new, _ = _mk(rng, 300, 1, 200, sent_batch=0)
+        new = (np.array([hist[0][77]], np.uint32),) + new[1:]   # an equal h0
+        pos = np.array([np.searchsorted(hist[0], new[0][0], side="right")],
+                       np.int32)
+        return hist, new, pos
+    if case == "past_cap_truncated":        # a full history: most rows drop
+        return _mk(rng, 300, 250, 300)
+    if case == "batch_larger_than_cap":
+        return _mk(rng, 300, 1000, 260)
+    if case == "cap_not_a_multiple_of_rows":
+        return _mk(rng, 515, 130, 400)
+    cap, b = 256, 256
+    hist, new, _ = _mk(rng, cap, b, cap, sent_batch=0)
+    if case == "new_before_history":
+        h0s, h0 = np.sort(new[0] % 1000), np.sort(hist[0] % 1000 + 5000)
+    elif case == "new_after_history":
+        h0s, h0 = np.sort(new[0] % 1000 + 5000), np.sort(hist[0] % 1000)
+    else:
+        assert case == "equal_h0_old_first"
+        h0 = np.sort(hist[0] % 7)           # long runs of equal h0
+        h0s = np.sort(new[0] % 7)
+    h0, h0s = h0.astype(np.uint32), h0s.astype(np.uint32)
+    pos = (np.arange(b) + np.searchsorted(h0, h0s, side="right")).astype(
+        np.int32)
+    return (h0,) + hist[1:], (h0s,) + new[1:], pos
+
+
+@pytest.mark.parametrize("rows", [4, 128, 256])
+@pytest.mark.parametrize("case", [
+    "empty_batch", "one_row", "new_before_history", "new_after_history",
+    "past_cap_truncated", "equal_h0_old_first", "batch_larger_than_cap",
+    "cap_not_a_multiple_of_rows"])
+def test_block_merge_matches_merge_rows(case, rows):
+    hist, new, pos = _edge(case)
+    want = tdedup.merge_rows(_t_rows(hist), _t_rows(new), T(pos))
+    got = block_merge(_t_rows(hist), _t_rows(new), T(pos), rows)
+    assert_rows_equal(got, want)
+    if case == "equal_h0_old_first":        # old rows before new on equal h0
+        age, h0 = N(want[3]), N(want[0])
+        for v in np.unique(h0):
+            run = age[h0 == v]
+            assert (np.diff((run == 50).astype(int)) >= 0).all()
+    if case == "new_before_history":
+        assert (N(want[3]) == 50).all()
+    if case == "new_after_history":
+        assert (N(want[3]) != 50).all()
+
+
+@pytest.mark.parametrize("b,ways,rounds", [
+    (0, 128, 0), (1, 128, 1), (128, 128, 1), (129, 128, 2), (6040, 128, 2),
+    (6040, 32, 3), (16384, 128, 2), (70000, 128, 3), (1000, 2, 10)])
+def test_multiway_search_is_a_lower_bound(b, ways, rounds):
+    """The search gives numpy's left searchsorted for every target, in at
+    most ceil(log_ways(b + 1)) rounds (two at the flagship's b = 6040)."""
+    rng = np.random.RandomState(b + ways)
+    pos = np.cumsum(rng.randint(1, 4, b)).astype(np.int64)
+    worst = 0
+    targets = np.unique(np.concatenate([
+        [0, 1, int(pos[-1]) + 5 if b else 3], rng.choice(pos, min(b, 200)),
+        rng.choice(pos, min(b, 200)) + 1])) if b else np.array([0, 3])
+    for p0 in targets:
+        lo, took = multiway_lower_bound(pos, int(p0), ways)
+        assert lo == np.searchsorted(pos, p0, side="left")
+        worst = max(worst, took)
+    assert worst <= rounds
 
 
 def test_history_insert_contains_with_eviction():

@@ -25,19 +25,15 @@
 // and one epilogue.  Distances sum (a - b)^2 directly, which is more
 // exact than the |a|^2 + |b|^2 - 2ab identity the plain version follows.
 //
-// A and B: one tile routine.  A block of kThreads threads holds kRows
-// query rows.  Phase 1: each thread takes training rows n = tid, tid +
+// A: one tile routine on CUDA cores.  A block of kThreads threads holds
+// kRows query rows.  Each thread takes training rows n = tid, tid +
 // kThreads, ...; for each it accumulates the kRows distances (the query
-// rows sit in shared memory and are read as broadcasts), forms k, adds
-// k * alpha[n] to its kRows partial means and, for B, stores k in the
-// block's [kRows, N] shared tile (64 KB at N = 1024).  Phase 2 (B): K^-1
-// streams through the block once, in passes of kThreads * kCols columns,
-// on CUDA cores; each thread keeps kRows x kCols accumulators of
-// w = k K^-1 and folds w * k into its partial q.  Bound (B = 6040 queries,
-// N = 1024, F = 31): 2BN^2 = 12.7 GFLOP at the f32 rate, 67 TFLOP/s,
-// about 0.195 ms; A's 2BNF FLOP take about 6 us at that rate.
+// rows sit in shared memory and are read as broadcasts), forms k and adds
+// k * alpha[n] to its kRows partial means; one block sum ends it.  Bound
+// (B = 6040 queries, N = 1024, F = 31): 2BNF FLOP at the f32 rate, 67
+// TFLOP/s, about 6 us.
 //
-// C and D: the same function in passes through a scratch buffer the
+// B, C and D: the same function in passes through a scratch buffer the
 // wrapper allocates (the kernels allocate nothing).
 //   1. kinv_prep: K^-1 [N, N] -> its transpose, zero-padded to [Np, Np]
 //      (Np = N rounded up to kTileN) and split into TF32 hi and lo planes:
@@ -60,19 +56,23 @@
 //      apart and the tensor cores take one's products while the other
 //      adds.  The epilogue folds W * k over the block's columns into one
 //      partial q per row ([Np / kTileN, Bp]); W never leaves registers.
-//   4. final: each row's partials summed in tile order, then the utility
-//      (EI / -LCB / -mean).  For D the same pass sorts each kSel-row chunk
-//      by (value desc, index asc) in shared memory and keeps its best
-//      min(k, kSel); then topk_merge ranks every kept entry within its
-//      group of lists (binary searches in the other lists) and writes the
-//      group's best min(k, ...) in order.  At B = 6040, k = 128 that is
-//      one group: D's output is the top k, and the wrapper sorts nothing.
+//   4. B, moments: each row's partials summed in tile order into mu_n and
+//      q.  C and D, final: the same sums, then the utility (EI / -LCB /
+//      -mean), so B's moments are C's bit for bit.  For D the same pass
+//      sorts each kSel-row chunk by (value desc, index asc) in shared
+//      memory and keeps its best min(k, kSel); then topk_merge ranks every
+//      kept entry within its group of lists (binary searches in the other
+//      lists) and writes the group's best min(k, ...) in order.  At B =
+//      6040, k = 128 that is one group: D's output is the top k, and the
+//      wrapper sorts nothing.
 // Every row's k, partial sums and utility follow one order whatever its
 // place in a tile, with no atomics, so duplicated query rows tie bitwise.
-// Bound of C and D (B = 6040, N = 1024, F = 31): 3 x 2BN^2 = 38 GFLOP of
-// TF32 at 495 TFLOP/s dense, plus the distances, mean and q at the f32
-// rate: about 0.083 ms.  K^-1 is read from L2 once per kTileM query rows
-// (48 times) where B's tile reads it once per kRows (378 times).
+// Bound of B, C and D (B = 6040, N = 1024, F = 31): 3 x 2BN^2 = 38 GFLOP
+// of TF32 at 495 TFLOP/s dense, plus the distances, mean and q at the f32
+// rate: about 0.083 ms (2BN^2 = 12.7 GFLOP at the f32 rate would take
+// 0.195 ms).  K^-1 is read from L2 once per kTileM query rows (48 times at
+// B = 6040), and nothing of size N sits in shared memory, so N is not
+// limited.
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -82,14 +82,13 @@
 
 namespace {
 
-constexpr int kRows = 16;          // A and B: query rows per block
+constexpr int kRows = 16;          // A: query rows per block
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 4;           // B: K^-1 columns per thread per pass
 constexpr int kMaxShared = 232448;  // one block's shared memory on Hopper
 constexpr int kMaxDevices = 64;
 
-// C and D
+// B, C and D
 constexpr int kTileM = 128;        // query rows of one W tile
 constexpr int kTileN = 128;        // K^-1 columns of one W tile
 constexpr int kTileK = 32;         // depth of one pipeline stage
@@ -105,7 +104,6 @@ constexpr int kSel = 256;          // rows of one first-level selection
 constexpr int kMergeSlots = 8192;  // candidates one merge block ranks
 constexpr int kMergeShared = kMergeSlots * 8;
 
-enum Epilogue { kStoreMean = 0, kStoreMeanQ = 1 };
 enum Kind { kKindMean = 0, kKindEI = 1, kKindLCB = 2 };
 
 __device__ __forceinline__ float matern52(float d2) {
@@ -138,20 +136,17 @@ __device__ __forceinline__ float block_sum(const float (&part)[kRows],
   return tot;
 }
 
-// A and B
-template <bool kCont, bool kCat, bool kVar, int kEpi>
+// A
+template <bool kCont, bool kCat>
 __global__ void __launch_bounds__(kThreads) gp_tile_kernel(
     const float* __restrict__ qc, const float* __restrict__ qk,
     const float* __restrict__ xc, const float* __restrict__ xk,
-    const float* __restrict__ alpha, const float* __restrict__ kinv,
-    float* __restrict__ out0, float* __restrict__ out1, int b, int n,
+    const float* __restrict__ alpha, float* __restrict__ mu, int b, int n,
     int fc, int fk) {
   extern __shared__ __align__(16) float smem[];
   const int f = fc + fk;
-  const int np = (n + 3) & ~3;
   float* s_q = smem;                        // [kRows][f]
-  float* s_red = s_q + kRows * f;           // [2][kWarps][kRows]
-  float* s_k = s_red + 2 * kWarps * kRows;  // [kRows][np], 16-byte aligned
+  float* s_red = s_q + kRows * f;           // [kWarps][kRows]
   const int row0 = blockIdx.x * kRows;
 
   for (int i = threadIdx.x; i < kRows * f; i += kThreads) {
@@ -163,15 +158,9 @@ __global__ void __launch_bounds__(kThreads) gp_tile_kernel(
     }
     s_q[i] = v;
   }
-  if (kVar) {
-    const int pad = np - n;
-    for (int i = threadIdx.x; i < kRows * pad; i += kThreads) {
-      s_k[(i / pad) * np + n + i % pad] = 0.f;
-    }
-  }
   __syncthreads();
 
-  // phase 1: the kernel rows, the partial means
+  // the kernel rows, the partial means
   float mu_part[kRows];
 #pragma unroll
   for (int t = 0; t < kRows; ++t) mu_part[t] = 0.f;
@@ -212,74 +201,15 @@ __global__ void __launch_bounds__(kThreads) gp_tile_kernel(
         k = expf(-dk[t]);
       }
       mu_part[t] = fmaf(k, a, mu_part[t]);
-      if (kVar) s_k[t * np + col] = k;
     }
   }
-  const float mu_n = block_sum(mu_part, s_red);  // syncs: s_k is complete
-
-  // phase 2: q = rowsum((k K^-1) * k), K^-1 streamed in column passes
-  float q_tot = 0.f;
-  if (kVar) {
-    float q_part[kRows];
-#pragma unroll
-    for (int t = 0; t < kRows; ++t) q_part[t] = 0.f;
-    for (int c0 = 0; c0 < n; c0 += kThreads * kCols) {
-      int cols[kCols];
-      bool ok[kCols];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        cols[c] = c0 + threadIdx.x + c * kThreads;
-        ok[c] = cols[c] < n;
-      }
-      float acc[kRows][kCols];
-#pragma unroll
-      for (int t = 0; t < kRows; ++t) {
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[t][c] = 0.f;
-      }
-      for (int m = 0; m < np; m += 4) {
-        float kv[4][kCols];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            kv[r][c] = (ok[c] && m + r < n)
-                           ? kinv[static_cast<size_t>(m + r) * n + cols[c]]
-                           : 0.f;
-          }
-        }
-#pragma unroll
-        for (int t = 0; t < kRows; ++t) {
-          const float4 kt = *reinterpret_cast<const float4*>(s_k + t * np + m);
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            acc[t][c] = fmaf(kt.x, kv[0][c], acc[t][c]);
-            acc[t][c] = fmaf(kt.y, kv[1][c], acc[t][c]);
-            acc[t][c] = fmaf(kt.z, kv[2][c], acc[t][c]);
-            acc[t][c] = fmaf(kt.w, kv[3][c], acc[t][c]);
-          }
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < kRows; ++t) {
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          if (ok[c]) {
-            q_part[t] = fmaf(acc[t][c], s_k[t * np + cols[c]], q_part[t]);
-          }
-        }
-      }
-    }
-    q_tot = block_sum(q_part, s_red + kWarps * kRows);
-  }
+  const float mu_n = block_sum(mu_part, s_red);
 
   const int r = row0 + threadIdx.x;
-  if (threadIdx.x >= kRows || r >= b) return;
-  out0[r] = mu_n;
-  if (kEpi == kStoreMeanQ) out1[r] = q_tot;
+  if (threadIdx.x < kRows && r < b) mu[r] = mu_n;
 }
 
-// -- C and D ------------------------------------------------------------------
+// -- B, C and D ------------------------------------------------------------------
 
 // The utility of one row from its moments; params: noise, y_mean, y_std,
 // best_y, beta (the JAX (1, 8) scalar pack)
@@ -721,6 +651,25 @@ __device__ __forceinline__ bool before(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
 }
 
+// One row's tn partial sums, added in tile order: the one summation order
+// of the mean and of q, for B, C and D alike.
+__device__ __forceinline__ float tile_sum(const float* __restrict__ part,
+                                          int bp, int tn, int r) {
+  float s = 0.f;
+  for (int t = 0; t < tn; ++t) s += part[static_cast<size_t>(t) * bp + r];
+  return s;
+}
+
+// B's last pass, one thread per row: the moments themselves.
+__global__ void __launch_bounds__(kSel) moments_kernel(
+    const float* __restrict__ mupart, const float* __restrict__ qpart, int b,
+    int bp, int tn, float* __restrict__ mu, float* __restrict__ q) {
+  const int r = blockIdx.x * kSel + threadIdx.x;
+  if (r >= b) return;
+  mu[r] = tile_sum(mupart, bp, tn, r);
+  q[r] = tile_sum(qpart, bp, tn, r);
+}
+
 // One thread per row: the moments from the tn partials (in tile order),
 // the utility into u; with kSelect, block x then sorts its kSel rows by
 // (value desc, index asc) with a bitonic network (rows past b enter as
@@ -734,11 +683,8 @@ __global__ void __launch_bounds__(kSel) final_kernel(
   const int r = blockIdx.x * kSel + threadIdx.x;
   float val = __int_as_float(0xff800000);
   if (r < b) {
-    float mu_n = 0.f, q = 0.f;
-    for (int t = 0; t < tn; ++t) mu_n += mupart[static_cast<size_t>(t) * bp + r];
-    if (kind != kKindMean) {
-      for (int t = 0; t < tn; ++t) q += qpart[static_cast<size_t>(t) * bp + r];
-    }
+    const float mu_n = tile_sum(mupart, bp, tn, r);
+    const float q = kind != kKindMean ? tile_sum(qpart, bp, tn, r) : 0.f;
     val = utility(mu_n, q, params, kind);
     u[r] = val;
   }
@@ -839,13 +785,10 @@ __global__ void __launch_bounds__(kSel) topk_merge_kernel(
   }
 }
 
-// Dynamic shared memory of one A/B block, in floats: the query rows, the
-// per-warp reduction scratch and, for B, the [kRows, N] kernel rows (N
-// rounded up to 4).
-size_t shared_words(int n, int f, bool var) {
-  const size_t np = static_cast<size_t>((n + 3) & ~3);
-  return static_cast<size_t>(kRows) * f + 2 * kWarps * kRows +
-         (var ? kRows * np : 0);
+// Dynamic shared memory of one block of A, in floats: the query rows and
+// the per-warp reduction scratch.
+size_t shared_words(int f) {
+  return static_cast<size_t>(kRows) * f + kWarps * kRows;
 }
 
 // Dynamic shared memory of one krows block, in floats.
@@ -870,39 +813,39 @@ cudaError_t allow_shared(Kern kern, std::atomic<bool>* done) {
   return e;
 }
 
-struct Args {
+// The operands every launcher takes (kinv and scratch null for A and for
+// the mean kind).
+struct Operands {
   const float *qc, *qk, *xc, *xk, *alpha, *kinv;
-  float *out0, *out1;
+  float* scratch;
   int b, n, fc, fk;
 };
 
-template <bool kCont, bool kCat, bool kVar, int kEpi>
-cudaError_t launch_tile(const Args& a, cudaStream_t stream) {
-  auto kern = gp_tile_kernel<kCont, kCat, kVar, kEpi>;
+template <bool kCont, bool kCat>
+cudaError_t launch_tile(const Operands& a, float* mu, cudaStream_t stream) {
+  auto kern = gp_tile_kernel<kCont, kCat>;
   static std::atomic<bool> shared_allowed[kMaxDevices];
-  const size_t smem = shared_words(a.n, a.fc + a.fk, kVar) * sizeof(float);
+  const size_t smem = shared_words(a.fc + a.fk) * sizeof(float);
   if (smem > static_cast<size_t>(kMaxShared)) return cudaErrorInvalidValue;
   const cudaError_t attr = allow_shared(kern, shared_allowed);
   if (attr != cudaSuccess) return attr;
   const int blocks = (a.b + kRows - 1) / kRows;
   kern<<<blocks, kThreads, smem, stream>>>(a.qc, a.qk, a.xc, a.xk, a.alpha,
-                                           a.kinv, a.out0, a.out1, a.b, a.n,
-                                           a.fc, a.fk);
+                                           mu, a.b, a.n, a.fc, a.fk);
   return cudaGetLastError();
 }
 
-template <bool kVar, int kEpi>
-cudaError_t dispatch(const Args& a, cudaStream_t stream) {
+cudaError_t mean(const Operands& a, float* mu, cudaStream_t stream) {
   if (a.b <= 0 || a.n <= 0) return cudaErrorInvalidValue;
-  if (a.fc > 0 && a.fk > 0) return launch_tile<true, true, kVar, kEpi>(a, stream);
-  if (a.fc > 0) return launch_tile<true, false, kVar, kEpi>(a, stream);
-  if (a.fk > 0) return launch_tile<false, true, kVar, kEpi>(a, stream);
+  if (a.fc > 0 && a.fk > 0) return launch_tile<true, true>(a, mu, stream);
+  if (a.fc > 0) return launch_tile<true, false>(a, mu, stream);
+  if (a.fk > 0) return launch_tile<false, true>(a, mu, stream);
   return cudaErrorInvalidValue;
 }
 
-// Where C and D keep their passes' data: offsets into the scratch buffer,
-// in 4-byte words (the k and K^-1 blocks 16-byte aligned), and the
-// selection's geometry (k = 0 for C).
+// Where B, C and D keep their passes' data: offsets into the scratch
+// buffer, in 4-byte words (the k and K^-1 blocks 16-byte aligned), and the
+// selection's geometry (k = 0 for B and C).
 struct Plan {
   int np, bp, tn, n1, k1, group, n2, k2;
   size_t mupart, qpart, kscr, khi, klo, cand, words;
@@ -942,16 +885,11 @@ bool make_plan(int b, int n, int var, int k, Plan* p) {
   return true;
 }
 
-struct Acquire {
-  const float *qc, *qk, *xc, *xk, *alpha, *kinv, *params;
-  float *u, *scratch, *vals;
-  int32_t* idx;
-  int b, n, fc, fk, kind, k;
-};
-
+// The passes that leave each row's partial means in mupart and, with var,
+// its partial q in qpart: kinv_prep, krows and wq, or krows alone.
 template <bool kCont, bool kCat>
-cudaError_t launch_acquire(const Acquire& a, const Plan& p, cudaStream_t s) {
-  const bool var = a.kind != kKindMean;
+cudaError_t launch_passes(const Operands& a, const Plan& p, bool var,
+                          cudaStream_t s) {
   float* mupart = a.scratch + p.mupart;
   float* qpart = a.scratch + p.qpart;
   float* kscr = a.scratch + p.kscr;
@@ -962,43 +900,86 @@ cudaError_t launch_acquire(const Acquire& a, const Plan& p, cudaStream_t s) {
   if (kr_smem > static_cast<size_t>(kMaxShared)) return cudaErrorInvalidValue;
   const dim3 kr_grid(p.tn, p.bp / kKRows);
   cudaError_t e;
-  if (var) {
-    kinv_prep_kernel<<<dim3(p.np / 32, p.np / 32), kThreads, 0, s>>>(
-        a.kinv, a.n, p.np, khi, klo);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-
-    auto kr = krows_kernel<kCont, kCat, true>;
-    static std::atomic<bool> kr_allowed[kMaxDevices];
-    if ((e = allow_shared(kr, kr_allowed)) != cudaSuccess) return e;
-    kr<<<kr_grid, kThreads, kr_smem, s>>>(a.qc, a.qk, a.xc, a.xk, a.alpha,
-                                          a.b, a.n, a.fc, a.fk, p.np, p.bp,
-                                          kscr, mupart);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-
-    static std::atomic<bool> wq_allowed[kMaxDevices];
-    if ((e = allow_shared(wq_kernel, wq_allowed)) != cudaSuccess) return e;
-    wq_kernel<<<dim3(p.tn, p.bp / kTileM), kThreads, kWqShared, s>>>(
-        kscr, khi, klo, p.np, p.bp, qpart);
-  } else {
-    auto kr = krows_kernel<kCont, kCat, false>;
-    static std::atomic<bool> kr_allowed[kMaxDevices];
-    if ((e = allow_shared(kr, kr_allowed)) != cudaSuccess) return e;
-    kr<<<kr_grid, kThreads, kr_smem, s>>>(a.qc, a.qk, a.xc, a.xk, a.alpha,
-                                          a.b, a.n, a.fc, a.fk, p.np, p.bp,
-                                          nullptr, mupart);
+  if (!var) {
+    auto kr_mean = krows_kernel<kCont, kCat, false>;
+    static std::atomic<bool> kr_mean_allowed[kMaxDevices];
+    if ((e = allow_shared(kr_mean, kr_mean_allowed)) != cudaSuccess) return e;
+    kr_mean<<<kr_grid, kThreads, kr_smem, s>>>(a.qc, a.qk, a.xc, a.xk,
+                                               a.alpha, a.b, a.n, a.fc, a.fk,
+                                               p.np, p.bp, nullptr, mupart);
+    return cudaGetLastError();
   }
+  kinv_prep_kernel<<<dim3(p.np / 32, p.np / 32), kThreads, 0, s>>>(
+      a.kinv, a.n, p.np, khi, klo);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
+  auto kr = krows_kernel<kCont, kCat, true>;
+  static std::atomic<bool> kr_allowed[kMaxDevices];
+  if ((e = allow_shared(kr, kr_allowed)) != cudaSuccess) return e;
+  kr<<<kr_grid, kThreads, kr_smem, s>>>(a.qc, a.qk, a.xc, a.xk, a.alpha, a.b,
+                                        a.n, a.fc, a.fk, p.np, p.bp, kscr,
+                                        mupart);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+  static std::atomic<bool> wq_allowed[kMaxDevices];
+  if ((e = allow_shared(wq_kernel, wq_allowed)) != cudaSuccess) return e;
+  wq_kernel<<<dim3(p.tn, p.bp / kTileM), kThreads, kWqShared, s>>>(
+      kscr, khi, klo, p.np, p.bp, qpart);
+  return cudaGetLastError();
+}
+
+cudaError_t passes(const Operands& a, const Plan& p, bool var,
+                   cudaStream_t s) {
+  if (var != (a.kinv != nullptr) || a.scratch == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  if (a.fc > 0 && a.fk > 0) return launch_passes<true, true>(a, p, var, s);
+  if (a.fc > 0) return launch_passes<true, false>(a, p, var, s);
+  if (a.fk > 0) return launch_passes<false, true>(a, p, var, s);
+  return cudaErrorInvalidValue;
+}
+
+// B: the variance passes, then the moments
+cudaError_t mean_var(const Operands& a, float* mu, float* q, cudaStream_t s) {
+  Plan p;
+  if (!make_plan(a.b, a.n, 1, 0, &p)) return cudaErrorInvalidValue;
+  const cudaError_t e = passes(a, p, true, s);
+  if (e != cudaSuccess) return e;
+  moments_kernel<<<p.n1, kSel, 0, s>>>(a.scratch + p.mupart,
+                                       a.scratch + p.qpart, a.b, p.bp, p.tn,
+                                       mu, q);
+  return cudaGetLastError();
+}
+
+// What C and D take beyond the operands (vals, idx null and k = 0 for C)
+struct Acquire {
+  const float* params;
+  float *u, *vals;
+  int32_t* idx;
+  int kind, k;
+};
+
+// C and D: the passes, then the utility and, for D, the selection
+cudaError_t acquire(const Operands& a, const Acquire& q, cudaStream_t s) {
+  if (q.kind < kKindMean || q.kind > kKindLCB) return cudaErrorInvalidValue;
+  Plan p;
+  if (!make_plan(a.b, a.n, q.kind != kKindMean, q.k, &p)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t e = passes(a, p, q.kind != kKindMean, s);
+  if (e != cudaSuccess) return e;
+  const float* mupart = a.scratch + p.mupart;
+  const float* qpart = a.scratch + p.qpart;
   float* cand_v = a.scratch + p.cand;
   int32_t* cand_i = reinterpret_cast<int32_t*>(cand_v + static_cast<size_t>(p.n1) * p.k1);
-  if (a.k == 0) {
-    final_kernel<false><<<p.n1, kSel, 0, s>>>(mupart, qpart, a.params, a.b,
-                                              p.bp, p.tn, a.kind, a.u, 0,
+  if (q.k == 0) {
+    final_kernel<false><<<p.n1, kSel, 0, s>>>(mupart, qpart, q.params, a.b,
+                                              p.bp, p.tn, q.kind, q.u, 0,
                                               nullptr, nullptr);
     return cudaGetLastError();
   }
-  final_kernel<true><<<p.n1, kSel, 0, s>>>(mupart, qpart, a.params, a.b, p.bp,
-                                           p.tn, a.kind, a.u, p.k1, cand_v,
+  final_kernel<true><<<p.n1, kSel, 0, s>>>(mupart, qpart, q.params, a.b, p.bp,
+                                           p.tn, q.kind, q.u, p.k1, cand_v,
                                            cand_i);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   static std::atomic<bool> merge_allowed[kMaxDevices];
@@ -1006,21 +987,18 @@ cudaError_t launch_acquire(const Acquire& a, const Plan& p, cudaStream_t s) {
     return e;
   }
   topk_merge_kernel<<<p.n1, kSel, kMergeShared, s>>>(
-      cand_v, cand_i, p.n1, p.k1, p.group, p.k2, a.vals, a.idx);
+      cand_v, cand_i, p.n1, p.k1, p.group, p.k2, q.vals, q.idx);
   return cudaGetLastError();
 }
 
-cudaError_t acquire(const Acquire& a, cudaStream_t s) {
-  if (a.kind < kKindMean || a.kind > kKindLCB) return cudaErrorInvalidValue;
-  if ((a.kind != kKindMean) != (a.kinv != nullptr)) return cudaErrorInvalidValue;
-  Plan p;
-  if (!make_plan(a.b, a.n, a.kind != kKindMean, a.k, &p)) {
-    return cudaErrorInvalidValue;
-  }
-  if (a.fc > 0 && a.fk > 0) return launch_acquire<true, true>(a, p, s);
-  if (a.fc > 0) return launch_acquire<true, false>(a, p, s);
-  if (a.fk > 0) return launch_acquire<false, true>(a, p, s);
-  return cudaErrorInvalidValue;
+Operands operands(const void* qc, const void* qk, const void* xc,
+                  const void* xk, const void* alpha, const void* kinv,
+                  void* scratch, int b, int n, int fc, int fk) {
+  return Operands{static_cast<const float*>(qc), static_cast<const float*>(qk),
+                  static_cast<const float*>(xc), static_cast<const float*>(xk),
+                  static_cast<const float*>(alpha),
+                  static_cast<const float*>(kinv),
+                  static_cast<float*>(scratch), b, n, fc, fk};
 }
 
 }  // namespace
@@ -1031,20 +1009,21 @@ cudaError_t acquire(const Acquire& a, cudaStream_t s) {
 // allocates nothing, and returns the cudaError_t of its launches
 // (0 = success).  qc/xc (or qk/xk) are null when fc (or fk) is 0.
 
-// The largest number of training rows n that A (var 0) or B (var 1)
-// takes with f = fc + fk features (B's [kRows, n] tile fills one block's
-// shared memory); INT_MAX when n is not limited, 0 when f does not fit.
+// The largest number of training rows n that A takes with f = fc + fk
+// features: its block keeps nothing of size n in shared memory, so n is not
+// limited (INT_MAX); 0 when f features do not fit.  `var` is not used: every
+// limit query takes (f, var).
 extern "C" int ut_gp_max_train_rows(int f, int var) {
-  const size_t cap = kMaxShared / sizeof(float);
-  const size_t fixed = shared_words(0, f, false);
-  if (f < 0 || fixed > cap) return 0;
-  if (!var) return INT_MAX;
-  return static_cast<int>((cap - fixed) / kRows) & ~3;
+  (void)var;
+  if (f <= 0 || shared_words(f) * sizeof(float) > static_cast<size_t>(kMaxShared)) {
+    return 0;
+  }
+  return INT_MAX;
 }
 
-// The same for C and D (either kind): their passes keep nothing of size n
-// in shared memory, so n is not limited (INT_MAX); 0 when f features do
-// not fit the kernel-row block.
+// The same for B, C and D (either kind): their passes keep nothing of size
+// n in shared memory either; 0 when f features do not fit the kernel-row
+// block.
 extern "C" int ut_acquire_max_train_rows(int f, int var) {
   (void)var;
   if (f <= 0 || krows_words(f) * sizeof(float) > static_cast<size_t>(kMaxShared)) {
@@ -1053,9 +1032,9 @@ extern "C" int ut_acquire_max_train_rows(int f, int var) {
   return INT_MAX;
 }
 
-// The 4-byte words of scratch C (k = 0) or D (top-k, 1 <= k <= b) needs
-// for b query rows and n training rows; var != 0 for the variance kinds;
-// -1 when the arguments are out of range.
+// The 4-byte words of scratch B (var != 0, k = 0), C (k = 0) or D (top-k,
+// 1 <= k <= b) needs for b query rows and n training rows; var != 0 for
+// the variance kinds; -1 when the arguments are out of range.
 extern "C" long long ut_acquire_scratch_words(int b, int n, int var, int k) {
   Plan p;
   if (!make_plan(b, n, var, k, &p)) return -1;
@@ -1077,26 +1056,22 @@ extern "C" int ut_acquire_topk_slots(int b, int k) {
 extern "C" int ut_gp_mean(const void* qc, const void* qk, const void* xc,
                           const void* xk, const void* alpha, void* mu, int b,
                           int n, int fc, int fk, void* stream) {
-  const Args a{static_cast<const float*>(qc), static_cast<const float*>(qk),
-               static_cast<const float*>(xc), static_cast<const float*>(xk),
-               static_cast<const float*>(alpha), nullptr,
-               static_cast<float*>(mu), nullptr, b, n, fc, fk};
   return static_cast<int>(
-      dispatch<false, kStoreMean>(a, static_cast<cudaStream_t>(stream)));
+      mean(operands(qc, qk, xc, xk, alpha, nullptr, nullptr, b, n, fc, fk),
+           static_cast<float*>(mu), static_cast<cudaStream_t>(stream)));
 }
 
-// B: mu_n [b] and q [b] = rowsum((k K^-1) * k)
+// B: mu_n [b] and q [b] = rowsum((k K^-1) * k); scratch of
+// ut_acquire_scratch_words(b, n, 1, 0) words
 extern "C" int ut_gp_mean_var(const void* qc, const void* qk, const void* xc,
                               const void* xk, const void* alpha,
-                              const void* kinv, void* mu, void* q, int b,
-                              int n, int fc, int fk, void* stream) {
-  const Args a{static_cast<const float*>(qc), static_cast<const float*>(qk),
-               static_cast<const float*>(xc), static_cast<const float*>(xk),
-               static_cast<const float*>(alpha),
-               static_cast<const float*>(kinv), static_cast<float*>(mu),
-               static_cast<float*>(q), b, n, fc, fk};
-  return static_cast<int>(
-      dispatch<true, kStoreMeanQ>(a, static_cast<cudaStream_t>(stream)));
+                              const void* kinv, void* mu, void* q,
+                              void* scratch, int b, int n, int fc, int fk,
+                              void* stream) {
+  return static_cast<int>(mean_var(
+      operands(qc, qk, xc, xk, alpha, kinv, scratch, b, n, fc, fk),
+      static_cast<float*>(mu), static_cast<float*>(q),
+      static_cast<cudaStream_t>(stream)));
 }
 
 // C: utilities [b] (kind 0 -mean, 1 EI, 2 -LCB; kinv null for kind 0);
@@ -1108,14 +1083,11 @@ extern "C" int ut_acquire_scores(const void* qc, const void* qk,
                                  const void* params, void* u, void* scratch,
                                  int b, int n, int fc, int fk, int kind,
                                  void* stream) {
-  const Acquire a{static_cast<const float*>(qc), static_cast<const float*>(qk),
-                  static_cast<const float*>(xc), static_cast<const float*>(xk),
-                  static_cast<const float*>(alpha),
-                  static_cast<const float*>(kinv),
-                  static_cast<const float*>(params), static_cast<float*>(u),
-                  static_cast<float*>(scratch), nullptr, nullptr,
-                  b, n, fc, fk, kind, 0};
-  return static_cast<int>(acquire(a, static_cast<cudaStream_t>(stream)));
+  const Acquire a{static_cast<const float*>(params), static_cast<float*>(u),
+                  nullptr, nullptr, kind, 0};
+  return static_cast<int>(
+      acquire(operands(qc, qk, xc, xk, alpha, kinv, scratch, b, n, fc, fk), a,
+              static_cast<cudaStream_t>(stream)));
 }
 
 // D: the utilities into u [b], then the top k (1 <= k <= b) as the
@@ -1128,12 +1100,10 @@ extern "C" int ut_acquire_topk(const void* qc, const void* qk, const void* xc,
                                int n, int fc, int fk, int kind, int k,
                                void* stream) {
   if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Acquire a{static_cast<const float*>(qc), static_cast<const float*>(qk),
-                  static_cast<const float*>(xc), static_cast<const float*>(xk),
-                  static_cast<const float*>(alpha),
-                  static_cast<const float*>(kinv),
-                  static_cast<const float*>(params), static_cast<float*>(u),
-                  static_cast<float*>(scratch), static_cast<float*>(vals),
-                  static_cast<int32_t*>(idx), b, n, fc, fk, kind, k};
-  return static_cast<int>(acquire(a, static_cast<cudaStream_t>(stream)));
+  const Acquire a{static_cast<const float*>(params), static_cast<float*>(u),
+                  static_cast<float*>(vals), static_cast<int32_t*>(idx), kind,
+                  k};
+  return static_cast<int>(
+      acquire(operands(qc, qk, xc, xk, alpha, kinv, scratch, b, n, fc, fk), a,
+              static_cast<cudaStream_t>(stream)));
 }

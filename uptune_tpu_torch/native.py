@@ -123,7 +123,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 # Every kernel of the port.  merge_rows(hist_h0, hist_h1, hist_q, hist_age,
 # new_h0, new_h1, new_q, new_age, pos_new, out_h0, out_h1, out_q, out_age,
-# cap, b, stream); its wrapper is `ops/dedup.py::merge_rows_cuda`.
+# cap, b, stream); its wrapper is `ops/dedup.py::merge_rows_cuda`.  A block
+# finds its own window of pos_new with a warp's multiway search and marks
+# it in shared memory; any b is taken.
 MERGE = Kernel(
     name="merge_rows", source="merge.cu", symbol="ut_merge_rows",
     argtypes=[_P] * 13 + [_I, _I, _P],
@@ -132,7 +134,7 @@ MERGE = Kernel(
 # surrogate/pallas_score.py (A, B) and ops/acquire.py (C, D).
 # Their launch geometry lives in the .cu file alone; the wrappers read
 # it through `Kernel.query`: the largest N (`limit`, by features and
-# kind), and for C and D the scratch size (ut_acquire_scratch_words) and
+# kind), for B, C and D the scratch size (ut_acquire_scratch_words) and
 # D's candidate count (ut_acquire_topk_slots).
 # A: ut_gp_mean(qc, qk, xc, xk, alpha, mu, b, n, fc, fk, stream); one
 #    tile kernel on CUDA cores
@@ -143,15 +145,16 @@ GP_MEAN = Kernel(
               "uptune_tpu/surrogate/pallas_score.py:77",    # _mixed
               "uptune_tpu/surrogate/pallas_score.py:89"),   # _expham
     limit="ut_gp_max_train_rows")
-# B: ut_gp_mean_var(qc, qk, xc, xk, alpha, kinv, mu, q, b, n, fc, fk,
-#    stream); the same tile, k K^-1 on CUDA cores
+# B: ut_gp_mean_var(qc, qk, xc, xk, alpha, kinv, mu, q, scratch, b, n, fc,
+#    fk, stream); C's passes kinv_prep, krows and wq (k K^-1 on the tensor
+#    cores in 3xTF32), then moments (mu_n and q themselves)
 GP_MEAN_VAR = Kernel(
     name="gp_mean_var", source="gp_tile.cu", symbol="ut_gp_mean_var",
-    argtypes=[_P] * 8 + [_I] * 4 + [_P],
+    argtypes=[_P] * 9 + [_I] * 4 + [_P],
     replaces=("uptune_tpu/surrogate/pallas_score.py:107",   # _var_kernel
               "uptune_tpu/surrogate/pallas_score.py:112",   # _mixed
               "uptune_tpu/surrogate/pallas_score.py:119"),  # _expham
-    limit="ut_gp_max_train_rows")
+    limit="ut_acquire_max_train_rows")
 # C: ut_acquire_scores(qc, qk, xc, xk, alpha, kinv, params, u, scratch, b,
 #    n, fc, fk, kind, stream); passes kinv_prep (K^-T), krows (k, mean),
 #    wq (k K^-1 on the tensor cores in 3xTF32, q) and final (utility)

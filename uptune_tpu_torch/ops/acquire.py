@@ -36,17 +36,15 @@ The JAX package's route knob (`ops/routing.py`) and its TPU VMEM facts
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
 
 from .. import native
 from ..surrogate import gp
-from ..surrogate.pallas_score import (Blocks, check_train_rows,
-                                      kernel_tile, mean_tile_plain,
-                                      mean_var_tile_plain, operand_dims,
-                                      prep_blocks, ptr, require_cuda,
+from ..surrogate.pallas_score import (Blocks, kernel_tile, launch_scratch,
+                                      mean_tile_plain, mean_var_tile_plain,
+                                      operand_dims, prep_blocks, ptr,
                                       state_kinv, stream_of, target_moments,
                                       tile_moments)
 
@@ -108,10 +106,10 @@ def _check_launch(kernel: native.Kernel, kind: str, qc, qk, xc, xk, alpha,
                   kinv, params, scratch, k: Optional[int] = None
                   ) -> Tuple[int, int, int, int, torch.Tensor]:
     """Operands (`operand_dims`), the kind, K^-1 given for exactly the
-    variance kinds, the [5] scalar pack and a given scratch buffer, on any
-    device; then a CUDA device and N against the library's limit.  `k`
-    is D's top k (None for C).  -> (B, N, Fc, Fk, scratch), the scratch
-    allocated when None."""
+    variance kinds and the [5] scalar pack, on any device; then
+    `launch_scratch`: a given scratch buffer, a CUDA device and N against
+    the library's limit.  `k` is D's top k (None for C).  -> (B, N, Fc,
+    Fk, scratch), the scratch allocated when None."""
     _check(kind)
     if (kind == "mean") != (kinv is None):
         raise ValueError(f"kind {kind!r} takes kinv "
@@ -124,38 +122,9 @@ def _check_launch(kernel: native.Kernel, kind: str, qc, qk, xc, xk, alpha,
                          f"float32 tensor on {dev}")
     if k is not None and not 1 <= k <= b:
         raise ValueError(f"k must be in [1, {b}]: {k}")
-    k = k or 0
-    if scratch is not None:
-        _check_scratch(kernel, scratch, scratch_words(kernel, b, n, kind, k),
-                       dev)
-    require_cuda(kernel, dev)
-    check_train_rows(kernel, n, fc + fk, kinv is not None)
-    if scratch is None:
-        scratch = torch.empty(scratch_words(kernel, b, n, kind, k),
-                              dtype=torch.float32, device=dev)
+    scratch = launch_scratch(kernel, b, n, fc + fk, kinv is not None, k or 0,
+                             scratch, dev)
     return b, n, fc, fk, scratch
-
-
-def scratch_words(kernel: native.Kernel, b: int, n: int, kind: str,
-                  k: int = 0) -> int:
-    """The float32 words of scratch launcher C (k = 0) or D (top k) needs
-    for B query and N training rows, as the library computes it."""
-    words = kernel.query("ut_acquire_scratch_words", b, n,
-                         int(kind != "mean"), k, restype=ctypes.c_longlong)
-    if words < 0:
-        raise ValueError(f"{kernel.name}: no launch for B={b}, N={n}, k={k}")
-    return words
-
-
-def _check_scratch(kernel: native.Kernel, scratch: torch.Tensor, words: int,
-                   dev: torch.device) -> None:
-    if (scratch.device != dev or scratch.dtype != torch.float32
-            or scratch.dim() != 1 or not scratch.is_contiguous()
-            or scratch.numel() < words):
-        raise ValueError(
-            f"{kernel.name}: scratch must be a contiguous 1-D float32 tensor "
-            f"of at least {words} elements on {dev}, got "
-            f"{scratch.dtype} {tuple(scratch.shape)} on {scratch.device}")
 
 
 def scores_cuda(qc, qk, xc, xk, alpha, kinv, params, kind: str,

@@ -30,10 +30,6 @@ from .. import native
 Rows = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 _ROW_DTYPES = (torch.int64, torch.int64, torch.float32, torch.int32)
-# shared memory one block may use on Hopper (227 KB): the kernel holds all
-# of pos_new (int32) there
-MAX_SHARED_BYTES = 232448
-MAX_BATCH = MAX_SHARED_BYTES // 4
 
 MERGE_KERNEL = native.MERGE
 
@@ -75,9 +71,9 @@ def _check_rows(rows: Rows, what: str, n: int, device: torch.device):
 
 def merge_rows_cuda(hist: Rows, new: Rows, pos_new: torch.Tensor) -> Rows:
     """Launch the merge kernel (`csrc/merge.cu`) on CUDA tensors, on the
-    current stream.  `pos_new` is [b] int32.  Checks device, dtype, shape
-    and contiguity, allocates the outputs, and raises if the launch
-    fails."""
+    current stream.  `pos_new` is [b] int32, strictly increasing; any b
+    is taken.  Checks device, dtype, shape and contiguity, allocates the
+    outputs, and raises if the launch fails."""
     dev = hist[0].device
     if dev.type != "cuda":
         raise ValueError(f"merge_rows_cuda needs CUDA tensors, got {dev}")
@@ -89,10 +85,6 @@ def merge_rows_cuda(hist: Rows, new: Rows, pos_new: torch.Tensor) -> Rows:
             or pos_new.shape != (b,) or not pos_new.is_contiguous()):
         raise ValueError("pos_new must be a contiguous [b] int32 tensor on "
                          f"{dev}")
-    if b > MAX_BATCH:
-        raise ValueError(
-            f"merge batch of {b} rows exceeds the kernel's shared-memory "
-            f"limit of {MAX_BATCH} positions")
     fn = MERGE_KERNEL.function()
     out = tuple(torch.empty_like(h) for h in hist)
     with torch.cuda.device(dev):

@@ -23,7 +23,10 @@ alpha and K^-1 premasked.  Padded training rows then need no masking.
 * `mean_tile_cuda` / `mean_var_tile_cuda` — the wrappers of launchers A
   and B in `csrc/gp_tile.cu`, which replace the six Pallas kernels
   `_score_kernel`, `_score_kernel_mixed`, `_score_kernel_expham` (A)
-  and `_var_kernel`, `_var_kernel_mixed`, `_var_kernel_expham` (B).
+  and `_var_kernel`, `_var_kernel_mixed`, `_var_kernel_expham` (B).  B
+  runs the passes of the acquisition launchers (k K^-1 on the tensor
+  cores) through a scratch buffer, sized by the library and allocated
+  here (`launch_scratch`, which `ops/acquire.py` shares).
 * `mean_tile` / `mean_var_tile` — route by the tensors' device: CPU
   tensors take the plain version, CUDA tensors launch or raise.
 * `gp_mean_scores` / `gp_mean_var_scores` — the entries: a GPState and a
@@ -31,6 +34,7 @@ alpha and K^-1 premasked.  Padded training rows then need no masking.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -169,16 +173,6 @@ def require_cuda(kernel: native.Kernel, dev: torch.device) -> None:
         raise ValueError(f"{kernel.name} needs CUDA tensors, got {dev}")
 
 
-def check_operands(kernel: native.Kernel, qc, qk, xc, xk, alpha, kinv=None
-                   ) -> Tuple[int, int, int, int]:
-    """`operand_dims`, then a CUDA device, then N against the largest the
-    launcher takes (asked of the library); -> (B, N, Fc, Fk)."""
-    b, n, fc, fk = operand_dims(kernel, qc, qk, xc, xk, alpha, kinv)
-    require_cuda(kernel, alpha.device)
-    check_train_rows(kernel, n, fc + fk, kinv is not None)
-    return b, n, fc, fk
-
-
 def check_train_rows(kernel: native.Kernel, n: int, f: int, var: bool):
     """Raise when the launcher does not take N training rows of F
     features; the limit is the library's (the kernel's `limit` query), so
@@ -187,7 +181,48 @@ def check_train_rows(kernel: native.Kernel, n: int, f: int, var: bool):
     if n > limit:
         raise ValueError(
             f"{kernel.name}: N={n} training rows at F={f} do not fit the "
-            f"launcher's shared memory (at most {limit})")
+            f"launcher (at most {limit})")
+
+
+def scratch_words(kernel: native.Kernel, b: int, n: int, var: bool,
+                  k: int = 0) -> int:
+    """The float32 words of scratch launcher B (var, k = 0), C (k = 0) or
+    D (top k) needs for B query and N training rows, as the library
+    computes it; `var` for the kinds that take K^-1."""
+    words = kernel.query("ut_acquire_scratch_words", b, n, int(var), k,
+                         restype=ctypes.c_longlong)
+    if words < 0:
+        raise ValueError(f"{kernel.name}: no launch for B={b}, N={n}, k={k}")
+    return words
+
+
+def check_scratch(kernel: native.Kernel, scratch: torch.Tensor, words: int,
+                  dev: torch.device) -> None:
+    if (scratch.device != dev or scratch.dtype != torch.float32
+            or scratch.dim() != 1 or not scratch.is_contiguous()
+            or scratch.numel() < words):
+        raise ValueError(
+            f"{kernel.name}: scratch must be a contiguous 1-D float32 tensor "
+            f"of at least {words} elements on {dev}, got "
+            f"{scratch.dtype} {tuple(scratch.shape)} on {scratch.device}")
+
+
+def launch_scratch(kernel: native.Kernel, b: int, n: int, f: int, var: bool,
+                   k: int, scratch: Optional[torch.Tensor],
+                   dev: torch.device) -> torch.Tensor:
+    """The last checks before a launch of B, C or D, after the operands'
+    own: a given scratch against the library's size (on any device), then
+    a CUDA device, then N against the library's limit.  -> the scratch,
+    allocated from the caching allocator when None."""
+    if scratch is not None:
+        check_scratch(kernel, scratch, scratch_words(kernel, b, n, var, k),
+                      dev)
+    require_cuda(kernel, dev)
+    check_train_rows(kernel, n, f, var)
+    if scratch is None:
+        scratch = torch.empty(scratch_words(kernel, b, n, var, k),
+                              dtype=torch.float32, device=dev)
+    return scratch
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -200,9 +235,11 @@ def stream_of(dev: torch.device) -> int:
 
 def mean_tile_cuda(qc, qk, xc, xk, alpha) -> torch.Tensor:
     """Launch A (`ut_gp_mean`): mu_n [B] on the current stream."""
-    b, n, fc, fk = check_operands(MEAN_KERNEL, qc, qk, xc, xk, alpha)
-    fn = MEAN_KERNEL.function()
+    b, n, fc, fk = operand_dims(MEAN_KERNEL, qc, qk, xc, xk, alpha)
     dev = alpha.device
+    require_cuda(MEAN_KERNEL, dev)
+    check_train_rows(MEAN_KERNEL, n, fc + fk, False)
+    fn = MEAN_KERNEL.function()
     mu = torch.empty(b, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = fn(ptr(qc), ptr(qk), ptr(xc), ptr(xk), ptr(alpha), ptr(mu),
@@ -212,18 +249,22 @@ def mean_tile_cuda(qc, qk, xc, xk, alpha) -> torch.Tensor:
     return mu
 
 
-def mean_var_tile_cuda(qc, qk, xc, xk, alpha, kinv
+def mean_var_tile_cuda(qc, qk, xc, xk, alpha, kinv,
+                       scratch: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch B (`ut_gp_mean_var`): (mu_n [B], q [B])."""
-    b, n, fc, fk = check_operands(MEAN_VAR_KERNEL, qc, qk, xc, xk, alpha,
-                                  kinv)
-    fn = MEAN_VAR_KERNEL.function()
+    """Launch B (`ut_gp_mean_var`): (mu_n [B], q [B]).  `scratch` holds
+    the passes' data (the [B, N] kernel rows among them); allocated when
+    None."""
+    b, n, fc, fk = operand_dims(MEAN_VAR_KERNEL, qc, qk, xc, xk, alpha, kinv)
     dev = alpha.device
+    scratch = launch_scratch(MEAN_VAR_KERNEL, b, n, fc + fk, True, 0,
+                             scratch, dev)
+    fn = MEAN_VAR_KERNEL.function()
     mu = torch.empty(b, dtype=torch.float32, device=dev)
     q = torch.empty(b, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = fn(ptr(qc), ptr(qk), ptr(xc), ptr(xk), ptr(alpha), ptr(kinv),
-                 ptr(mu), ptr(q), b, n, fc, fk, stream_of(dev))
+                 ptr(mu), ptr(q), ptr(scratch), b, n, fc, fk, stream_of(dev))
     native.check(err, MEAN_VAR_KERNEL)
     MEAN_VAR_KERNEL.launches += 1
     return mu, q
