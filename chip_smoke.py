@@ -38,12 +38,15 @@ setting is printed.  Phases, each printing one JSON line:
              the near-training case (the 1024 training rows, each
              continuous lane moved by +-0.01, against the main state,
              where the sd is smallest); every kind, top-k k = 128, an
-             exact-tie case and a 20000-row top-k whose candidates span
-             several lists; max error against the stated tolerance, in
-             the GP's standardized units (the units of the reference's
-             tolerances); then kernel, eager-call, plain and library
-             times and the bound at the main state (for B, C and D the
-             3xTF32 tensor-core bound and the f32 one), and the time of C
+             exact-tie case (every query row twice: A's means and D's
+             values bitwise equal in pairs) and a 20000-row top-k whose
+             candidates span several lists; max error against the
+             stated tolerance, in the GP's standardized units (the units
+             of the reference's tolerances), each side's distance from
+             float64 and, for A, the shares of its error
+             (`mean_attribution`); then kernel, eager-call, plain and
+             library times and the bound at the main state (the 3xTF32
+             tensor-core bound and the f32 one), and the time of C
              with kind "mean" (its kernel rows and final passes alone);
 6. engine  - the flagship at scale 64 (6040 rows a step, a 2^15-row
              history): init, one warm step, then the timed steps with the
@@ -61,8 +64,9 @@ setting is printed.  Phases, each printing one JSON line:
              scores on the card against the same scoring on the CPU;
 9. profile (with --profile) - device time by kernel and the idle share
              over a few plain and a few surrogate-scored engine steps
-             (scored by launcher C, then by `score_flat` through B),
-             and the device time of each pass of B, C and D;
+             (scored by launcher C, then by `score_flat` through A and
+             through B), and the device time of A's kernel and of each
+             pass of B, C and D;
 10. kernels - one entry per kernel: launches on the main path, error
              against the plain version (and, for the GP kernels, its
              largest ratio to the tolerance), times and bound.
@@ -447,29 +451,73 @@ def topk_index_mismatches(iw, vw, ig, tol) -> int:
     return int((ig[apart] != iw[apart]).sum())
 
 
-def gp_bound(b: int, n: int, f: int, var: bool, out_bytes: int,
-             tensor_cores: bool = False) -> dict:
+def tf32_rna(t: torch.Tensor) -> torch.Tensor:
+    """f32 t rounded to TF32 (10 fraction bits), ties away from zero: the
+    kernels' `tf32_rna`."""
+    return ((t.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+def split_d2_f64(q, x):
+    """|q - x|^2 [B, N] from A's operands of one block (f32, or None): as
+    launcher A rounds them, centred on x[0] in f32 and split into TF32 hi
+    + lo; then |q|^2 + |x|^2 - 2 (lo hi + hi lo + hi hi), clamped at 0,
+    in float64.  What the cross term's 3xTF32 split alone costs."""
+    if q is None:
+        return None
+    q, x = q - x[0], x - x[0]
+    qh, xh = tf32_rna(q), tf32_rna(x)
+    ql, xl = tf32_rna(q - qh), tf32_rna(x - xh)
+    q, x, qh, xh, ql, xl = (t.double() for t in (q, x, qh, xh, ql, xl))
+    dot = ql @ xh.T + qh @ xl.T + qh @ xh.T
+    return torch.clamp_min((q * q).sum(1)[:, None] + (x * x).sum(1)[None]
+                           - 2.0 * dot, 0.0)
+
+
+def mean_attribution(blocks, k64, mu64, lim) -> dict:
+    """Where A's error against float64 can come from, each over the mean
+    limit (standardized units): `split_f64` the cross term's 3xTF32 split
+    (all else float64), `k32` every k rounded to f32 once (summed in
+    float64), `sum32` the float64 terms k alpha summed in f32 (torch's
+    order), and `sum_u` f32's unit roundoff times sum |k alpha|, the
+    scale of any f32 sum's rounding."""
+    from uptune_tpu_torch.surrogate import pallas_score as ps
+    qc, qk, xc, xk, alpha = blocks
+    a64 = alpha.double()
+    dc, dk = split_d2_f64(qc, xc), split_d2_f64(qk, xk)
+    ks = torch.exp(-dk) if dc is None else ps.matern_tile(dc)
+    if dc is not None and dk is not None:
+        ks = ks * torch.exp(-dk)
+    terms = k64 * a64
+
+    def over(v):
+        return float(((v - mu64).abs() / lim).max())
+    return {"split_f64_err_over_tol": over(ks @ a64),
+            "k32_err_over_tol": over(k64.float().double() @ a64),
+            "sum32_err_over_tol": over(terms.float().sum(1).double()),
+            "sum_u_over_tol": float((terms.abs().sum(1) * 2.0 ** -24
+                                     / lim).max())}
+
+
+def gp_bound(b: int, n: int, f: int, var: bool, out_bytes: int) -> dict:
     """The least time for one call: its FLOPs (distances 2BNF, mean 2BN,
-    and for the variance kinds k K^-1 2BN^2 plus q 2BN) over the f32 rate,
-    or its bytes (queries, training rows, alpha, K^-1, outputs, each once)
-    over HBM's, whichever is larger.  With `tensor_cores` (B, C and D), k K^-1
-    counts as the 3 x 2BN^2 TF32 FLOPs of the 3xTF32 scheme, which keeps
-    f32's accuracy, at the dense TF32 rate; `bound_f32_ms` is then the
-    f32 bound beside it."""
+    and for the variance kinds k K^-1 2BN^2 plus q 2BN) or its bytes
+    (queries, training rows, alpha, K^-1, outputs, each once) over HBM's
+    rate, whichever is larger.  Every launcher runs one product on the
+    tensor cores in 3xTF32, which keeps f32's accuracy: k K^-1 (B, C and
+    D) or the distances' cross term (A).  It counts as 3x its FLOPs in
+    TF32 at the dense TF32 rate, the rest at the f32 rate; `bound_f32_ms`
+    is the bound with every FLOP at the f32 rate, beside it."""
     mm = 2 * b * n * n if var else 0
     rest = 2 * b * n * f + 2 * b * n + (2 * b * n if var else 0)
+    tc = mm if var else 2 * b * n * f
     nbytes = 4 * (b * f + n * f + n + (n * n if var else 0)) + out_bytes
     t_f32 = (mm + rest) / FP32_FLOP_PER_S
-    t_ops = (3 * mm / TF32_FLOP_PER_S + rest / FP32_FLOP_PER_S
-             if tensor_cores else t_f32)
+    t_ops = 3 * tc / TF32_FLOP_PER_S + (mm + rest - tc) / FP32_FLOP_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S
-    out = {"flops": mm + rest, "bytes": nbytes,
-           "bound_ms": max(t_ops, t_bytes) * 1e3,
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-    if tensor_cores:
-        out["tf32_flops"] = 3 * mm
-        out["bound_f32_ms"] = max(t_f32, t_bytes) * 1e3
-    return out
+    return {"flops": mm + rest, "tf32_flops": 3 * tc, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_f32_ms": max(t_f32, t_bytes) * 1e3}
 
 
 def gp_kernels_phase(cases) -> tuple:
@@ -486,7 +534,9 @@ def gp_kernels_phase(cases) -> tuple:
                               "atol + rtol |plain value| per row",
            "f64": "kernel_f64_err_over_tol / plain_f64_err_over_tol: the "
                   "kernel's and the plain version's distance from the same "
-                  "function in float64, over the same limits",
+                  "function in float64, over the same limits; for "
+                  "gp_mean also the shares of its sources of error "
+                  "(mean_attribution)",
            "cases": []}
     err = {"gp_mean": 0.0, "gp_mean_var": 0.0, "acquire_scores": 0.0,
            "acquire_topk": 0.0}
@@ -523,8 +573,8 @@ def gp_kernels_phase(cases) -> tuple:
             return ps.target_moments(mu_n, q, st.noise, st.y_mean, st.y_std)
         # the same function in float64, from the same float32 operands
         b64 = [None if t is None else t.double() for t in blocks]
-        mu64, q64 = ps.tile_moments(ps.kernel_tile(*b64[:4]), b64[4],
-                                    kinv.double())
+        k64 = ps.kernel_tile(*b64[:4])
+        mu64, q64 = ps.tile_moments(k64, b64[4], kinv.double())
         m64, s64 = moments(mu64, q64)
         (mw, sw) = moments(*ps.mean_var_tile_plain(*blocks, kinv))
         lim = {"mean": limit(MEAN_TOL, (mw - ym) / ys),
@@ -533,6 +583,8 @@ def gp_kernels_phase(cases) -> tuple:
         lim["lcb"] = lim["mean"] + BETA * lim["sd"]
         record(case, "gp_mean", "mean", moments(ps.mean_tile_cuda(*blocks))[0],
                moments(ps.mean_tile_plain(*blocks))[0], lim["mean"], ys, m64)
+        out["cases"][-1].update(
+            mean_attribution(blocks, k64, mu64, lim["mean"]))
         mg, sg = moments(*ps.mean_var_tile_cuda(*blocks, kinv))
         record(case, "gp_mean_var", "mean", mg, mw, lim["mean"], ys, m64)
         record(case, "gp_mean_var", "sd", sg, sw, lim["sd"], ys, s64)
@@ -580,16 +632,18 @@ def gp_kernels_phase(cases) -> tuple:
         st, torch.cat([xq[:half], xq[:half]]), "ei", best, BETA, nc, ncat)
     vg, ig = acq.topk_cuda(*blocks, kinv, params, "ei", TOP_K)
     vw, iw = acq.topk_plain(*blocks, kinv, params, "ei", TOP_K)
+    mu = ps.mean_tile_cuda(*blocks)
     tie = {"case": "mixed_n1024_duplicated_rows", "kernel": "acquire_topk",
            "what": "exact ties lowest index first",
+           "gp_mean_rows_tied": bool(torch.equal(mu[:half], mu[half:])),
            "pairs_tied": bool(torch.equal(vg[0::2], vg[1::2])),
            "lowest_first": bool(torch.equal(ig[0::2] + half, ig[1::2])
                                 and bool((ig[0::2] < half).all())),
            "index_mismatches": topk_index_mismatches(
                iw, vw / float(st.y_std), ig, SD_TOL)}
     out["cases"].append(tie)
-    if not (tie["pairs_tied"] and tie["lowest_first"]) or \
-            tie["index_mismatches"]:
+    if not (tie["pairs_tied"] and tie["lowest_first"]
+            and tie["gp_mean_rows_tied"]) or tie["index_mismatches"]:
         bad.append(f"exact-tie top-k: {tie}")
 
     # more rows than one merge group holds (D then writes several lists
@@ -658,19 +712,19 @@ def gp_kernels_phase(cases) -> tuple:
                     gp_bound(b, n, f, False, 4 * b), shape),
         "gp_mean_var": (lambda: ps.mean_var_tile_cuda(*blocks, kinv),
                         lambda: ps.mean_var_tile_plain(*blocks, kinv),
-                        lib_mean_var, gp_bound(b, n, f, True, 8 * b, True),
+                        lib_mean_var, gp_bound(b, n, f, True, 8 * b),
                         shape),
         "acquire_scores": (
             lambda: acq.scores_cuda(*blocks, kinv, params, "ei"),
             lambda: acq.utilities_plain(*blocks, kinv, params, "ei"),
             lambda: acq.utilities_ref(*blocks, kinv, params, "ei"),
-            gp_bound(b, n, f, True, 4 * b + 20, True), shape + " kind=ei"),
+            gp_bound(b, n, f, True, 4 * b + 20), shape + " kind=ei"),
         "acquire_topk": (
             lambda: acq.topk_cuda(*blocks, kinv, params, "ei", TOP_K),
             lambda: acq.topk_plain(*blocks, kinv, params, "ei", TOP_K),
             lambda: acq.select_topk(
                 acq.utilities_ref(*blocks, kinv, params, "ei"), TOP_K),
-            gp_bound(b, n, f, True, 8 * TOP_K + 20, True),
+            gp_bound(b, n, f, True, 8 * TOP_K + 20),
             shape + f" kind=ei k={TOP_K}"),
     }
     times = {}
@@ -904,7 +958,15 @@ def surrogate_engine_phase(eng, cases, feats: tuple, dev) -> dict:
                 or int(torch.unique(idx).numel()) != TOP_K):
             raise AssertionError("propose_topk: a selection is not k "
                                  "distinct rows by descending utility")
-    return out, st, ev, ev_ei
+    return out, st, ev, ev_mean, ev_ei
+
+
+# the short name of every kernel function of csrc/*.cu (with its template
+# arguments) within ptxas's mangled one
+PTXAS_KERNEL = re.compile(
+    r"(merge_rows_kernelILi\d+E|launch_floor_kernel|kinv_prep_kernel|"
+    r"wq_kernel|moments_kernel|topk_merge_kernel|final_kernelILb\dE|"
+    r"krows_kernelILb\dELb\dELb\dE|gp_mean_kernelILb\dELb\dE)")
 
 
 def ptxas_summary(log: str) -> list:
@@ -914,12 +976,7 @@ def ptxas_summary(log: str) -> list:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            short = re.search(r"(merge_rows_kernelILi\d+E|launch_floor_kernel|"
-                              r"kinv_prep_kernel|wq_kernel|moments_kernel|"
-                              r"topk_merge_kernel|final_kernelILb\dE|"
-                              r"krows_kernelILb\dELb\dELb\dE|"
-                              r"gp_tile_kernelILb\dELb\dE)",
-                              m.group(1))
+            short = PTXAS_KERNEL.search(m.group(1))
             fn = short.group(1) if short else m.group(1)
         elif fn and ("registers" in ln or "spill" in ln):
             out.append(f"{fn}: {ln.split(':', 1)[-1].strip()}")
@@ -957,15 +1014,17 @@ def profile_phase(eng, st, ms_per_step: float, steps: int = 5,
 
 
 def passes_profile(cases, calls: int = 10) -> None:
-    """Device time by kernel of B's, C's and D's passes at the main state:
-    a torch.profiler window over `calls` calls of each launcher."""
+    """Device time by kernel of A's kernel and of B's, C's and D's passes
+    at the main state: a torch.profiler window over `calls` calls of each
+    launcher."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from uptune_tpu_torch.ops import acquire as acq
     from uptune_tpu_torch.surrogate import pallas_score as ps
     st, xq, best, nc, ncat = cases["mixed_n1024"]
     blocks, kinv, params = acq.prep(st, xq, "ei", best, BETA, nc, ncat)
-    runs = {"gp_mean_var": lambda: ps.mean_var_tile_cuda(*blocks, kinv),
+    runs = {"gp_mean": lambda: ps.mean_tile_cuda(*blocks),
+            "gp_mean_var": lambda: ps.mean_var_tile_cuda(*blocks, kinv),
             "acquire_scores": lambda: acq.scores_cuda(*blocks, kinv, params,
                                                       "ei"),
             "acquire_topk": lambda: acq.topk_cuda(*blocks, kinv, params, "ei",
@@ -1024,11 +1083,14 @@ def main() -> int:
     _, gp_times = gp_kernels_phase(cases)
     eng, st, engine = engine_phase(dev)
     reference_phase(eng, st, dev)
-    surr, st_s, ev, ev_ei = surrogate_engine_phase(eng, cases, feats, dev)
+    surr, st_s, ev, ev_mean, ev_ei = surrogate_engine_phase(eng, cases,
+                                                            feats, dev)
     if args.profile:
         profile_phase(eng, st, engine["ms_per_step"])
         profile_phase(eng, st_s, surr["fused_ms_per_step"], eval_fn=ev,
                       name="surrogate_engine")
+        profile_phase(eng, st_s, surr["score_flat_ms_per_step"],
+                      eval_fn=ev_mean, name="score_flat_mean_engine")
         profile_phase(eng, st_s, surr["score_flat_ms_per_step"],
                       eval_fn=ev_ei, name="score_flat_ei_engine")
         passes_profile(cases)

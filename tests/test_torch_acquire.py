@@ -36,8 +36,8 @@ from test_torch_ops import N, T
 TOL = {"mean": MEAN_TOL, "ei": SD_TOL, "lcb": SD_TOL}
 
 
-def fitted(kind):
-    x, y, nc, ncat = data(kind)
+def fitted(kind, n=None):
+    x, y, nc, ncat = data(kind, n)
     ls, nz, lc = HYPER[kind]
     sj = jgp.precompute_kinv(jgp.fit(jnp.asarray(x), jnp.asarray(y), ls, nz,
                                      n_cont=nc, n_cat=ncat, ls_cat=lc))
@@ -177,6 +177,81 @@ def test_pallas_score_kernels_in_interpret_mode(mixed):
     mt, sdt = tps.gp_mean_var_scores(st, T(xq), nc, ncat)
     np.testing.assert_allclose(N(mt), np.asarray(mj), **MEAN_TOL)
     np.testing.assert_allclose(N(sdt), np.asarray(sdj), **SD_TOL)
+
+
+# -- launcher A: where the identity form cancels most, and its sources of error ----
+NEAR = 0.01
+
+
+def near_training(x, nc, seed=5):
+    """The training rows, each continuous lane moved by +-NEAR (seeded):
+    there |q|^2 + |x|^2 - 2 q.x cancels the most."""
+    x = np.asarray(x, np.float32)
+    sign = np.random.RandomState(seed).randint(0, 2, (x.shape[0], nc)) * 2 - 1
+    near = x.copy()
+    near[:, :nc] += (NEAR * sign).astype(np.float32)
+    return near
+
+
+def test_gp_mean_near_training_matches_the_interpret_kernel(mixed):
+    """`_score_kernel_mixed` in interpret mode against A's plain version
+    on queries a hundredth of a lengthscale from the training rows."""
+    sj, st, _, _, nc, ncat = mixed
+    near = near_training(sj.x, nc)
+    mj = jps.gp_mean_scores(sj, jnp.asarray(near), True, nc, ncat)
+    got = tps.gp_mean_scores(st, T(near), nc, ncat)
+    np.testing.assert_allclose(N(got), np.asarray(mj), **MEAN_TOL)
+
+
+@pytest.mark.parametrize("kind", ["dense", "mixed", "allcat"])
+def test_gp_mean_ragged_n_matches_the_interpret_kernel(kind):
+    """N = 75 training rows (a multiple of neither 8 nor 128) through the
+    JAX kernel in interpret mode and A's plain version."""
+    sj, st, xq, _, nc, ncat = fitted(kind, 75)
+    assert st.x.shape[0] == 75
+    mj = jps.gp_mean_scores(sj, jnp.asarray(xq), True, nc, ncat)
+    got = tps.gp_mean_scores(st, T(xq), nc, ncat)
+    np.testing.assert_allclose(N(got), np.asarray(mj), **MEAN_TOL)
+
+
+def flagship_state(n, near):
+    """A GP over n evaluated flagship configurations (F = 31: 23
+    continuous lanes and 8 one-hot, the main path's widths) at the card's
+    main hyperparameters, and 200 queries (or the training rows moved by
+    +-NEAR)."""
+    from uptune_tpu_torch.flagship import flagship_surrogate
+    from uptune_tpu_torch.surrogate import gp
+    x, y, (nc, ncat) = flagship_surrogate(n, 1, "cpu")
+    st = gp.fit(x, y, 0.8, 1e-3, n_cont=nc, n_cat=ncat, ls_cat=2.0)
+    xq = (torch.from_numpy(near_training(x, nc)) if near
+          else flagship_surrogate(200, 2, "cpu")[0])
+    return st, xq, nc, ncat
+
+
+@pytest.mark.parametrize("case", ["dense", "mixed", "allcat", "mixed_near",
+                                  "flagship", "flagship_near"])
+def test_kernel_arithmetic_model_meets_the_mean_tolerance(case):
+    """chip_smoke's attribution of A's error: the cross term's 3xTF32
+    split with centring (all else in float64) stays within the mean
+    tolerance of the float64 mean, also where the identity form cancels
+    most, at the flagship's 23 + 8 features (packed 24 + 8) as at the
+    small fixtures' 6, 3 + 12 and 18; k in f32 summed in float64 does too,
+    and every share is finite."""
+    import chip_smoke
+    if case.startswith("flagship"):
+        st, xq, nc, ncat = flagship_state(256, case.endswith("near"))
+    else:
+        _, st, xq, _, nc, ncat = fitted(case.split("_")[0])
+        xq = T(near_training(st.x, nc) if case.endswith("near") else xq)
+    blocks = tps.prep_blocks(st, xq, nc, ncat)
+    b64 = [None if t is None else t.double() for t in blocks]
+    k64 = tps.kernel_tile(*b64[:4])
+    mu64 = k64 @ b64[4]
+    lim = MEAN_TOL["atol"] + MEAN_TOL["rtol"] * mu64.abs()
+    shares = chip_smoke.mean_attribution(blocks, k64, mu64, lim)
+    assert all(np.isfinite(v) for v in shares.values()), shares
+    assert shares["split_f64_err_over_tol"] <= 1.0, shares
+    assert shares["k32_err_over_tol"] <= 1.0, shares
 
 
 def test_kinv_is_computed_when_not_attached(mixed):

@@ -4,6 +4,7 @@ card, and `chip_smoke.py` fails (printing no `ok` line) where it cannot
 run the card."""
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -147,6 +148,40 @@ def test_a_library_without_its_log_is_rebuilt(tmp_path, monkeypatch):
     assert "Used 40 registers" in k.build_log
     assert sorted(p.name for p in lib.parent.iterdir()) == sorted(
         [lib.name, native.log_path(lib).name])
+
+
+GLOBAL_FN = re.compile(
+    r"(?:template\s*<([^>]*)>\s*)?__global__\s+void\s+"
+    r"(?:__\w+__\s*\([^)]*\)\s*)*(\w+)\s*\(")
+
+
+def mangled(name: str, params: str) -> str:
+    """The Itanium name of a kernel in an anonymous namespace, as ptxas
+    prints it, with every template parameter at a sample value."""
+    args = "".join("Lb1E" if p.split()[0] == "bool" else "Li128E"
+                   for p in params.split(",")) if params else ""
+    return (f"_ZN12_GLOBAL__N_1{len(name)}{name}"
+            + (f"I{args}EEvPKf" if args else "EPKf"))
+
+
+def test_the_ptxas_summary_names_every_kernel_function(monkeypatch):
+    """Every `__global__` function of csrc/*.cu, at any template
+    arguments, comes out of chip_smoke's ptxas summary by its short name,
+    so a kernel cannot slip out of the register and spill report."""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+    names = []
+    for src in sorted((PKG / "csrc").glob("*.cu")):
+        for params, name in GLOBAL_FN.findall(src.read_text()):
+            names.append(name)
+            log = (f"ptxas info    : Compiling entry function "
+                   f"'{mangled(name, params.strip())}' for 'sm_90a'\n"
+                   f"ptxas info    : Used 40 registers, used 1 barriers\n")
+            (line,) = chip_smoke.ptxas_summary(log)
+            assert line.startswith(name) and "_ZN" not in line, (src, line)
+    assert {"gp_mean_kernel", "krows_kernel", "wq_kernel",
+            "merge_rows_kernel"} <= set(names), names
+    assert "gp_tile_kernel" not in names
 
 
 @pytest.mark.parametrize("alone", [False, True])

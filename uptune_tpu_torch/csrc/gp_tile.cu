@@ -22,16 +22,38 @@
 // sqrt(1/(n_cat ls_cat)), alpha and K^-1 premasked by the caller), then
 //   mu_n[r] = sum_n k[r, n] alpha[n]
 //   q[r]    = sum_n k[r, n] (sum_m k[r, m] Kinv[m, n])
-// and one epilogue.  Distances sum (a - b)^2 directly, which is more
-// exact than the |a|^2 + |b|^2 - 2ab identity the plain version follows.
+// and one epilogue.
 //
-// A: one tile routine on CUDA cores.  A block of kThreads threads holds
-// kRows query rows.  Each thread takes training rows n = tid, tid +
-// kThreads, ...; for each it accumulates the kRows distances (the query
-// rows sit in shared memory and are read as broadcasts), forms k and adds
-// k * alpha[n] to its kRows partial means; one block sum ends it.  Bound
-// (B = 6040 queries, N = 1024, F = 31): 2BNF FLOP at the f32 rate, 67
-// TFLOP/s, about 6 us.
+// A: one kernel, gp_mean_kernel, with the distances through |q|^2 + |x|^2
+// - 2 q.x and the cross term q.x on the tensor cores, in 3xTF32 as wq
+// below.  Both blocks are centred on training row 0 first: distances do
+// not change, and the |q|^2 + |x|^2 that the subtraction cancels near the
+// training rows shrinks.  Each block of features is padded to a multiple
+// of 8 deep and packed (24 + 8 = one 32-deep chunk at the flagship's 23 +
+// 8), and the continuous and categorical cross terms go into two
+// accumulators.  A block is one warpgroup and 64 query rows, centred,
+// split into TF32 hi and lo and swizzled into shared memory once: the
+// wgmma's B operand.  The kSplit blocks of a cluster take every kSplit-th
+// 64-row tile of the training rows, which stream through shared memory by
+// 32-deep chunks with cp.async, two chunks ahead; each thread loads its A
+// fragments of a chunk from there, centres them, adds their squares to
+// the rows' norms and splits them in registers, so a training tile is
+// never written back.  wgmma m64n64k8 forms the cross terms, the epilogue
+// forms k in registers (sqrtf and expf, at f32's accuracy) and adds k
+// alpha to each query row's partial in float64, and the partials of a
+// query row are summed over the warps and the cluster in one fixed order
+// through (distributed) shared memory, then rounded to f32 once.  The
+// products and sums are float64 because alpha cancels: where training
+// rows repeat (the all-categorical case), sum |k alpha| is thousands of
+// times |mu|, and f32 rounding of k alpha alone moves mu by several times
+// its tolerance; in float64 mu stays as close as k's own f32 rounding.  One launch, nothing of size N in
+// shared memory, no scratch, no atomics.  Bound (B = 6040, N = 1024, F =
+// 31): the cross term, 3 x 2BNF = 1.2 GFLOP of TF32 at 495 TFLOP/s, plus
+// the mean at the f32 rate: about 2.5 us (2BNF at the f32 rate, 67
+// TFLOP/s: about 6 us).  The per-pair epilogue (a sqrtf and an expf,
+// each a special-function operation and a few FP instructions around it,
+// and about 15 FP instructions more) sets a floor of about 3.5 us on top
+// of that.
 //
 // B, C and D: the same function in passes through a scratch buffer the
 // wrapper allocates (the kernels allocate nothing).
@@ -39,7 +61,8 @@
 //      (Np = N rounded up to kTileN) and split into TF32 hi and lo planes:
 //      wgmma takes TF32 operands K-major only, and K^-1 from cho_solve is
 //      symmetric only to rounding, so it is transposed, not read as K^-T.
-//   2. krows: the kernel rows k [Bp, Np] (zero outside B x N) and the
+//   2. krows: the kernel rows k [Bp, Np] (zero outside B x N; distances
+//      summed as (a - b)^2 directly, on the CUDA cores) and the
 //      mean's partial sums, one per kTileN-column tile, each reduced in
 //      one fixed order (a warp shuffle tree, then the warps in turn).
 //   3. wq: W = k K^-1 on the tensor cores in 3xTF32, wgmma m64n128k8:
@@ -73,6 +96,7 @@
 // 0.195 ms).  K^-1 is read from L2 once per kTileM query rows (48 times at
 // B = 6040), and nothing of size N sits in shared memory, so N is not
 // limited.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -82,7 +106,6 @@
 
 namespace {
 
-constexpr int kRows = 16;          // A: query rows per block
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxShared = 232448;  // one block's shared memory on Hopper
@@ -104,6 +127,17 @@ constexpr int kSel = 256;          // rows of one first-level selection
 constexpr int kMergeSlots = 8192;  // candidates one merge block ranks
 constexpr int kMergeShared = kMergeSlots * 8;
 
+// A
+constexpr int kMeanRows = 64;      // query rows of a block: wgmma's N
+constexpr int kMeanCols = 64;      // training rows of a tile: wgmma's M
+constexpr int kGroup = 128;        // threads of a block: one warpgroup
+constexpr int kSplit = 4;          // blocks of a cluster, splitting N
+constexpr int kMeanChunk = kMeanRows * kTileK;   // a query chunk's plane
+constexpr int kLdX = kTileK + 4;   // a staged training chunk's row stride:
+                                   // conflict-free A fragment loads
+constexpr int kRawWords = kMeanCols * kLdX + kMeanCols;  // + the alpha
+constexpr int kRawStages = 3;      // two copies ahead of the one in use
+
 enum Kind { kKindMean = 0, kKindEI = 1, kKindLCB = 2 };
 
 __device__ __forceinline__ float matern52(float d2) {
@@ -116,97 +150,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Sum every row's per-thread partials over the block; thread t < kRows
-// gets row t's total.  `red` holds kWarps * kRows floats.
-__device__ __forceinline__ float block_sum(const float (&part)[kRows],
-                                           float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int t = 0; t < kRows; ++t) {
-    const float v = warp_sum(part[t]);
-    if (lane == 0) red[warp * kRows + t] = v;
-  }
-  __syncthreads();
-  float tot = 0.f;
-  if (threadIdx.x < kRows) {
-    for (int w = 0; w < kWarps; ++w) tot += red[w * kRows + threadIdx.x];
-  }
-  return tot;
-}
-
-// A
-template <bool kCont, bool kCat>
-__global__ void __launch_bounds__(kThreads) gp_tile_kernel(
-    const float* __restrict__ qc, const float* __restrict__ qk,
-    const float* __restrict__ xc, const float* __restrict__ xk,
-    const float* __restrict__ alpha, float* __restrict__ mu, int b, int n,
-    int fc, int fk) {
-  extern __shared__ __align__(16) float smem[];
-  const int f = fc + fk;
-  float* s_q = smem;                        // [kRows][f]
-  float* s_red = s_q + kRows * f;           // [kWarps][kRows]
-  const int row0 = blockIdx.x * kRows;
-
-  for (int i = threadIdx.x; i < kRows * f; i += kThreads) {
-    const int t = i / f, j = i - t * f, r = row0 + t;
-    float v = 0.f;
-    if (r < b) {
-      v = (j < fc) ? qc[static_cast<size_t>(r) * fc + j]
-                   : qk[static_cast<size_t>(r) * fk + (j - fc)];
-    }
-    s_q[i] = v;
-  }
-  __syncthreads();
-
-  // the kernel rows, the partial means
-  float mu_part[kRows];
-#pragma unroll
-  for (int t = 0; t < kRows; ++t) mu_part[t] = 0.f;
-  for (int col = threadIdx.x; col < n; col += kThreads) {
-    float dc[kRows], dk[kRows];
-#pragma unroll
-    for (int t = 0; t < kRows; ++t) dc[t] = dk[t] = 0.f;
-    if (kCont) {
-      const float* xr = xc + static_cast<size_t>(col) * fc;
-      for (int j = 0; j < fc; ++j) {
-        const float xv = xr[j];
-#pragma unroll
-        for (int t = 0; t < kRows; ++t) {
-          const float d = s_q[t * f + j] - xv;
-          dc[t] = fmaf(d, d, dc[t]);
-        }
-      }
-    }
-    if (kCat) {
-      const float* xr = xk + static_cast<size_t>(col) * fk;
-      for (int j = 0; j < fk; ++j) {
-        const float xv = xr[j];
-#pragma unroll
-        for (int t = 0; t < kRows; ++t) {
-          const float d = s_q[t * f + fc + j] - xv;
-          dk[t] = fmaf(d, d, dk[t]);
-        }
-      }
-    }
-    const float a = alpha[col];
-#pragma unroll
-    for (int t = 0; t < kRows; ++t) {
-      float k;
-      if (kCont) {
-        k = matern52(dc[t]);
-        if (kCat) k *= expf(-dk[t]);
-      } else {
-        k = expf(-dk[t]);
-      }
-      mu_part[t] = fmaf(k, a, mu_part[t]);
-    }
-  }
-  const float mu_n = block_sum(mu_part, s_red);
-
-  const int r = row0 + threadIdx.x;
-  if (threadIdx.x < kRows && r < b) mu[r] = mu_n;
 }
 
 // -- B, C and D ------------------------------------------------------------------
@@ -647,6 +590,395 @@ __global__ void __launch_bounds__(kThreads, 1) wq_kernel(
   }
 }
 
+// -- A ----------------------------------------------------------------------------
+
+// d (+)= a b over one 64 x 64 x 8 step of the warpgroup: wgmma_tf32 at half
+// the width (the m16n8k8 A fragment from registers, b K-major and swizzled
+// in shared memory; scale_d 0 starts d afresh).
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// Where A's block keeps its data, in 4-byte words of dynamic shared memory.
+// Each row's features are packed: the continuous block padded with zeros to
+// a multiple of 8 (fcp), then the categorical block padded the same way (d
+// in all), cut into nch chunks of kTileK.
+struct MeanLayout {
+  int fcp, d, steps, sc, nch, dp;
+  size_t qh, ql, raw, x0, nq, part, words;
+  __host__ __device__ explicit MeanLayout(int fc, int fk) {
+    fcp = (fc + 7) / 8 * 8;
+    d = fcp + (fk + 7) / 8 * 8;
+    steps = d / 8;                           // 8-deep wgmma steps
+    sc = fcp / 8;                            // of them the continuous block's
+    nch = (d + kTileK - 1) / kTileK;
+    dp = nch * kTileK;
+    qh = 0;                                  // the query rows by chunk, TF32
+    ql = qh + static_cast<size_t>(nch) * kMeanChunk;     // hi and lo,
+    raw = ql + static_cast<size_t>(nch) * kMeanChunk;    // swizzled; the
+    x0 = raw + kRawStages * kRawWords;       // training chunks' stages; the
+    nq = x0 + dp;                            // centre; the query rows' norms
+    part = nq + 2 * kMeanRows;               // {c, k}; every warp's sums of
+    words = part + 2 * (kGroup / 32) * kMeanRows;  // the rows this block
+  }                                          // owns, float64 (part is even)
+};
+
+// Where the packed feature p of row r lies: src + r * stride, in the
+// continuous block c ([., fc]) or the categorical one k ([., fk]); src is
+// null for the padding.
+template <bool kCont, bool kCat>
+__device__ __forceinline__ void feature_at(const float* c, const float* k,
+                                           int fc, int fk, int fcp, int p,
+                                           const float*& src, int& stride) {
+  src = nullptr;
+  stride = 0;
+  if (kCont && p < fc) {
+    src = c + p;
+    stride = fc;
+  } else if (kCat && p >= fcp && p < fcp + fk) {
+    src = k + (p - fcp);
+    stride = fk;
+  }
+}
+
+// Add the squares of four packed features from p0 on to the continuous or
+// the categorical norm (the padding is 0 and adds nothing).
+template <bool kCont, bool kCat>
+__device__ __forceinline__ void quad_norms(const float4& v, int p0, int fcp,
+                                           float& nc, float& nk) {
+  const float a[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (kCont && (!kCat || p0 + e < fcp)) {
+      nc = fmaf(a[e], a[e], nc);
+    } else {
+      nk = fmaf(a[e], a[e], nk);
+    }
+  }
+}
+
+// The sum over the 8 lanes of an aligned group, the same in each of them.
+__device__ __forceinline__ float sum8(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  return v;
+}
+
+__device__ __forceinline__ void split4(const float4& v, uint4& h, uint4& l) {
+  split_tf32(v.x, h.x, l.x);
+  split_tf32(v.y, h.y, l.y);
+  split_tf32(v.z, h.z, l.z);
+  split_tf32(v.w, h.w, l.w);
+}
+
+// k of one (query, training) pair from its cross terms and norms: the
+// distances |q|^2 + |x|^2 - 2 q.x, clamped at 0, then Matérn over the
+// continuous block times exp(-d2) over the categorical one, in one exp:
+// (1 + s5d + 5/3 dc) exp(-(s5d + dk)), s5d = sqrt(5 (dc + 1e-12)).
+// sqrtf and expf keep f32's accuracy (the build uses no fast-math).
+template <bool kCont, bool kCat>
+__device__ __forceinline__ float pair_kernel(float dot_c, float dot_k,
+                                             float nqc, float nqk, float nxc,
+                                             float nxk) {
+  const float dk = kCat ? fmaxf(fmaf(-2.0f, dot_k, nqk + nxk), 0.f) : 0.f;
+  if (!kCont) return expf(-dk);
+  const float dc = fmaxf(fmaf(-2.0f, dot_c, nqc + nxc), 0.f);
+  const float s5d = sqrtf(fmaf(5.0f, dc, 5e-12f));
+  return fmaf(5.0f / 3.0f, dc, 1.0f + s5d) * expf(-(s5d + dk));
+}
+
+// A's block: the query rows [row0, +kMeanRows) against the training tiles
+// rank, rank + kSplit, ... (kMeanCols rows each) -> their partial means,
+// summed over the cluster's kSplit blocks.  Both blocks of
+// features are centred on training row 0.  The query rows are the wgmma's
+// B operand: centred, split into TF32 hi and lo and swizzled into shared
+// memory once, with their norms.  The training rows are its A operand,
+// from registers: a unit is one 32-deep chunk of one tile (the last one
+// with the tile's alpha), copied (cp.async, kRawStages - 1 ahead) into a
+// row-major stage, from which each thread loads its A fragments two 8-deep
+// steps at a time (rows 16 warp + g, + 8; depth 8 ks + tq, + 4), centres
+// them, adds their squares to the two rows' norms (summed over the quad
+// by shuffles), splits them and runs the chunk's cross terms
+// (lo * hi, hi * lo, hi * hi each 8-deep step, into the continuous or the
+// categorical accumulator).  Element i of a thread's accumulator is
+// training row 16 warp + g + 8 ((i / 2) % 2) and query row 8 (i / 4) +
+// 2 tq + i % 2: after a tile's last chunk the epilogue adds k alpha into
+// the thread's 16 query rows' float64 partials, which end summed over g,
+// then over the warps, then over the cluster.
+template <bool kCont, bool kCat>
+__global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kGroup, 4)
+    gp_mean_kernel(const float* __restrict__ qc, const float* __restrict__ qk,
+                   const float* __restrict__ xc, const float* __restrict__ xk,
+                   const float* __restrict__ alpha, float* __restrict__ mu,
+                   int b, int n, int fc, int fk) {
+  extern __shared__ __align__(1024) float smem[];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row0 = static_cast<int>(blockIdx.x / kSplit) * kMeanRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const MeanLayout L(fc, fk);
+  float* s_x0 = smem + L.x0;
+  float* s_nq = smem + L.nq;       // [kMeanRows] {continuous, categorical}
+  const int ntiles = (n + kMeanCols - 1) / kMeanCols;
+  const int units =
+      (rank < ntiles ? (ntiles - 1 - rank) / kSplit + 1 : 0) * L.nch;
+  // this block has started: its peers may write into its shared memory
+  // once they have waited for this arrival (before the partials, below)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+
+  // the next unit's copies (rows past n and features past the blocks as
+  // zeros), one commit group whether or not there is such a unit; units go
+  // in order, chunk by chunk of each tile
+  int next = 0, next_i = 0, next_c = 0;
+  auto stage = [&]() {
+    if (next < units) {
+      const int col0 = (rank + next_i * kSplit) * kMeanCols;
+      const int have = min(kMeanCols, n - col0);
+      float* dst = smem + L.raw + (next % kRawStages) * kRawWords;
+      const float* src;
+      int stride;
+      feature_at<kCont, kCat>(xc, xk, fc, fk, L.fcp, next_c * kTileK + lane,
+                              src, stride);
+      const float* base =
+          src != nullptr ? src + static_cast<size_t>(col0) * stride : alpha;
+#pragma unroll
+      for (int j = 0; j < kMeanCols / (kGroup / 32); ++j) {
+        const int r = warp + j * (kGroup / 32);
+        const bool ok = src != nullptr && r < have;
+        cp_async4(dst + r * kLdX + lane,
+                  ok ? base + static_cast<size_t>(r) * stride : alpha, ok);
+      }
+      if (next_c == L.nch - 1 && tid < kMeanCols) {
+        const bool ok = tid < have;
+        cp_async4(dst + kMeanCols * kLdX + tid, alpha + (ok ? col0 + tid : 0),
+                  ok);
+      }
+    }
+    cp_async_commit();
+    ++next;
+    if (++next_c == L.nch) {
+      next_c = 0;
+      ++next_i;
+    }
+  };
+
+  // the query rows by chunk: thread (r, c4) takes 4 features of rows r =
+  // tid / 8 + 16 j; chunk 0's values are loaded first, then the centre
+  // (training row 0) and the first copies go out
+  const int c4 = tid & 7;
+  constexpr int kQRows = kMeanRows / (kGroup / 8);     // rows a thread takes
+  float v[kQRows][4];
+  auto load_queries = [&](int c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* src;
+      int stride;
+      feature_at<kCont, kCat>(qc, qk, fc, fk, L.fcp, c * kTileK + 4 * c4 + e,
+                              src, stride);
+#pragma unroll
+      for (int j = 0; j < kQRows; ++j) {
+        const int row = row0 + (tid >> 3) + j * (kGroup / 8);
+        v[j][e] = src != nullptr && row < b
+                      ? src[static_cast<size_t>(row) * stride] : 0.f;
+      }
+    }
+  };
+  load_queries(0);
+  for (int p = tid; p < L.dp; p += kGroup) {
+    const float* src;
+    int stride;
+    feature_at<kCont, kCat>(xc, xk, fc, fk, L.fcp, p, src, stride);
+    s_x0[p] = src != nullptr ? *src : 0.f;
+  }
+  for (int i = tid; i < 2 * kMeanRows; i += kGroup) s_nq[i] = 0.f;
+  for (int u = 0; u < kRawStages - 1; ++u) stage();
+  __syncthreads();
+  for (int c = 0; c < L.nch; ++c) {
+    if (c > 0) load_queries(c);
+    const int p0 = c * kTileK + 4 * c4;
+    const float4 o = *reinterpret_cast<const float4*>(s_x0 + p0);
+#pragma unroll
+    for (int j = 0; j < kQRows; ++j) {
+      const int r = (tid >> 3) + j * (kGroup / 8);
+      const bool in = row0 + r < b;
+      const float4 q = make_float4(in ? v[j][0] - o.x : 0.f,
+                                   in ? v[j][1] - o.y : 0.f,
+                                   in ? v[j][2] - o.z : 0.f,
+                                   in ? v[j][3] - o.w : 0.f);
+      float nc = 0.f, nk = 0.f;
+      quad_norms<kCont, kCat>(q, p0, L.fcp, nc, nk);
+      nc = sum8(nc);
+      nk = sum8(nk);
+      if (c4 == 0) {
+        s_nq[2 * r] += nc;
+        s_nq[2 * r + 1] += nk;
+      }
+      uint4 h, l;
+      split4(q, h, l);
+      const size_t at =
+          static_cast<size_t>(c) * kMeanChunk + swizzled(r, c4);
+      *reinterpret_cast<uint4*>(smem + L.qh + at) = h;
+      *reinterpret_cast<uint4*>(smem + L.ql + at) = l;
+    }
+  }
+  // the planes are read by the tensor cores, through the async proxy
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+
+  float accc[32], acck[32], xn[2][2];
+  double part[16];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) accc[i] = acck[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) part[i] = 0.0;
+  const float4* nq4 = reinterpret_cast<const float4*>(s_nq);
+  for (int u = 0, c = 0; u < units; ++u, c = c + 1 == L.nch ? 0 : c + 1) {
+    cp_async_wait<kRawStages - 2>();
+    __syncthreads();               // unit u has landed; unit u - 1's stage
+    stage();                       // is free for unit u + kRawStages - 1
+    const float* raw = smem + L.raw + (u % kRawStages) * kRawWords;
+    const float* xr = raw + (16 * warp + g) * kLdX + tq;
+    if (c == 0) xn[0][0] = xn[0][1] = xn[1][0] = xn[1][1] = 0.f;
+    // the cross terms, two 8-deep steps at a time (the fragments of two
+    // steps in flight keep the registers within 4 blocks an SM)
+    const size_t plane = static_cast<size_t>(c) * kMeanChunk;
+    const uint64_t dh = smem_desc(smem + L.qh + plane);
+    const uint64_t dl = smem_desc(smem + L.ql + plane);
+    float nc[2] = {0.f, 0.f}, nk[2] = {0.f, 0.f};
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      // this thread's A fragments of the two steps, centred, squared into
+      // the norms and split: [kk][e] is row g + 8 (e % 2), depth 8 ks + tq
+      // + 4 (e / 2), ks = 2 half + kk
+      uint32_t fh[2][4], fl[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int dp = 8 * (2 * half + kk) + 4 * (e >> 1);
+          const int p = c * kTileK + dp + tq;
+          const float a = xr[(e & 1) * 8 * kLdX + dp] - s_x0[p];
+          if (kCont && (!kCat || p < L.fcp)) {
+            nc[e & 1] += a * a;
+          } else {
+            nk[e & 1] += a * a;
+          }
+          split_tf32(a, fh[kk][e], fl[kk][e]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if (kCont) hold(accc[i]);
+        if (kCat) hold(acck[i]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const int ks = 2 * half + kk, s = c * (kTileK / 8) + ks;
+        // 8 deep = 32 bytes into the swizzled rows: 2 descriptor units
+        const uint64_t step = static_cast<uint64_t>(ks * 2);
+        if (s < L.steps) {
+          if (kCont && (!kCat || s < L.sc)) {
+            wgmma_tf32_n64(accc, fl[kk], dh + step, s > 0);
+            wgmma_tf32_n64(accc, fh[kk], dl + step, 1);
+            wgmma_tf32_n64(accc, fh[kk], dh + step, 1);
+          } else {
+            wgmma_tf32_n64(acck, fl[kk], dh + step, s > L.sc);
+            wgmma_tf32_n64(acck, fh[kk], dl + step, 1);
+            wgmma_tf32_n64(acck, fh[kk], dh + step, 1);
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          hold(fh[kk][e]);
+          hold(fl[kk][e]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if (kCont) hold(accc[i]);
+        if (kCat) hold(acck[i]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      nc[h] += __shfl_xor_sync(0xffffffffu, nc[h], 1);
+      nc[h] += __shfl_xor_sync(0xffffffffu, nc[h], 2);
+      nk[h] += __shfl_xor_sync(0xffffffffu, nk[h], 1);
+      nk[h] += __shfl_xor_sync(0xffffffffu, nk[h], 2);
+      xn[h][0] += nc[h];
+      xn[h][1] += nk[h];
+    }
+    if (c != L.nch - 1) continue;
+
+    // the epilogue: k of each element, k alpha (exact in float64) into its
+    // query row's partial, training row g before g + 8
+    const double al[2] = {raw[kMeanCols * kLdX + 16 * warp + g],
+                          raw[kMeanCols * kLdX + 16 * warp + g + 8]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 q = nq4[4 * j + tq];    // query rows 8 j + 2 tq, + 1
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          const float k = pair_kernel<kCont, kCat>(
+              accc[i], acck[i], e ? q.z : q.x, e ? q.w : q.y, xn[h][0],
+              xn[h][1]);
+          part[2 * j + e] = fma(static_cast<double>(k), al[h],
+                                part[2 * j + e]);
+        }
+      }
+    }
+  }
+
+  // each query row's partial over the 8 g of its lanes; then each warp's
+  // sums go to the block of the cluster that owns the row, which adds them
+  // in (rank, warp) order after the one cluster barrier and rounds the
+  // float64 total to f32 once
+  constexpr int kOwn = kMeanRows / kSplit;   // rows a block writes
+  double* s_in = reinterpret_cast<double*>(smem + L.part);
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+#pragma unroll
+  for (int m = 0; m < 16; ++m) {
+    double t = part[m];
+    t += __shfl_xor_sync(0xffffffffu, t, 4);
+    t += __shfl_xor_sync(0xffffffffu, t, 8);
+    t += __shfl_xor_sync(0xffffffffu, t, 16);
+    if (g == 0) {
+      const int r = 8 * (m / 2) + 2 * tq + m % 2;
+      double* dst = cluster.map_shared_rank(s_in, r / kOwn);
+      dst[(rank * (kGroup / 32) + warp) * kOwn + r % kOwn] = t;
+    }
+  }
+  cluster.sync();
+  if (tid < kOwn) {
+    double tot = 0.0;
+    for (int q = 0; q < kSplit * (kGroup / 32); ++q) {
+      tot += s_in[q * kOwn + tid];
+    }
+    const int row = row0 + rank * kOwn + tid;
+    if (row < b) mu[row] = static_cast<float>(tot);
+  }
+}
+
+// -- the selection --------------------------------------------------------------
+
 __device__ __forceinline__ bool before(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
 }
@@ -785,12 +1117,6 @@ __global__ void __launch_bounds__(kSel) topk_merge_kernel(
   }
 }
 
-// Dynamic shared memory of one block of A, in floats: the query rows and
-// the per-warp reduction scratch.
-size_t shared_words(int f) {
-  return static_cast<size_t>(kRows) * f + kWarps * kRows;
-}
-
 // Dynamic shared memory of one krows block, in floats.
 size_t krows_words(int f) {
   return static_cast<size_t>(kKRows) * f + static_cast<size_t>(kTileN) * (f | 1) +
@@ -821,25 +1147,32 @@ struct Operands {
   int b, n, fc, fk;
 };
 
+// Dynamic shared memory of one block of A, in bytes.
+size_t mean_bytes(int fc, int fk) {
+  return MeanLayout(fc, fk).words * sizeof(float);
+}
+
 template <bool kCont, bool kCat>
-cudaError_t launch_tile(const Operands& a, float* mu, cudaStream_t stream) {
-  auto kern = gp_tile_kernel<kCont, kCat>;
+cudaError_t launch_mean(const Operands& a, float* mu, cudaStream_t stream) {
+  auto kern = gp_mean_kernel<kCont, kCat>;
   static std::atomic<bool> shared_allowed[kMaxDevices];
-  const size_t smem = shared_words(a.fc + a.fk) * sizeof(float);
+  const size_t smem = mean_bytes(a.fc, a.fk);
   if (smem > static_cast<size_t>(kMaxShared)) return cudaErrorInvalidValue;
   const cudaError_t attr = allow_shared(kern, shared_allowed);
   if (attr != cudaSuccess) return attr;
-  const int blocks = (a.b + kRows - 1) / kRows;
-  kern<<<blocks, kThreads, smem, stream>>>(a.qc, a.qk, a.xc, a.xk, a.alpha,
-                                           mu, a.b, a.n, a.fc, a.fk);
+  const long long blocks =
+      (static_cast<long long>(a.b) + kMeanRows - 1) / kMeanRows * kSplit;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  kern<<<static_cast<unsigned>(blocks), kGroup, smem, stream>>>(
+      a.qc, a.qk, a.xc, a.xk, a.alpha, mu, a.b, a.n, a.fc, a.fk);
   return cudaGetLastError();
 }
 
 cudaError_t mean(const Operands& a, float* mu, cudaStream_t stream) {
   if (a.b <= 0 || a.n <= 0) return cudaErrorInvalidValue;
-  if (a.fc > 0 && a.fk > 0) return launch_tile<true, true>(a, mu, stream);
-  if (a.fc > 0) return launch_tile<true, false>(a, mu, stream);
-  if (a.fk > 0) return launch_tile<false, true>(a, mu, stream);
+  if (a.fc > 0 && a.fk > 0) return launch_mean<true, true>(a, mu, stream);
+  if (a.fc > 0) return launch_mean<true, false>(a, mu, stream);
+  if (a.fk > 0) return launch_mean<false, true>(a, mu, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1010,14 +1343,14 @@ Operands operands(const void* qc, const void* qk, const void* xc,
 // (0 = success).  qc/xc (or qk/xk) are null when fc (or fk) is 0.
 
 // The largest number of training rows n that A takes with f = fc + fk
-// features: its block keeps nothing of size n in shared memory, so n is not
-// limited (INT_MAX); 0 when f features do not fit.  `var` is not used: every
-// limit query takes (f, var).
+// features, however they split: its blocks keep nothing of size n in shared
+// memory, so n is not limited (INT_MAX); 0 when f features may not fit.
+// Two padded blocks pack at most 8 deeper than f rounded up to 8, as (f, 1)
+// does; the query rows' TF32 planes take kMeanRows x 8 bytes a packed
+// feature: f <= 376.  `var` is not used: every limit query takes (f, var).
 extern "C" int ut_gp_max_train_rows(int f, int var) {
   (void)var;
-  if (f <= 0 || shared_words(f) * sizeof(float) > static_cast<size_t>(kMaxShared)) {
-    return 0;
-  }
+  if (f <= 0 || mean_bytes(f, 1) > static_cast<size_t>(kMaxShared)) return 0;
   return INT_MAX;
 }
 

@@ -137,7 +137,8 @@ MERGE = Kernel(
 # kind), for B, C and D the scratch size (ut_acquire_scratch_words) and
 # D's candidate count (ut_acquire_topk_slots).
 # A: ut_gp_mean(qc, qk, xc, xk, alpha, mu, b, n, fc, fk, stream); one
-#    tile kernel on CUDA cores
+#    kernel, gp_mean_kernel: the distances' cross term on the tensor cores
+#    in 3xTF32, the Matérn epilogue in registers, N split over a cluster
 GP_MEAN = Kernel(
     name="gp_mean", source="gp_tile.cu", symbol="ut_gp_mean",
     argtypes=[_P] * 6 + [_I] * 4 + [_P],

@@ -23,10 +23,14 @@ alpha and K^-1 premasked.  Padded training rows then need no masking.
 * `mean_tile_cuda` / `mean_var_tile_cuda` — the wrappers of launchers A
   and B in `csrc/gp_tile.cu`, which replace the six Pallas kernels
   `_score_kernel`, `_score_kernel_mixed`, `_score_kernel_expham` (A)
-  and `_var_kernel`, `_var_kernel_mixed`, `_var_kernel_expham` (B).  B
-  runs the passes of the acquisition launchers (k K^-1 on the tensor
-  cores) through a scratch buffer, sized by the library and allocated
-  here (`launch_scratch`, which `ops/acquire.py` shares).
+  and `_var_kernel`, `_var_kernel_mixed`, `_var_kernel_expham` (B).  A
+  is one kernel: the distances through the same identity as the plain
+  version, with both blocks centred on training row 0 and the cross term
+  on the tensor cores in 3xTF32; it needs no scratch, so the wrapper
+  allocates only the mean.  B runs the passes of the acquisition
+  launchers (k K^-1 on the tensor cores) through a scratch buffer, sized
+  by the library and allocated here (`launch_scratch`, which
+  `ops/acquire.py` shares).
 * `mean_tile` / `mean_var_tile` — route by the tensors' device: CPU
   tensors take the plain version, CUDA tensors launch or raise.
 * `gp_mean_scores` / `gp_mean_var_scores` — the entries: a GPState and a
