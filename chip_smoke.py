@@ -24,7 +24,11 @@ setting is printed.  Phases, each printing one JSON line:
              and library times (CUDA events, median of 50 runs after
              warm-up), and beside the byte bound the time of an empty
              kernel of the same grid (`launch_floor_ms`); with --profile
-             also the kernel at 128, 256 and 512 rows a block;
+             also the kernel at 128, 256 and 512 rows a block; and the
+             merge over an instance axis (N 256, cap 2^11, b 114 and N 4,
+             cap 2^15, b 6040: one launch for all N, bitwise per
+             instance), timed against its byte bound, an empty kernel of
+             its grid and N single launches;
 4. surrogate - the GP of the surrogate path: `fit_auto_bucketed` on 1024
              evaluated flagship configurations (43 Cholesky factorizations
              of 1024^2) and `precompute_kinv`; a padded-bucket state (700
@@ -54,7 +58,8 @@ setting is printed.  Phases, each printing one JSON line:
              merge launch per commit, a finite best, valid permutations;
 7. reference - one commit of that engine's state on the card and on the
              CPU (plain versions) from the same inputs: the whole state
-             bitwise equal;
+             bitwise equal (the observe draws come from the same key on
+             both devices);
 8. surrogate_engine - the surrogate-guided flagship: 50 steps scored by
              `surrogate_eval_fn(kind="ei", impl="fused")`, a publish of a
              refit, 50 `propose_topk(..., 128)`, then 10 steps each with
@@ -62,14 +67,36 @@ setting is printed.  Phases, each printing one JSON line:
              just before and read just after (C 50, D 50, A 10, B 10,
              merge 70); a finite best, valid tours, and the last epoch's
              scores on the card against the same scoring on the CPU;
-9. profile (with --profile) - device time by kernel and the idle share
-             over a few plain and a few surrogate-scored engine steps
-             (scored by launcher C, then by `score_flat` through A and
-             through B), and the device time of A's kernel and of each
-             pass of B, C and D;
-10. kernels - one entry per kernel: launches on the main path, error
+9. batched - the JAX package's multi-instance protocol (bench.py
+             --multi): rosenbrock-16d, default arms at scale 1 (114 rows
+             an instance), a 2^11-row history, N = 256, 50 steps, then
+             the same with exchange_every = 16; aggregate acquisitions/s,
+             ms/step and launches (the merge once a step); every
+             instance's best equal to the global minimum bitwise right
+             after an exchanging step; the CUDA kernels a step launches
+             (profiler) and the ops it dispatches, equal at N = 4 and
+             N = 256; the speedup over N times one instance's step;
+10. batched_flagship - the flagship at scale 64 over N = 4 instances
+             (24,160 rows a step, a 2^15-row history each), 20 steps
+             scored by launcher C on the flat batch (C 20, merge 20
+             launches); C's scores of a flat batch against the CPU's
+             within the sd tolerance; a 10-step batched run equal to four
+             card FusedEngine runs from `instance_seeds` bitwise; one
+             batched commit (with the exchange) on the card and on the
+             CPU bitwise, snapped through the host codecs;
+11. tf32   - TF32 switched on globally, the 1024-row GP refitted: the fit
+             and its scores against the TF32-off fit within the mean and
+             sd tolerances, and the caller's setting left as it was;
+12. profile (with --profile) - device time by kernel and the idle share
+             over a few plain, surrogate-scored (by launcher C, then by
+             `score_flat` through A and through B) and batched (N = 256
+             and the N = 4 flagship) engine steps, and the device time
+             of A's kernel and of each pass of B, C and D;
+13. kernels - one entry per kernel: launches on the main path, error
              against the plain version (and, for the GP kernels, its
-             largest ratio to the tolerance), times and bound.
+             largest ratio to the tolerance), times and bound; the merge
+             also over its instance axis, and the launches of the
+             batched paths.
 
 """
 from __future__ import annotations
@@ -123,6 +150,18 @@ N_LARGE, LARGE_ROWS = 3700, 512
 # query rows for a top-k whose candidates span several merge groups
 MANY_ROWS = 20000
 SURR_STEPS, TOPK_EPOCHS, FLAT_STEPS = 50, 50, 10
+# the JAX package's multi-instance protocol (bench.py --multi): N
+# instances of rosenbrock-16d in [-5, 5], a 2^11-row history each, 50
+# steps; then with the best exchanged every 16 steps; launches a step are
+# compared at N = 4 and N = 256
+MULTI_N, MULTI_SMALL_N, MULTI_STEPS, MULTI_CAP = 256, 4, 50, 1 << 11
+MULTI_EXCHANGE = 16
+MULTI_SINGLE_STEPS = 20     # steps of one instance alone, the yardstick
+# the batched flagship: N instances at scale 64 (the single engine's
+# history each), steps scored by launcher C, and the matched-seed run
+BF_N, BF_STEPS, BF_MATCH_STEPS = 4, 20, 10
+# the merge over an instance axis: (N, cap, b) of the two batched paths
+MERGE_INSTANCES = ((MULTI_N, MULTI_CAP, 114), (BF_N, CAPACITY, 6040))
 # tolerances (tests/test_pallas_score.py:31,137-139): the posterior mean,
 # and sd / EI / LCB
 MEAN_TOL = {"rtol": 1e-4, "atol": 1e-5}
@@ -281,7 +320,7 @@ def merge_phase(dev, sweep: bool) -> dict:
              for i, (name, cap, b, n_live) in enumerate(SIZES)]
     cases += list(edge_merges(dev))
     with_rows = merge_library("ut_merge_rows_with", [ctypes.c_void_p] * 13
-                              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
     def merge_at(rows, hist, new, pos):
         """The kernel at `rows` rows a block: not the port's wrapper, so
@@ -289,8 +328,9 @@ def merge_phase(dev, sweep: bool) -> dict:
         res = tuple(torch.empty_like(h) for h in hist)
         native.check(with_rows(
             *(t.data_ptr() for t in hist), *(t.data_ptr() for t in new),
-            pos.data_ptr(), *(t.data_ptr() for t in res), hist[0].shape[0],
-            new[0].shape[0], rows, torch.cuda.current_stream().cuda_stream),
+            pos.data_ptr(), *(t.data_ptr() for t in res), 1,
+            hist[0].shape[0], new[0].shape[0], rows,
+            torch.cuda.current_stream().cuda_stream),
             native.MERGE)
         return res
 
@@ -320,11 +360,11 @@ def merge_phase(dev, sweep: bool) -> dict:
     hist, new, pos, case = timed
     cap, b = case["cap"], case["b"]
     floor = merge_library("ut_merge_launch_floor",
-                          [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                          [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
-    def floor_ms(rows):             # an empty kernel of the merge's grid
+    def floor_ms(rows, n=1, cap=cap):   # an empty kernel of the grid
         return median_ms(lambda: native.check(floor(
-            cap, rows, torch.cuda.current_stream().cuda_stream),
+            n, cap, rows, torch.cuda.current_stream().cuda_stream),
             native.MERGE))
     case["rows_per_block"] = native.MERGE.query("ut_merge_rows_per_block")
     case["ms"] = median_ms(lambda: dedup.merge_rows_cuda(hist, new, pos))
@@ -353,8 +393,49 @@ def merge_phase(dev, sweep: bool) -> dict:
     nbytes = 48 * cap + 4 * b
     case["bytes"] = nbytes
     case["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    out["instance_axis"] = [merge_instances_case(n, c, bb, floor_ms, dev)
+                            for n, c, bb in MERGE_INSTANCES]
     emit(out)
+    bad = [c for c in out["instance_axis"] if c["max_abs_err"]]
+    if bad:
+        raise AssertionError(f"merge over an instance axis differs from "
+                             f"the plain version: {bad}")
     return out, case
+
+
+def merge_instances_case(n: int, cap: int, b: int, floor_ms, dev) -> dict:
+    """The merge of n instances in one launch ([n, cap] histories filled
+    to a quarter, a half, three quarters and all of cap in turn) against
+    the plain version, bitwise per instance; its time against the bytes
+    of n merges, an empty kernel of its grid, and n single launches (one
+    an instance, as a per-instance loop would make them)."""
+    from uptune_tpu_torch.ops import dedup
+    parts = [merge_inputs(cap, b, cap * (i % 4 + 1) // 4, 200 + i, dev)
+             for i in range(n)]
+    hist = tuple(torch.stack([p[0][j] for p in parts]) for j in range(4))
+    new = tuple(torch.stack([p[1][j] for p in parts]) for j in range(4))
+    pos = torch.stack([p[2] for p in parts])
+    got = dedup.merge_rows_cuda(hist, new, pos)
+    want = dedup.merge_rows(hist, new, pos)
+    torch.cuda.synchronize()
+    rows = [tuple(c[i] for c in hist) for i in range(n)]
+    news = [tuple(c[i] for c in new) for i in range(n)]
+
+    def singles():
+        for i in range(n):
+            dedup.merge_rows_cuda(rows[i], news[i], pos[i])
+    nbytes = n * (48 * cap + 4 * b)
+    return {"shape": f"N={n} cap={cap} b={b}", "instances": n, "cap": cap,
+            "b": b, "max_abs_err": max_bit_err(got, want),
+            "ms": median_ms(lambda: dedup.merge_rows_cuda(hist, new, pos)),
+            "call_ms": call_ms(lambda: dedup.merge_rows_cuda(hist, new,
+                                                             pos)),
+            "launch_floor_ms": floor_ms(0, n, cap),
+            "single_launches_ms": median_ms(singles, reps=10, per_rep=2),
+            "single_calls_ms": call_ms(singles, reps=5, per_rep=1),
+            "plain_ms": median_ms(lambda: dedup.merge_rows(hist, new, pos)),
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
 
 
 # -- the surrogate path ---------------------------------------------------------
@@ -746,7 +827,7 @@ def gp_kernels_phase(cases) -> tuple:
 # -- the engine ----------------------------------------------------------------
 def tree_to(x, dev):
     """Copy a state / draws tree (NamedTuples, tuples, tensors, None) to
-    `dev`; other leaves (a generator) pass through."""
+    `dev`; other leaves pass through."""
     if isinstance(x, torch.Tensor):
         return x.to(dev)
     if isinstance(x, tuple) and hasattr(x, "_fields"):
@@ -757,7 +838,7 @@ def tree_to(x, dev):
 
 
 def tree_leaves(x, prefix="state"):
-    """{path: tensor} over the tensors of a tree (the generator left out)."""
+    """{path: tensor} over the tensors of a tree (the key included)."""
     if isinstance(x, torch.Tensor):
         return {prefix: x}
     out = {}
@@ -842,22 +923,20 @@ def reference_phase(eng, st, dev) -> dict:
     proposal is snapped through the host codecs (`to_configs` then
     `from_configs`) so no LOG_INT lane sits on a .5 rounding boundary,
     where the card's expm1 and the CPU's may round to different integers
-    and hash differently; the raw QoR is computed once, on the CPU.  Every
-    op of the commit is then exact, so the states must agree bitwise."""
-    from uptune_tpu_torch import rng
+    and hash differently; the raw QoR is computed once, on the CPU.  The
+    observe draws come from the same key on each device (the counter-based
+    generator draws the same uniforms on both).  Every op of the commit is
+    then exact, so the states must agree bitwise."""
     from uptune_tpu_torch.flagship import flagship
     cpu = torch.device("cpu")
     eng_c = flagship(SCALE, history_capacity=CAPACITY, device=cpu)
-    tst, cands = eng.propose(st)
+    tst, cands, key = eng.propose(st)
     space = eng.space
     cands_c = space.from_configs(space.to_configs(cands), device=cpu)
     raw_c = eng_c.evaluate(cands_c)
-    draws = eng.draw_observe(st.gen)
-    st_c = tree_to(st, cpu)._replace(gen=rng.generator(SEED, cpu))
-    out_g = eng.commit(st, tst, tree_to(cands_c, dev), raw_c.to(dev),
-                       draws=draws)
-    out_c = eng_c.commit(st_c, tree_to(tst, cpu), cands_c, raw_c,
-                         draws=tree_to(draws, cpu))
+    out_g = eng.commit(st, tst, tree_to(cands_c, dev), raw_c.to(dev), key)
+    out_c = eng_c.commit(tree_to(st, cpu), tree_to(tst, cpu), cands_c,
+                         raw_c, key.cpu())
     torch.cuda.synchronize()
     lg, lc = tree_leaves(out_g), tree_leaves(out_c)
     bad = [k for k in lc if not torch.equal(col_bits(lg[k].cpu()),
@@ -907,7 +986,7 @@ def surrogate_engine_phase(eng, cases, feats: tuple, dev) -> dict:
     ev.publish(refit)
     tops = []
     for _ in range(TOPK_EPOCHS):
-        _, cands, vals, idx = eng.propose_topk(st, ev, TOP_K)
+        _, cands, _, vals, idx = eng.propose_topk(st, ev, TOP_K)
         tops.append((vals, idx))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -961,6 +1040,343 @@ def surrogate_engine_phase(eng, cases, feats: tuple, dev) -> dict:
     return out, st, ev, ev_mean, ev_ei
 
 
+# -- the batched engine ----------------------------------------------------------
+def row_of(tree, i: int):
+    """Instance i of a stacked tree."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(row_of(x, i) for x in tree))
+    if isinstance(tree, tuple):
+        return tuple(row_of(x, i) for x in tree)
+    return tree
+
+
+def trees_differ(a, b) -> list:
+    """The paths where two trees' tensors are not bitwise equal."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if sorted(la) != sorted(lb):
+        return sorted(set(la) ^ set(lb))
+    return [k for k in la if not torch.equal(col_bits(la[k].cpu()),
+                                             col_bits(lb[k].cpu()))]
+
+
+def launch_counts(fn, steps: int) -> dict:
+    """What fn() (`steps` batched steps) launches a step: CUDA kernels
+    and copies by the profiler, and the ops torch dispatches (a
+    TorchDispatchMode)."""
+    import collections
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n[str(func)] += 1
+            return func(*args, **(kwargs or {}))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    with Ops() as ops:
+        fn()
+    torch.cuda.synchronize()
+    return {"device_ops_per_step": kernels / steps,
+            "dispatched_ops_per_step": sum(ops.n.values()) / steps,
+            "dispatched": ops.n}
+
+
+def batched_phase(dev) -> tuple:
+    """The JAX package's multi-instance protocol on the port (see the
+    module docstring), with the launch counts set to 0 just before each
+    timed run and read just after."""
+    from uptune_tpu_torch import native
+    from uptune_tpu_torch.engine import (BatchedEngine, FusedEngine,
+                                         default_arms)
+    from uptune_tpu_torch.workloads import rosenbrock_device, rosenbrock_space
+    eng = FusedEngine(rosenbrock_space(16, -5.0, 5.0),
+                      lambda v, p: rosenbrock_device(v),
+                      arms=default_arms(1), history_capacity=MULTI_CAP,
+                      device=dev)
+    b = eng.total_batch
+    out = {"phase": "batched", "space": "rosenbrock-16d [-5, 5]",
+           "rows_per_instance": b, "history_capacity": MULTI_CAP,
+           "instances": MULTI_N, "rows_per_step": MULTI_N * b,
+           "steps": MULTI_STEPS, "runs": [], "launches_per_step": {}}
+    # what a step launches at N = 4 and at N = 256: every step exchanges,
+    # so the exchange is counted too
+    counts = {}
+    for n in (MULTI_SMALL_N, MULTI_N):
+        be = BatchedEngine(eng, n, exchange_every=1)
+        st = be.run(be.init(SEED), 2)
+        counts[n] = launch_counts(lambda: be.run(st, 2), 2)
+        out["launches_per_step"][n] = {
+            k: v for k, v in counts[n].items() if k != "dispatched"}
+    small, big = counts[MULTI_SMALL_N], counts[MULTI_N]
+    same = (small["device_ops_per_step"] == big["device_ops_per_step"]
+            and small["dispatched"] == big["dispatched"])
+    out["launches_per_step"]["equal"] = same
+    if not same:
+        emit(out)
+        raise AssertionError(
+            f"a batched step launches {small['device_ops_per_step']} "
+            f"kernels at N={MULTI_SMALL_N}, {big['device_ops_per_step']} "
+            f"at N={MULTI_N}; dispatched ops differ: "
+            f"{sorted(set(small['dispatched'].items()) ^ set(big['dispatched'].items()))[:8]}")
+    # the yardstick: one instance's step on its own, as a loop over the
+    # instances would take it
+    single = eng.run(eng.init(SEED), 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(single, MULTI_SINGLE_STEPS)
+    torch.cuda.synchronize()
+    one = (time.perf_counter() - t0) / MULTI_SINGLE_STEPS
+    out["single_instance_ms_per_step"] = one * 1e3
+    final = None
+    for every in (0, MULTI_EXCHANGE):
+        be = BatchedEngine(eng, MULTI_N, exchange_every=every)
+        st = be.run(be.init(SEED), 1)            # warm step
+        torch.cuda.synchronize()
+        native.reset_launches()                  # the run starts here
+        t0 = time.perf_counter()
+        # the exchange is the last step of this call (16, 32, 48)
+        st = be.run(st, MULTI_STEPS - 2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        q = st.best.qor
+        exchanged = (bool((q == q.min()).all())
+                     and bool((st.best.u == st.best.u[0]).all()))
+        t2 = time.perf_counter()
+        st = be.run(st, 2)
+        torch.cuda.synchronize()
+        wall = (t1 - t0) + (time.perf_counter() - t2)
+        launches = {k.name: k.launches for k in native.KERNELS}
+        run = {"exchange_every": every, "seconds": wall,
+               "ms_per_step": wall / MULTI_STEPS * 1e3,
+               "acquisitions_per_s": MULTI_N * b * MULTI_STEPS / wall,
+               "speedup_vs_instance_loop": MULTI_N * one * MULTI_STEPS
+               / wall,
+               "best_qor": float(be.best_qors(st).min()),
+               "evals": int(st.evals.sum()), "acqs": int(st.acqs.sum()),
+               "hist_dropped": int(st.hist.dropped.sum()),
+               "launches": launches}
+        if every:
+            run["all_equal_after_exchange"] = exchanged
+        out["runs"].append(run)
+        want = {k.name: 0 for k in native.KERNELS}
+        want["merge_rows"] = MULTI_STEPS
+        if launches != want:
+            emit(out)
+            raise AssertionError(f"batched launches {launches}, expected "
+                                 f"{want}")
+        if every and not exchanged:
+            emit(out)
+            raise AssertionError("after an exchanging step the instances' "
+                                 "bests differ")
+        h0 = st.hist.h0
+        if (not np_all_finite(be.best_qors(st))
+                or not bool((h0[:, 1:] >= h0[:, :-1]).all())
+                or int(st.acqs.sum()) != MULTI_N * b * (MULTI_STEPS + 1)):
+            emit(out)
+            raise AssertionError("batched run: a best is not finite, a "
+                                 "history is not sorted or rows are lost")
+        final = (be, st)
+    emit(out)
+    return out, final
+
+
+def np_all_finite(a) -> bool:
+    import numpy as np
+    return bool(np.isfinite(a).all())
+
+
+def batched_flagship_phase(cases, feats: tuple, dev) -> tuple:
+    """The flagship over N instances, scored by launcher C on the flat
+    batch (see the module docstring)."""
+    from uptune_tpu_torch import native
+    from uptune_tpu_torch.engine import BatchedEngine, surrogate_eval_fn
+    from uptune_tpu_torch.flagship import N_CITIES, flagship
+    from uptune_tpu_torch.ops import acquire as acq
+    from uptune_tpu_torch.space.spec import CandBatch
+    from uptune_tpu_torch.surrogate import pallas_score as ps
+    nc, ncat = feats
+    st_gp, _, best, _, _ = cases["mixed_n1024"]
+    eng = flagship(SCALE, history_capacity=CAPACITY, device=dev)
+    ev = surrogate_eval_fn(eng.space, st_gp, kind="ei", best_y=best,
+                           impl="fused", n_cont=nc, n_cat=ncat)
+    be = BatchedEngine(eng, BF_N)
+    seed = SEED + 7
+    st0 = be.init(seed)
+    be.run(st0, 1, eval_fn=ev)                   # warm step
+    torch.cuda.synchronize()
+
+    native.reset_launches()                      # the run starts here
+    t0 = time.perf_counter()
+    st = be.run(st0, BF_STEPS, eval_fn=ev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in native.KERNELS}
+    rows = BF_N * eng.total_batch
+    out = {"phase": "batched_flagship", "scale": SCALE, "instances": BF_N,
+           "rows_per_instance": eng.total_batch, "rows_per_step": rows,
+           "history_capacity": CAPACITY, "steps": BF_STEPS,
+           "seconds": wall, "ms_per_step": wall / BF_STEPS * 1e3,
+           "acquisitions_per_s": rows * BF_STEPS / wall,
+           "best_qor": float(be.best_qors(st).min()),
+           "launches": launches,
+           "acquire_scratch_bytes": 4 * ps.scratch_words(
+               acq.SCORES_KERNEL, rows, int(st_gp.x.shape[0]), True)}
+    want = {k.name: 0 for k in native.KERNELS}
+    want.update(acquire_scores=BF_STEPS, merge_rows=BF_STEPS)
+    bad = []
+    if launches != want:
+        bad.append(f"launches {launches}, expected {want}")
+    if not np_all_finite(be.best_qors(st)):
+        bad.append("a best is not finite")
+    if not is_perm_rows(st.best.perms[0], N_CITIES):
+        bad.append("a best tour is not a permutation")
+
+    # C's scores of one flat batch on the card against the CPU's
+    cpu = torch.device("cpu")
+    tst, cands, keys = torch.func.vmap(eng.propose)(st)
+    n, b = cands.u.shape[:2]
+    flat = CandBatch(cands.u.reshape(n * b, -1),
+                     tuple(p.reshape(n * b, -1) for p in cands.perms))
+    got = ev.fn(flat, ev.aux)
+    ref = ev.fn(tree_to(flat, cpu), tree_to(ev.aux, cpu))
+    out["cpu_reference_max_abs_err"], ratio = tol_excess(
+        got.cpu(), ref, SD_TOL, float(ev.aux[0].y_std))
+    out["cpu_reference_err_over_tol"] = ratio
+    if not ratio <= 1.0:
+        bad.append(f"C's flat scores differ from the CPU's: {ratio:.3g}x "
+                   f"the sd tolerance")
+
+    # instance i of a batched run is a single run from instance_seeds[i]
+    sb = be.run(st0, BF_MATCH_STEPS, eval_fn=ev)
+    seeds = be.instance_seeds(seed)
+    differ = {}
+    for i in range(BF_N):
+        si = eng.run(eng.init(seeds[i]), BF_MATCH_STEPS, eval_fn=ev)
+        d = trees_differ(row_of(sb, i), si)
+        if d:
+            differ[i] = d[:6]
+    out["matched_seed_steps"] = BF_MATCH_STEPS
+    out["matched_seed_mismatches"] = differ
+    if differ:
+        bad.append(f"batched instances differ from single runs: {differ}")
+
+    # one batched commit (with the exchange) on the card and on the CPU
+    eng_c = flagship(SCALE, history_capacity=CAPACITY, device=cpu)
+    space = eng.space
+    tst, cands, keys = torch.func.vmap(eng.propose)(sb)
+    flat = CandBatch(cands.u.reshape(n * b, -1),
+                     tuple(p.reshape(n * b, -1) for p in cands.perms))
+    flat_c = space.from_configs(space.to_configs(flat), device=cpu)
+    raw_c = eng_c.evaluate(flat_c).reshape(n, b)
+    cands_c = CandBatch(flat_c.u.reshape(n, b, -1),
+                        tuple(p.reshape(n, b, -1) for p in flat_c.perms))
+    out_g = be.commit(sb, tst, tree_to(cands_c, dev), raw_c.to(dev), keys,
+                      exchange=True)
+    out_c = BatchedEngine(eng_c, BF_N).commit(
+        tree_to(sb, cpu), tree_to(tst, cpu), cands_c, raw_c, keys.cpu(),
+        exchange=True)
+    torch.cuda.synchronize()
+    mism = trees_differ(out_g, out_c)
+    out["commit_cpu_mismatched"] = mism
+    out["commit_leaves"] = len(tree_leaves(out_c))
+    if mism:
+        bad.append(f"card and CPU batched commits differ at {mism[:6]}")
+    emit(out)
+    if bad:
+        raise AssertionError("batched flagship: " + "; ".join(bad))
+    return out, (be, st, ev)
+
+
+def tf32_phase(cases, feats: tuple, dev) -> dict:
+    """TF32 switched on globally, the main GP refitted from the same
+    inputs: the fit and its scores against the TF32-off fit, at the mean
+    and sd tolerances; and the setting as the caller left it.  At 31
+    features cuBLAS may not take the tensor cores at all, so the same is
+    done with the features padded by a zero lane to 32 (24 continuous,
+    rows of 128 bytes), where an unpinned product does run in TF32: its
+    distances are reported beside the pinned fit's, which must equal the
+    TF32-off fit bitwise."""
+    from uptune_tpu_torch.flagship import flagship_surrogate
+    from uptune_tpu_torch.surrogate import gp
+    nc, ncat = feats
+    base, xq, best, _, _ = cases["mixed_n1024"]
+    x, y, _ = flagship_surrogate(N_TRAIN, SEED + 1, dev)
+    q = xq[:N_TRAIN]
+
+    def pad(t):                      # a zero continuous lane: 32 features
+        return torch.cat([t[:, :nc], torch.zeros_like(t[:, :1]),
+                          t[:, nc:]], dim=1).contiguous()
+    x32 = pad(x)
+
+    def fit32():
+        return gp.fit_auto_bucketed(x32, y, max_points=N_TRAIN,
+                                    n_cont=nc + 1, n_cat=ncat)
+    base32 = fit32()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        st = gp.precompute_kinv(gp.fit_auto_bucketed(
+            x, y, max_points=N_TRAIN, n_cont=nc, n_cat=ncat))
+        mu, sd = gp.predict(st, q, nc, ncat)
+        ei = gp.score_flat(st, xq, kind="ei", best_y=best, n_cont=nc,
+                           n_cat=ncat)
+        st32 = fit32()
+        kept = torch.backends.cuda.matmul.allow_tf32
+        # what TF32 does to the distances where nothing pins them
+        d2_tf32 = {f: gp._raw_d2(t, t) for f, t in
+                   ((31, x[:, :nc]), (32, x32[:, :nc + 1]))}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    d2_f32 = {31: gp._raw_d2(x[:, :nc], x[:, :nc]),
+              32: gp._raw_d2(x32[:, :nc + 1], x32[:, :nc + 1])}
+    mu0, sd0 = gp.predict(base, q, nc, ncat)
+    ei0 = gp.score_flat(base, xq, kind="ei", best_y=best, n_cont=nc,
+                        n_cat=ncat)
+    ys, ym = float(base.y_std), float(base.y_mean)
+    out = {"phase": "tf32", "train_rows": N_TRAIN,
+           "setting_kept": bool(kept),
+           "hyperparameters_equal": bool(
+               torch.equal(st.lengthscale, base.lengthscale)
+               and torch.equal(st.noise, base.noise)
+               and torch.equal(st.ls_cat, base.ls_cat)),
+           "alpha_bitwise": bool(torch.equal(st.alpha, base.alpha)),
+           "chol_bitwise": bool(torch.equal(st.chol, base.chol)),
+           "f32_fit_bitwise": all(
+               bool(torch.equal(getattr(st32, f), getattr(base32, f)))
+               for f in ("alpha", "chol", "lengthscale", "noise",
+                         "ls_cat")),
+           "unpinned_d2_tf32_max_abs_err": {
+               f"features_{f}": float((d2_tf32[f] - d2_f32[f]).abs().max())
+               for f in d2_f32}}
+    out["mean_max_abs_err"], out["mean_err_over_tol"] = tol_excess(
+        mu, mu0, MEAN_TOL, ys, ym)
+    out["sd_max_abs_err"], out["sd_err_over_tol"] = tol_excess(
+        sd, sd0, SD_TOL, ys)
+    # EI is held to the mean's tolerance plus the sd's (UTILITY_TOL)
+    ei_tol = {k: MEAN_TOL[k] + SD_TOL[k] for k in MEAN_TOL}
+    out["ei_max_abs_err"], out["ei_err_over_tol"] = tol_excess(
+        ei, ei0, ei_tol, ys)
+    emit(out)
+    if not (out["setting_kept"] and out["hyperparameters_equal"]
+            and out["f32_fit_bitwise"]
+            and out["mean_err_over_tol"] <= 1 and out["sd_err_over_tol"] <= 1
+            and out["ei_err_over_tol"] <= 1):
+        raise AssertionError(f"the GP under a global TF32 setting: {out}")
+    return out
+
+
 # the short name of every kernel function of csrc/*.cu (with its template
 # arguments) within ptxas's mangled one
 PTXAS_KERNEL = re.compile(
@@ -983,19 +1399,19 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
-def profile_phase(eng, st, ms_per_step: float, steps: int = 5,
-                  eval_fn=None, name: str = "engine") -> None:
-    """Device time by kernel over a short window of engine steps (scored
-    by `eval_fn` if given), and the device's idle share of an unprofiled
-    step (`ms_per_step`, timed in the engine phase): the profiler's own
-    host cost would inflate the window's wall time."""
+def profile_phase(step, st, ms_per_step: float, steps: int = 5,
+                  name: str = "engine") -> None:
+    """Device time by kernel over a short window of engine steps
+    (`step(state) -> state`), and the device's idle share of an
+    unprofiled step (`ms_per_step`, timed in the path's phase): the
+    profiler's own host cost would inflate the window's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            st = eng.step(st, eval_fn=eval_fn)
+            st = step(st)
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -1085,14 +1501,24 @@ def main() -> int:
     reference_phase(eng, st, dev)
     surr, st_s, ev, ev_mean, ev_ei = surrogate_engine_phase(eng, cases,
                                                             feats, dev)
+    multi, (be_m, st_m) = batched_phase(dev)
+    flag, (be_f, st_f, ev_f) = batched_flagship_phase(cases, feats, dev)
+    tf32_phase(cases, feats, dev)
     if args.profile:
-        profile_phase(eng, st, engine["ms_per_step"])
-        profile_phase(eng, st_s, surr["fused_ms_per_step"], eval_fn=ev,
-                      name="surrogate_engine")
-        profile_phase(eng, st_s, surr["score_flat_ms_per_step"],
-                      eval_fn=ev_mean, name="score_flat_mean_engine")
-        profile_phase(eng, st_s, surr["score_flat_ms_per_step"],
-                      eval_fn=ev_ei, name="score_flat_ei_engine")
+        profile_phase(eng.step, st, engine["ms_per_step"])
+        profile_phase(lambda s: eng.step(s, eval_fn=ev), st_s,
+                      surr["fused_ms_per_step"], name="surrogate_engine")
+        profile_phase(lambda s: eng.step(s, eval_fn=ev_mean), st_s,
+                      surr["score_flat_ms_per_step"],
+                      name="score_flat_mean_engine")
+        profile_phase(lambda s: eng.step(s, eval_fn=ev_ei), st_s,
+                      surr["score_flat_ms_per_step"],
+                      name="score_flat_ei_engine")
+        profile_phase(lambda s: be_m.run(s, 1), st_m,
+                      multi["runs"][0]["ms_per_step"],
+                      name=f"batched_n{MULTI_N}")
+        profile_phase(lambda s: be_f.run(s, 1, eval_fn=ev_f), st_f,
+                      flag["ms_per_step"], name=f"batched_flagship_n{BF_N}")
         passes_profile(cases)
 
     entries = []
@@ -1100,10 +1526,17 @@ def main() -> int:
         common = {"name": k.name, "route": "cuda",
                   "source": str(k.source.relative_to(ROOT)),
                   "replaces": ", ".join(k.replaces), "matched": True}
+        batched = {"launches_batched": multi["runs"][0]["launches"][k.name],
+                   "launches_batched_flagship": flag["launches"][k.name]}
         if k.name == "merge_rows":
             entries.append(dict(
-                common, launches=engine["launches"][k.name],
-                max_abs_err=max(c["max_abs_err"] for c in merge["cases"]),
+                common, **batched, launches=engine["launches"][k.name],
+                max_abs_err=max(c["max_abs_err"] for c in merge["cases"]
+                                + merge["instance_axis"]),
+                instance_axis=[{key: c[key] for key in (
+                    "shape", "ms", "call_ms", "launch_floor_ms",
+                    "single_launches_ms", "single_calls_ms", "plain_ms",
+                    "bound_ms")} for c in merge["instance_axis"]],
                 shape=f"cap={timed['cap']} b={timed['b']}",
                 ms=timed["ms"], kernel_ms=timed["ms"],
                 call_ms=timed["call_ms"], plain_ms=timed["plain_ms"],
@@ -1114,7 +1547,7 @@ def main() -> int:
             continue
         t = gp_times[k.name]
         entries.append(dict(
-            common, launches=surr["launches"][k.name],
+            common, **batched, launches=surr["launches"][k.name],
             max_abs_err=t["max_abs_err"],
             max_err_over_tol=t["max_err_over_tol"], shape=t["shape"],
             ms=t["ms"],

@@ -6,7 +6,7 @@ overflow and evict within the run: both packages start from one state (`convert.
 gets the numbers JAX drew and its `commit` gets JAX's own proposal and
 raw QoR (and NelderMead's restart draws, replayed from the JAX restart
 key).  The PRNG keys are left out of the comparison: the JAX state's
-`key` and `SimplexState.key`, and the port's generator.  The JAX side
+`key` and `SimplexState.key`, and the port's key.  The JAX side
 runs eagerly, so no multiply-add is fused into an FMA.  The hashes of
 the compared rows must agree exactly; a LOG_INT value on a .5 rounding
 boundary would break that (see test_torch_space.py), and the test
@@ -113,11 +113,11 @@ def engine_propose_draws(eng_j, st_j):
 # -- state comparison --------------------------------------------------------
 def flat(x, prefix="state"):
     """{path: numpy array} over NamedTuples/tuples, leaving out the PRNG
-    keys (JAX `key` fields, the port's generator)."""
+    keys (the `key` fields of both packages)."""
     out = {}
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         for name, v in zip(x._fields, x):
-            if name in ("key", "gen"):
+            if name == "key":
                 continue
             out.update(flat(v, f"{prefix}.{name}"))
     elif isinstance(x, tuple):
@@ -175,7 +175,7 @@ def test_commit_state_bitwise_10_steps():
     for step in range(STEPS):
         tst_j, cands_j, key_j = eng_j.propose(st_j)
         # the port's propose, fed the numbers JAX drew
-        tst_t, cands_t = eng_t.propose(
+        tst_t, cands_t, key_t = eng_t.propose(
             st_t, draws=engine_propose_draws(eng_j, st_j))
         assert_cands_equal(cands_j, cands_t, f"step {step} cands")
         assert_states_equal(tst_j, tst_t, f"step {step} proposed tstates")
@@ -191,7 +191,7 @@ def test_commit_state_bitwise_10_steps():
         st_t = eng_t.commit(
             st_t, tuple(convert.from_jax_tstate(_np_tree(ts), CPU)
                         for ts in tst_j),
-            jcands_to_t(cands_j), T(raw_j), draws=obs)
+            jcands_to_t(cands_j), T(raw_j), key_t, draws=obs)
         st_j = eng_j.commit(st_j, tst_j, cands_j, raw_j, key_j)
         assert_states_equal(st_j, st_t, f"step {step}")
     assert int(st_t.evals) > EVICT_CAP
@@ -204,12 +204,12 @@ def test_port_run_invariants(engines):
     _, eng_t = engines
     st = eng_t.init(seed=3)
     for _ in range(15):
-        tst, cands = eng_t.propose(st)
+        tst, cands, key = eng_t.propose(st)
         u = N(cands.u)
         assert u.shape == (112, eng_t.space.n_scalar)
         assert (u >= 0).all() and (u <= 1).all()
         assert all(sorted(r) == list(range(12)) for r in N(cands.perms[0]))
-        st = eng_t.commit(st, tst, cands, eng_t.evaluate(cands))
+        st = eng_t.commit(st, tst, cands, eng_t.evaluate(cands), key)
     de, nm = st.tstates[0], st.tstates[3]
     for pm in (N(de.pop.perms[0]), N(st.best.perms[0])[None],
                N(nm.perms[0])[None]):
@@ -301,7 +301,7 @@ def test_surrogate_eval_and_propose_topk_match(engines, impl):
         return
     # JAX's propose_topk is this propose followed by this ranking
     vj, ij = ev_j.topk(cands_j, ev_j.aux, 16)
-    tst_t, cands_t, vt, it = eng_t.propose_topk(
+    tst_t, cands_t, _, vt, it = eng_t.propose_topk(
         st_t, ev_t, 16, draws=engine_propose_draws(eng_j, st_j))
     assert_cands_equal(cands_j, cands_t, "propose_topk cands")
     assert_topk(vj, ij, vt, it, SD_TOL, "propose_topk")
@@ -329,5 +329,5 @@ def test_port_surrogate_steps_run(engines):
                                      float(y2.min()), "ei"))
     assert int(st.acqs) == 4 * 112
     assert np.isfinite(eng_t.best_qor(st)) and eng_t.best_qor(st) <= 0
-    _, cands, vals, idx = eng_t.propose_topk(st, ev, 8)
+    _, cands, _, vals, idx = eng_t.propose_topk(st, ev, 8)
     assert (N(idx) < cands.batch).all() and (np.diff(N(vals)) <= 0).all()

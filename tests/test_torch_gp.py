@@ -21,6 +21,7 @@ import torch
 from uptune_tpu.surrogate import gp as jgp
 
 from uptune_tpu_torch import convert
+from uptune_tpu_torch import rng as trng
 from uptune_tpu_torch.surrogate import gp as tgp
 from uptune_tpu_torch.surrogate import pallas_score as tps
 
@@ -222,7 +223,7 @@ def test_subsample_bitwise_under_replayed_draws():
     np.testing.assert_array_equal(N(xt), np.asarray(xj))
     np.testing.assert_array_equal(N(yt), np.asarray(yj))
     # the port's own draw: 50 distinct rows past the best half
-    d = tgp.draw_subsample(torch.Generator().manual_seed(0), 300, 100)
+    d = tgp.draw_subsample(trng.generator(0, "cpu"), 300, 100)
     assert d.shape == (50,) and len(set(d.tolist())) == 50
     assert int(d.max()) < 250
 

@@ -42,6 +42,27 @@ def test_import_pulls_in_no_jax():
     assert int(out.stdout.split()[0]) >= 20, out.stdout
 
 
+def test_batched_surface_and_merge_op_pull_in_no_jax():
+    """`tune_batch` (api/batch.py), the batched engine and the merge's
+    custom op (`torch.ops.uptune_tpu_torch.merge_rows`, the route vmap
+    takes) load in a fresh interpreter without jax or uptune_tpu."""
+    code = (
+        "import sys, torch, uptune_tpu_torch as p\n"
+        "from uptune_tpu_torch.engine import BatchedEngine, exchange_best\n"
+        "from uptune_tpu_torch.ops import dedup\n"
+        "assert p.tune_batch.__module__ == 'uptune_tpu_torch.api.batch'\n"
+        "op = torch.ops.uptune_tpu_torch.merge_rows.default\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax'\n"
+        "             or n.startswith(('jax.', 'jaxlib'))\n"
+        "             or n == 'uptune_tpu' or n.startswith('uptune_tpu.'))\n"
+        "print(op, bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "uptune_tpu_torch.merge_rows" in out.stdout
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -19,6 +19,7 @@ from uptune_tpu.space import params as JP
 from uptune_tpu.space.spec import Space as JSpace
 from uptune_tpu.space.spec import pad_cands as jpad
 
+from uptune_tpu_torch import rng as trng
 from uptune_tpu_torch.space import params as TP
 from uptune_tpu_torch.space.spec import Space as TSpace
 from uptune_tpu_torch.space.spec import concat_cands, pad_cands
@@ -149,7 +150,7 @@ def test_features_seed_default_pad(setup):
 
 def test_random_is_valid():
     space_t = TSpace(_specs(TP))
-    gen = torch.Generator().manual_seed(3)
+    gen = trng.generator(3, "cpu")
     c = space_t.random(gen, 512)
     u = N(c.u)
     assert u.shape == (512, space_t.n_scalar)

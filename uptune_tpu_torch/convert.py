@@ -4,10 +4,13 @@
 leaf already turned into a numpy array (for example
 `jax.tree_util.tree_map(np.asarray, state)`), read by field name, and
 builds the port's state on `device`: the per-arm technique states, the
-`Best`, the `HistState` (uint32 hashes as int64) and the counters.  The
-JAX PRNG keys do not carry over (the engine's and NelderMead's restart
-key); the port's generator is seeded from `seed` instead.  The parity
-tests use it to start both packages from one state.
+`Best`, the `HistState` (uint32 hashes as int64) and the counters.  A
+stacked state (every leaf with a leading instance axis, as the JAX
+package's `BatchedEngine` keeps it) becomes the port's stacked state.
+The JAX PRNG keys do not carry over (the engine's and NelderMead's
+restart key); the port's key is made from `seed` instead, for a stacked
+state as `BatchedEngine.instance_seeds(seed)` makes the instances'.  The
+parity tests use it to start both packages from one state.
 
 `from_jax_gp(arrays)` does the same for a JAX `GPState` (numpy leaves):
 every field, `mask`, `ls_cat` and the optional `kinv` included, so the
@@ -79,17 +82,21 @@ def from_jax_tstate(ts: Any, device: torch.device):
 
 def from_jax_state(space: Space, arrays: Any, seed: int = 0,
                    device: DeviceLike = "cuda") -> EngineState:
-    """The JAX EngineState (numpy leaves) -> the port's EngineState."""
+    """The JAX EngineState (numpy leaves), single or stacked along a
+    leading instance axis -> the port's EngineState."""
     device = resolve_device(device)
     best = from_jax_best(arrays.best, device)
-    if best.u.shape != (space.n_scalar,):
+    if best.u.dim() not in (1, 2) or best.u.shape[-1] != space.n_scalar:
         raise ValueError(f"best.u has shape {tuple(best.u.shape)}, the "
                          f"space has {space.n_scalar} scalar lanes")
+    key = rng.key(seed, device)
+    if best.u.dim() == 2:
+        key = rng.split(key, best.u.shape[0])
     i32 = torch.int32
     return EngineState(
         tuple(from_jax_tstate(ts, device) for ts in arrays.tstates),
         best, from_jax_hist(arrays.hist, device),
-        rng.generator(seed, device), _t(arrays.evals, i32, device),
+        key, _t(arrays.evals, i32, device),
         _t(arrays.acqs, i32, device), _t(arrays.arm_pulls, i32, device),
         _t(arrays.arm_hits, i32, device))
 

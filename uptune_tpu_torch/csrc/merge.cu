@@ -33,13 +33,22 @@
 // any b is taken (b = 0 copies the history).  New rows that land at or
 // past cap are never read.
 //
+// Instances.  The batched engine keeps n histories ([n, cap] columns) and
+// merges n batches ([n, b] columns and positions) in one launch: one grid
+// of n x ceil(cap / R) blocks, instance-major, where block x works on
+// instance x / ceil(cap / R) with its columns offset by instance * cap
+// and instance * b.  Nothing is shared between instances, so each
+// instance's rows are those of a launch of its own; one history is n = 1.
+//
 // Bound.  Memory: each of the cap output rows (h0, h1 int64, qor, age: 24
 // bytes) is written once and read once from its one source row, new or
 // history; every 4-byte position counts as read once.  48 * cap + 4 * b
-// bytes: at cap 2^15 and b 6040 about 1.60 MB, 0.48 us at 3.35 TB/s — less
-// than any single launch takes.  `ut_merge_launch_floor` launches a kernel
-// of the same grid that returns at once, so that a measurement can say how
-// much of the kernel's time is the launch.
+// bytes an instance: at cap 2^15 and b 6040 about 1.60 MB, 0.48 us at 3.35
+// TB/s — less than any single launch takes; for n instances n times that
+// (at n 256, cap 2^11, b 114 about 25.3 MB, 7.5 us), in one launch.
+// `ut_merge_launch_floor` launches a kernel of the same grid that returns
+// at once, so that a measurement can say how much of the kernel's time is
+// the launch.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -92,15 +101,28 @@ __device__ __forceinline__ int warp_lower_bound(
   return lo;
 }
 
+// The columns of one instance: each of `rows` moved on by `off` entries.
+__device__ __forceinline__ Rows instance_rows(Rows rows, size_t off) {
+  return Rows{rows.h0 + off, rows.h1 + off, rows.q + off, rows.age + off};
+}
+
 template <int kR>
 __global__ void __launch_bounds__(kR) merge_rows_kernel(
-    Rows hist, Rows add, const int32_t* __restrict__ pos_new, OutRows out,
-    int cap, int b) {
+    Rows hist_all, Rows add_all, const int32_t* __restrict__ pos_all,
+    OutRows out_all, int cap, int b, int blocks_per_instance) {
   __shared__ int32_t s_slot[kR];
   __shared__ int32_t s_sets[kR / 32];
   __shared__ int32_t s_lo;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int p0 = blockIdx.x * kR;
+  const int inst = blockIdx.x / blocks_per_instance;
+  const int p0 = (blockIdx.x - inst * blocks_per_instance) * kR;
+  const size_t hoff = static_cast<size_t>(inst) * cap;
+  const size_t boff = static_cast<size_t>(inst) * b;
+  const Rows hist = instance_rows(hist_all, hoff);
+  const Rows add = instance_rows(add_all, boff);
+  const int32_t* __restrict__ pos_new = pos_all + boff;
+  const OutRows out{out_all.h0 + hoff, out_all.h1 + hoff, out_all.q + hoff,
+                    out_all.age + hoff};
   s_slot[t] = 0;
   if (warp == 0) {
     const int found = warp_lower_bound(pos_new, b, p0);
@@ -154,22 +176,31 @@ struct Merge {
   Rows hist, add;
   const int32_t* pos_new;
   OutRows out;
-  int cap, b;
+  int n, cap, b;
 };
+
+// The grid of n instances of cap rows, R a block: n x ceil(cap / R)
+// blocks, or 0 when that does not fit a grid's x dimension.
+long long grid_blocks(int n, int cap, int rows) {
+  const long long blocks =
+      static_cast<long long>(n) * ((cap + rows - 1) / rows);
+  return blocks <= 0x7fffffffLL ? blocks : 0;
+}
 
 template <int kR>
 cudaError_t launch(const Merge& m, cudaStream_t stream) {
-  const int blocks = (m.cap + kR - 1) / kR;
-  merge_rows_kernel<kR><<<blocks, kR, 0, stream>>>(m.hist, m.add, m.pos_new,
-                                                   m.out, m.cap, m.b);
+  const long long blocks = grid_blocks(m.n, m.cap, kR);
+  if (blocks == 0) return cudaErrorInvalidValue;
+  merge_rows_kernel<kR><<<static_cast<unsigned>(blocks), kR, 0, stream>>>(
+      m.hist, m.add, m.pos_new, m.out, m.cap, m.b, (m.cap + kR - 1) / kR);
   return cudaGetLastError();
 }
 
 // The merge with R = rows (0: kRowsPerBlock); only 128, 256 and 512 are
 // instantiated.
 cudaError_t merge(const Merge& m, int rows, cudaStream_t stream) {
-  if (m.cap <= 0) return cudaSuccess;
-  if (m.b < 0) return cudaErrorInvalidValue;
+  if (m.n < 0 || m.b < 0) return cudaErrorInvalidValue;
+  if (m.cap <= 0 || m.n == 0) return cudaSuccess;
   switch (rows == 0 ? kRowsPerBlock : rows) {
     case 128: return launch<128>(m, stream);
     case 256: return launch<256>(m, stream);
@@ -189,15 +220,17 @@ Rows rows_of(const void* h0, const void* h1, const void* q, const void* age) {
 // `stream`, allocates nothing and returns cudaGetLastError() after the
 // launch (0 = success).
 
-// The merge; rows_per_block is R, 0 for the one the port uses
-// (ut_merge_rows).  The other values are there to be measured against it.
+// The merge of n instances: columns [n, cap] (history, output) and [n, b]
+// (batch, positions), row-major; rows_per_block is R, 0 for the one the
+// port uses (ut_merge_rows).  The other values are there to be measured
+// against it.
 extern "C" int ut_merge_rows_with(const void* hist_h0, const void* hist_h1,
                                   const void* hist_q, const void* hist_age,
                                   const void* new_h0, const void* new_h1,
                                   const void* new_q, const void* new_age,
                                   const void* pos_new, void* out_h0,
                                   void* out_h1, void* out_q, void* out_age,
-                                  int cap, int b, int rows_per_block,
+                                  int n, int cap, int b, int rows_per_block,
                                   void* stream) {
   const Merge m{rows_of(hist_h0, hist_h1, hist_q, hist_age),
                 rows_of(new_h0, new_h1, new_q, new_age),
@@ -206,7 +239,7 @@ extern "C" int ut_merge_rows_with(const void* hist_h0, const void* hist_h1,
                         static_cast<int64_t*>(out_h1),
                         static_cast<int32_t*>(out_q),
                         static_cast<int32_t*>(out_age)},
-                cap, b};
+                n, cap, b};
   return static_cast<int>(
       merge(m, rows_per_block, static_cast<cudaStream_t>(stream)));
 }
@@ -216,26 +249,28 @@ extern "C" int ut_merge_rows(const void* hist_h0, const void* hist_h1,
                              const void* new_h0, const void* new_h1,
                              const void* new_q, const void* new_age,
                              const void* pos_new, void* out_h0, void* out_h1,
-                             void* out_q, void* out_age, int cap, int b,
-                             void* stream) {
+                             void* out_q, void* out_age, int n, int cap,
+                             int b, void* stream) {
   return ut_merge_rows_with(hist_h0, hist_h1, hist_q, hist_age, new_h0, new_h1,
                             new_q, new_age, pos_new, out_h0, out_h1, out_q,
-                            out_age, cap, b, 0, stream);
+                            out_age, n, cap, b, 0, stream);
 }
 
 // R of ut_merge_rows.
 extern "C" int ut_merge_rows_per_block() { return kRowsPerBlock; }
 
-// A kernel of the merge's grid (cap rows, rows_per_block a block, 0 for
-// the port's) that returns at once: the least a launch of that grid takes.
-// For measurements only.
-extern "C" int ut_merge_launch_floor(int cap, int rows_per_block,
+// A kernel of the merge's grid (n instances of cap rows, rows_per_block a
+// block, 0 for the port's) that returns at once: the least a launch of
+// that grid takes.  For measurements only.
+extern "C" int ut_merge_launch_floor(int n, int cap, int rows_per_block,
                                      void* stream) {
   const int rows = rows_per_block == 0 ? kRowsPerBlock : rows_per_block;
-  if (cap <= 0 || rows <= 0 || rows > 1024) {
+  if (n <= 0 || cap <= 0 || rows <= 0 || rows > 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  launch_floor_kernel<<<(cap + rows - 1) / rows, rows, 0,
+  const long long blocks = grid_blocks(n, cap, rows);
+  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
+  launch_floor_kernel<<<static_cast<unsigned>(blocks), rows, 0,
                         static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

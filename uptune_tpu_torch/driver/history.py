@@ -183,11 +183,10 @@ def dup_source(hashes: torch.Tensor) -> torch.Tensor:
     o2 = torch.sort(h0[o1], stable=True).indices
     osort = o1[o2]
     h0s, h1s = h0[osort], h1[osort]
-    is_first = torch.ones(B, dtype=torch.bool, device=dev)
-    is_first[1:] = (h0s[1:] != h0s[:-1]) | (h1s[1:] != h1s[:-1])
+    is_first = torch.cat([
+        torch.ones(min(B, 1), dtype=torch.bool, device=dev),
+        (h0s[1:] != h0s[:-1]) | (h1s[1:] != h1s[:-1])])
     ar = torch.arange(B, device=dev)
     head = torch.cummax(torch.where(is_first, ar, 0), dim=0).values
     src_sorted = osort[head].to(torch.int32)
-    out = torch.zeros(B, dtype=torch.int32, device=dev)
-    out[osort] = src_sorted
-    return out
+    return torch.zeros_like(src_sorted).scatter(0, osort, src_sorted)

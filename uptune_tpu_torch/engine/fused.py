@@ -13,21 +13,29 @@ eager PyTorch on one device, and `run` is a Python loop.  One step:
 5. the novel rows are merged into the history — on the card through the
    hand-written merge kernel (`ops/dedup.py`, `csrc/merge.cu`), once per
    commit;
-6. the best folds in and each arm observes its slice.
+6. the best folds in (and, with `exchange=`, is exchanged across
+   instances) and each arm observes its slice.  `commit` is
+   `commit_head` (up to the best), the exchange, then `commit_tail`
+   (credit and observe), so that the batched engine can vmap the two
+   halves and exchange across the stacked best between them.
 
 `propose_topk` ranks a proposal epoch with the fused acquisition top-k
 instead of evaluating it.
 
-Randomness: one `torch.Generator` on the engine's device, seeded from an
-integer in `init`, lives in `EngineState.gen` and advances in place (it
-takes the place of the JAX state's key).  `propose` and `commit` take
-optional pre-made draws (`draw_propose` / `draw_observe` make them from
-the generator) so a test can feed the numbers JAX drew.  State tensors
-are never updated in place: each step returns new ones.
+Randomness: the state carries a key (`EngineState.key`, an `rng.key`),
+as the JAX state does, and every draw is a function of it: `propose`
+splits the state's key into the key it returns and the key of its draws,
+and `commit` draws the arms' observe from the key `propose` returned and
+keeps it as the new state's key.  So a state is a value: proposing twice
+from one state gives the same batch, nothing is updated in place, and
+`torch.func.vmap` runs `propose` and `commit` over stacked states
+(`engine/batched.py`).  `propose` and `commit` take optional pre-made
+draws (`draw_propose` / `draw_observe` make them from a key) so a test
+can feed the numbers JAX drew.
 """
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -41,17 +49,29 @@ from ..techniques.base import Best, Technique, get_technique
 # -> [B], on the engine's device
 DeviceObjective = Callable[[torch.Tensor, Tuple[torch.Tensor, ...]],
                            torch.Tensor]
+# the cross-instance best exchange: Best -> Best
+Exchange = Callable[[Best], Best]
 
 
 class EngineState(NamedTuple):
     tstates: Tuple              # per-arm technique states
     best: Best
     hist: HistState
-    gen: torch.Generator        # advances in place (the JAX state's key)
+    key: torch.Tensor           # [2] int64 (rng.key): the next draws' key
     evals: torch.Tensor         # scalar i32: novel evaluations so far
     acqs: torch.Tensor          # scalar i32: total candidates processed
     arm_pulls: torch.Tensor     # [n_arms] i32
     arm_hits: torch.Tensor      # [n_arms] i32: steps where arm held new best
+
+
+class CommitHead(NamedTuple):
+    """What the first half of a commit hands the second: the oriented
+    QoR, the best with the batch folded in (before any exchange), the
+    merged history and the count of novel rows."""
+    qor: torch.Tensor           # [B] f32
+    best: Best
+    hist: HistState
+    n_new: torch.Tensor         # scalar i32
 
 
 def default_arms(scale: int = 1) -> List[Technique]:
@@ -96,35 +116,57 @@ class FusedEngine:
         self.total_batch = sum(self.batches)
         self.history = History(history_capacity, device=self.device)
         self.dedup = dedup
+        # elements each draw phase took last time: a stream hashes that
+        # many at once (a size, never a result)
+        self._hints = {}
 
     # ------------------------------------------------------------------
-    def init(self, seed: int = 0) -> EngineState:
-        gen = rng.generator(seed, self.device)
+    def init(self, seed: Union[int, torch.Tensor] = 0) -> EngineState:
+        """A fresh state from an integer seed or a key (`rng.key`, or a
+        row of `BatchedEngine.instance_seeds`).  The arms' initial draws
+        come from the key's stream; the key becomes the state's."""
+        key = (seed if isinstance(seed, torch.Tensor)
+               else rng.key(seed, self.device))
         space = self.space
-        tstates = tuple(t.init_state(space, t.draw_init(space, gen))
-                        for t in self.arms)
+        tstates = self._draw(key, "init", lambda gen: tuple(
+            t.init_state(space, t.draw_init(space, gen)) for t in self.arms))
         i32 = dict(dtype=torch.int32, device=self.device)
         n = len(self.arms)
         return EngineState(
             tstates, Best.empty(space, self.device), self.history.init(),
-            gen, torch.zeros((), **i32), torch.zeros((), **i32),
+            key, torch.zeros((), **i32), torch.zeros((), **i32),
             torch.zeros((n,), **i32), torch.zeros((n,), **i32))
 
     # ------------------------------------------------------------------
-    def draw_propose(self, gen: torch.Generator) -> tuple:
-        return tuple(t.draw_propose(self.space, gen) for t in self.arms)
+    def _draw(self, key: torch.Tensor, phase: str, draw: Callable):
+        """`draw(gen)` on a stream of `key` that hashes at once as many
+        elements as this phase used last time (what it draws does not
+        depend on that)."""
+        gen = rng.Stream(key, self._hints.get(phase, 0))
+        out = draw(gen)
+        self._hints[phase] = gen.used
+        return out
 
-    def draw_observe(self, gen: torch.Generator) -> tuple:
-        return tuple(t.draw_observe(self.space, gen) for t in self.arms)
+    def draw_propose(self, key: torch.Tensor) -> tuple:
+        """Every arm's propose draws, from the draw key `propose` splits
+        off the state's key."""
+        return self._draw(key, "propose", lambda gen: tuple(
+            t.draw_propose(self.space, gen) for t in self.arms))
+
+    def draw_observe(self, key: torch.Tensor) -> tuple:
+        """Every arm's observe draws, from the key `propose` returned."""
+        return self._draw(key, "observe", lambda gen: tuple(
+            t.draw_observe(self.space, gen) for t in self.arms))
 
     def propose(self, state: EngineState, draws: Optional[tuple] = None
-                ) -> Tuple[tuple, CandBatch]:
+                ) -> Tuple[tuple, CandBatch, torch.Tensor]:
         """The proposal half of a step: every arm emits its batch, the
-        batches concatenate.  Returns `(new_tstates, cands)` for
-        `commit()`.  `draws` (per arm) default to fresh ones from the
-        state's generator."""
+        batches concatenate.  A function of the state alone.  Returns
+        `(new_tstates, cands, key)` for `commit()`.  `draws` (per arm)
+        default to those of the draw key split off the state's key."""
+        key, kdraw = rng.split(state.key, 2).unbind(-2)
         if draws is None:
-            draws = self.draw_propose(state.gen)
+            draws = self.draw_propose(kdraw)
         new_tstates, cands_list = [], []
         for t, st, d in zip(self.arms, state.tstates, draws):
             st2, c = t.propose(self.space, st, state.best, d)
@@ -132,7 +174,7 @@ class FusedEngine:
             cands_list.append(c)
         cands = (concat_cands(cands_list) if len(cands_list) > 1
                  else cands_list[0])
-        return tuple(new_tstates), cands
+        return tuple(new_tstates), cands, key
 
     def evaluate(self, cands: CandBatch) -> torch.Tensor:
         """The raw (un-oriented) objective on decoded values."""
@@ -142,35 +184,50 @@ class FusedEngine:
     def propose_topk(self, state: EngineState, acq, k: int,
                      draws: Optional[tuple] = None
                      ) -> Tuple[tuple, CandBatch, torch.Tensor,
-                                torch.Tensor]:
+                                torch.Tensor, torch.Tensor]:
         """Propose one epoch and rank it with the fused acquisition
         top-k.  `acq` is a `StatefulEval` from `surrogate_eval_fn(...,
-        impl="fused")`.  Returns `(new_tstates, cands, vals, idx)`: the
-        [k] utilities, descending, and their candidate rows; the caller
-        gathers `cands[idx]`.  `draws` as for `propose`."""
+        impl="fused")`.  Returns `(new_tstates, cands, key, vals, idx)`:
+        the [k] utilities, descending, and their candidate rows; the
+        caller gathers `cands[idx]`.  `draws` as for `propose`."""
         if acq.topk is None:
             raise ValueError("acq has no topk (need impl='fused')")
-        new_tstates, cands = self.propose(state, draws)
+        new_tstates, cands, key = self.propose(state, draws)
         vals, idx = acq.topk(cands, acq.aux, k)
-        return new_tstates, cands, vals, idx
+        return new_tstates, cands, key, vals, idx
 
-    def step(self, state: EngineState, eval_fn=None) -> EngineState:
+    def step(self, state: EngineState, eval_fn=None,
+             exchange: Optional[Exchange] = None) -> EngineState:
         """One fused step: propose, evaluate, commit.  `eval_fn(cands) ->
         raw` replaces the objective call (a surrogate evaluator, for
-        example)."""
-        new_tstates, cands = self.propose(state)
+        example); `exchange(best) -> best` is the cross-instance best
+        exchange, identity when absent."""
+        new_tstates, cands, key = self.propose(state)
         raw = self.evaluate(cands) if eval_fn is None else eval_fn(cands)
-        return self.commit(state, new_tstates, cands, raw)
+        return self.commit(state, new_tstates, cands, raw, key, exchange)
 
     # ------------------------------------------------------------------
     def commit(self, state: EngineState, new_tstates, cands: CandBatch,
-               raw: torch.Tensor,
+               raw: torch.Tensor, key: torch.Tensor,
+               exchange: Optional[Exchange] = None,
                draws: Optional[tuple] = None) -> EngineState:
         """The commit half of a step: orient and clean the measured QoR,
         dedup against the history and merge the novel rows into it, fold
-        the batch into the best, attribute per-arm credit and run every
-        arm's observe.  `raw` is the un-oriented objective for `cands`;
-        `draws` (per arm, for observe) default to fresh ones."""
+        the batch into the best, exchange it (`exchange(best) -> best`,
+        identity when absent), attribute per-arm credit and run every
+        arm's observe.  `raw` is the un-oriented objective for `cands`,
+        `key` the one `propose` returned; `draws` (per arm, for observe)
+        default to those of `key`."""
+        head = self.commit_head(state, new_tstates, cands, raw)
+        if exchange is not None:
+            head = head._replace(best=exchange(head.best))
+        return self.commit_tail(state, new_tstates, cands, head, key, draws)
+
+    def commit_head(self, state: EngineState, new_tstates, cands: CandBatch,
+                    raw: torch.Tensor) -> CommitHead:
+        """The commit up to the best: orient and clean the QoR, dedup,
+        merge the novel rows into the history, fold the batch into the
+        best."""
         B = cands.batch
         dev = self.device
         qor = self.sign * raw
@@ -187,11 +244,17 @@ class FusedEngine:
         else:
             hist = state.hist
             n_new = torch.tensor(B, dtype=torch.int32, device=dev)
+        return CommitHead(qor, state.best.update(cands, qor), hist, n_new)
 
+    def commit_tail(self, state: EngineState, new_tstates, cands: CandBatch,
+                    head: CommitHead, key: torch.Tensor,
+                    draws: Optional[tuple] = None) -> EngineState:
+        """The commit from the (exchanged) best on: per-arm credit and
+        every arm's observe, with `draws` defaulting to those of `key`."""
         if draws is None:
-            draws = self.draw_observe(state.gen)
+            draws = self.draw_observe(key)
+        qor, best = head.qor, head.best
         prev_best = state.best.qor
-        best = state.best.update(cands, qor)
         step_min = torch.min(qor)
         hits, tstates_out = [], []
         off = 0
@@ -205,17 +268,28 @@ class FusedEngine:
             off += b
 
         return EngineState(
-            tuple(tstates_out), best, hist, state.gen,
-            state.evals + n_new, state.acqs + B,
+            tuple(tstates_out), best, head.hist, key,
+            state.evals + head.n_new, state.acqs + cands.batch,
             state.arm_pulls + 1,
             state.arm_hits + torch.stack(hits).to(torch.int32))
 
     # ------------------------------------------------------------------
-    def run(self, state: EngineState, n_steps: int) -> EngineState:
+    def run(self, state: EngineState, n_steps: int, eval_fn=None,
+            exchange: Optional[Exchange] = None) -> EngineState:
         """n_steps fused steps (a Python loop; the JAX package scans)."""
         for _ in range(n_steps):
-            state = self.step(state)
+            state = self.step(state, eval_fn, exchange)
         return state
+
+    def run_traced(self, state: EngineState, n_steps: int
+                   ) -> Tuple[EngineState, torch.Tensor]:
+        """Like run() but also returns the best-so-far trace [n_steps] in
+        the user's orientation."""
+        trace = []
+        for _ in range(n_steps):
+            state = self.step(state)
+            trace.append(self.sign * state.best.qor)
+        return state, torch.stack(trace)
 
     def best_config(self, state: EngineState):
         return self.space.to_configs(state.best.as_batch(1))[0]

@@ -123,12 +123,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 # Every kernel of the port.  merge_rows(hist_h0, hist_h1, hist_q, hist_age,
 # new_h0, new_h1, new_q, new_age, pos_new, out_h0, out_h1, out_q, out_age,
-# cap, b, stream); its wrapper is `ops/dedup.py::merge_rows_cuda`.  A block
+# n, cap, b, stream): n instances' [n, cap] histories and [n, b] batches in
+# one launch; its wrapper is `ops/dedup.py::merge_rows_cuda`.  A block
 # finds its own window of pos_new with a warp's multiway search and marks
 # it in shared memory; any b is taken.
 MERGE = Kernel(
     name="merge_rows", source="merge.cu", symbol="ut_merge_rows",
-    argtypes=[_P] * 13 + [_I, _I, _P],
+    argtypes=[_P] * 13 + [_I, _I, _I, _P],
     replaces=("uptune_tpu/ops/dedup.py:99",))           # _merge_kernel
 # The four launchers of csrc/gp_tile.cu; wrappers in
 # surrogate/pallas_score.py (A, B) and ops/acquire.py (C, D).

@@ -4,8 +4,8 @@ Counterpart of `uptune_tpu/ops/numeric.py`: every operator is an
 elementwise function over [B, D] float32 unit lanes, with complex lanes
 (bool / switch / enum) handled by masks.  The random numbers each
 operator needs are arguments (draw them with `rng.uniform` /
-`rng.normal` on the engine's generator); the functions themselves are
-pure, so the parity tests can pass in the numbers JAX drew.
+`rng.normal` on a stream of the engine's key); the functions themselves
+are pure, so the parity tests can pass in the numbers JAX drew.
 
 `jnp.mod` and `torch.remainder` both take the sign of the divisor, and
 `jnp.clip(x, lo, hi)` is `minimum(maximum(x, lo), hi)` as

@@ -24,11 +24,11 @@ def _inv(pm: torch.Tensor) -> torch.Tensor:
     """[B, n] -> inverse permutations: inv[b, item] = position of item."""
     n = pm.shape[-1]
     pos = torch.arange(n, device=pm.device, dtype=pm.dtype).expand_as(pm)
-    return torch.zeros_like(pm).scatter_(-1, pm, pos)
+    return torch.zeros_like(pm).scatter(-1, pm, pos)
 
 
 # -- shuffle (op1_randomize) ----------------------------------------------
-def draw_shuffle(gen: torch.Generator, rows: int, n: int) -> torch.Tensor:
+def draw_shuffle(gen: rng.Stream, rows: int, n: int) -> torch.Tensor:
     """[rows, n] int64 index permutations."""
     return rng.permutations(gen, rows, n)
 
@@ -40,7 +40,7 @@ def shuffle_batch(pm: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 # -- small random change (op1_small_random_change) -------------------------
-def draw_small_random_change(gen: torch.Generator, rows: int,
+def draw_small_random_change(gen: rng.Stream, rows: int,
                              n: int) -> torch.Tensor:
     """[rows, n] f32 uniform coins (column 0 unused)."""
     return rng.uniform(gen, (rows, n))
@@ -53,17 +53,17 @@ def small_random_change_batch(pm: torch.Tensor, coins: torch.Tensor,
     positions right."""
     n = pm.shape[1]
     do_swap = coins < prob
-    arr = pm.clone()
+    cols = list(pm.unbind(1))
     for i in range(1, n):
-        a, b = arr[:, i - 1].clone(), arr[:, i].clone()
+        a, b = cols[i - 1], cols[i]
         sw = do_swap[:, i]
-        arr[:, i - 1] = torch.where(sw, b, a)
-        arr[:, i] = torch.where(sw, a, b)
-    return arr
+        cols[i - 1] = torch.where(sw, b, a)
+        cols[i] = torch.where(sw, a, b)
+    return torch.stack(cols, dim=1)
 
 
 # -- random swap (op2_random_swap) ------------------------------------------
-def draw_random_swap(gen: torch.Generator, rows: int,
+def draw_random_swap(gen: rng.Stream, rows: int,
                      n: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two [rows] int64 positions in [0, n) per row."""
     return rng.randint(gen, (rows,), 0, n), rng.randint(gen, (rows,), 0, n)
@@ -72,13 +72,10 @@ def draw_random_swap(gen: torch.Generator, rows: int,
 def random_swap_batch(pm: torch.Tensor, r: torch.Tensor,
                       s: torch.Tensor) -> torch.Tensor:
     """Swap positions r[b] and s[b] of each row."""
-    rows = torch.arange(pm.shape[0], device=pm.device)
-    r, s = r.to(torch.int64), s.to(torch.int64)
-    pr, ps = pm[rows, r], pm[rows, s]
-    out = pm.clone()
-    out[rows, r] = ps
-    out[rows, s] = pr
-    return out
+    r, s = r.to(torch.int64)[:, None], s.to(torch.int64)[:, None]
+    pr, ps = torch.gather(pm, 1, r), torch.gather(pm, 1, s)
+    i = torch.arange(pm.shape[1], device=pm.device)[None, :]
+    return torch.where(i == s, pr, torch.where(i == r, ps, pm))
 
 
 # -- random invert (op2_random_invert) --------------------------------------
@@ -86,7 +83,7 @@ def _invert_len(d: int, n: int) -> int:
     return max(1, min(int(d), n))
 
 
-def draw_random_invert(gen: torch.Generator, rows: int, n: int,
+def draw_random_invert(gen: rng.Stream, rows: int, n: int,
                        d: int) -> torch.Tensor:
     """[rows] int64 window starts in [0, n - d + 1)."""
     return rng.randint(gen, (rows,), 0, n - _invert_len(d, n) + 1)
@@ -111,15 +108,15 @@ def toposort_batch(pm: torch.Tensor, dep: torch.Tensor) -> torch.Tensor:
     with all prerequisites emitted that sits earliest in the row."""
     B, n = pm.shape
     rank = _inv(pm)
+    items = torch.arange(n, device=pm.device)[None, :]
     emitted = torch.zeros((B, n), dtype=torch.bool, device=pm.device)
-    out = torch.zeros_like(pm)
+    out = []
     not_dep = ~dep.to(torch.bool)
     for i in range(n):
         ready = (~emitted) & torch.all(not_dep[None] | emitted[:, None, :],
                                        dim=2)
         score = torch.where(ready, rank, n + 1)
         item = torch.argmin(score, dim=1)            # first minimum
-        emitted = emitted.clone()
-        emitted[torch.arange(B, device=pm.device), item] = True
-        out[:, i] = item.to(pm.dtype)
-    return out
+        emitted = emitted | (items == item[:, None])
+        out.append(item.to(pm.dtype))
+    return torch.stack(out, dim=1)

@@ -244,8 +244,8 @@ class Space:
         rng_ = torch.clamp_min(t.shi - t.slo, 1e-30)
         return torch.clamp((s - t.slo) / rng_, 0.0, 1.0).to(torch.float32)
 
-    def random(self, gen: torch.Generator, n: int) -> CandBatch:
-        """Uniform random batch on the generator's device — a draw step:
+    def random(self, gen: rng.Stream, n: int) -> CandBatch:
+        """Uniform random batch on the stream's device — a draw step:
         u ~ U[0,1)^D per row and one independent permutation per row and
         block, then `normalize` (the only pure part)."""
         u = rng.uniform(gen, (n, self.n_scalar))

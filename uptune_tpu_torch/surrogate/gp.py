@@ -5,7 +5,10 @@ factorization, prediction two matrix products over the whole query
 batch, and both carry the predictive variance that EI and LCB need.
 Cholesky, `cho_solve` and `solve_triangular` are plain `torch.linalg`
 calls, as the JAX package leaves them to XLA.  Matrix products run in
-full float32 (TF32 off, PyTorch's default for matmul).
+full float32 whatever the caller has set: every entry point runs under
+`full_f32` (the JAX package's `precision="highest"`, load-bearing there:
+in TF32 the difference of squares in the distances collapses the kernel
+diagonal), which restores the caller's setting on the way out.
 
 Randomness: `subsample` and `thompson` are pure functions of their
 draws; `draw_subsample` / `draw_thompson` make the draws from a
@@ -16,6 +19,7 @@ plus a random draw of the rest) so the O(N^3) fit stays bounded.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -39,6 +43,36 @@ class GPState(NamedTuple):
     # optional premasked K^-1 for the fused variance path
     # (`precompute_kinv`); attached once per (re)fit
     kinv: Optional[torch.Tensor] = None
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Run float32 matrix products in full float32 (no TF32, on any
+    backend) inside, and restore the caller's setting after.  Either API
+    may have set it: the legacy one (`allow_tf32`,
+    `set_float32_matmul_precision`), which then reads back, or the
+    per-backend `fp32_precision` one, after which the legacy getter
+    raises; each is restored through the API that set it."""
+    try:
+        saved = torch.get_float32_matmul_precision()
+    except RuntimeError:            # set through fp32_precision
+        saved = None
+    if saved is not None:
+        torch.set_float32_matmul_precision("highest")
+        try:
+            yield
+        finally:
+            torch.set_float32_matmul_precision(saved)
+        return
+    backends = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+    prev = [b.fp32_precision for b in backends]
+    for b in backends:
+        b.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        for b, v in zip(backends, prev):
+            b.fp32_precision = v
 
 
 def _f32(v, device) -> torch.Tensor:
@@ -118,6 +152,7 @@ def _cho_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.cholesky_solve(b, chol)
 
 
+@full_f32()
 def fit(x: torch.Tensor, y: torch.Tensor, lengthscale: Scalar = 0.3,
         noise: Scalar = 1e-3, mask: Optional[torch.Tensor] = None,
         n_cont: Optional[int] = None, n_cat: int = 0,
@@ -159,6 +194,7 @@ def _mll_from_k(k: torch.Tensor, yn: torch.Tensor,
     return torch.where(info == 0, mll, math.nan)
 
 
+@full_f32()
 def log_marginal_likelihood(x: torch.Tensor, y: torch.Tensor, lengthscale,
                             noise, mask: Optional[torch.Tensor] = None,
                             n_cont: Optional[int] = None, n_cat: int = 0,
@@ -174,6 +210,7 @@ def log_marginal_likelihood(x: torch.Tensor, y: torch.Tensor, lengthscale,
     return _mll_from_k(k, yn, mask, x.shape[0])
 
 
+@full_f32()
 def fit_auto(x: torch.Tensor, y: torch.Tensor,
              mask: Optional[torch.Tensor] = None,
              ls_grid: Sequence[float] = DEFAULT_LS_GRID,
@@ -236,7 +273,7 @@ def pad_train(x: torch.Tensor, y: torch.Tensor, bucket: int
     return x, y, mask
 
 
-def draw_subsample(gen: torch.Generator, n: int, max_points: int
+def draw_subsample(gen: rng.Stream, n: int, max_points: int
                    ) -> torch.Tensor:
     """The draw of `subsample`: max_points - max_points // 2 distinct
     positions in the n - max_points // 2 rows past the best half."""
@@ -258,6 +295,7 @@ def subsample(x: torch.Tensor, y: torch.Tensor, max_points: int,
     return x[idx], y[idx]
 
 
+@full_f32()
 def fit_auto_bucketed(x: torch.Tensor, y: torch.Tensor, *,
                       max_points: int = 1024,
                       pick: Optional[torch.Tensor] = None,
@@ -281,6 +319,7 @@ def fit_auto_bucketed(x: torch.Tensor, y: torch.Tensor, *,
                     n_cont=n_cont, n_cat=n_cat, ls_cat_grid=ls_cat_grid)
 
 
+@full_f32()
 def extend(state: GPState, x_row: torch.Tensor, y_raw, slot: int,
            n_cont: Optional[int] = None, n_cat: int = 0) -> GPState:
     """O(N^2) rank-1 extension of a padded GPState: condition on one new
@@ -318,6 +357,7 @@ def extend(state: GPState, x_row: torch.Tensor, y_raw, slot: int,
                           mask=mask_new, kinv=kinv_new)
 
 
+@full_f32()
 def precompute_kinv(state: GPState) -> GPState:
     """Attach the premasked K^-1 (padded rows and columns zeroed) that
     the fused variance path reads."""
@@ -328,6 +368,7 @@ def precompute_kinv(state: GPState) -> GPState:
     return state._replace(kinv=kinv)
 
 
+@full_f32()
 def predict(state: GPState, xq: torch.Tensor,
             n_cont: Optional[int] = None, n_cat: int = 0
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -366,7 +407,7 @@ def lower_confidence_bound(state: GPState, xq: torch.Tensor,
     return mu - beta * sd
 
 
-def draw_thompson(gen: torch.Generator, b: int) -> torch.Tensor:
+def draw_thompson(gen: rng.Stream, b: int) -> torch.Tensor:
     """The draw of `thompson`: one standard normal per query row."""
     return rng.normal(gen, (b,))
 
@@ -379,6 +420,7 @@ def thompson(state: GPState, xq: torch.Tensor, z: torch.Tensor,
     return mu + sd * z
 
 
+@full_f32()
 def score_flat(state: GPState, xq: torch.Tensor, kind: str = "mean",
                best_y=None, beta: float = 2.0,
                n_cont: Optional[int] = None, n_cat: int = 0) -> torch.Tensor:

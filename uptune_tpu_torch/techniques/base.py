@@ -5,7 +5,7 @@ state machine over a state of tensors.  The JAX package's
 `propose(space, state, key, best)` becomes two parts here, as does every
 stochastic step of the port:
 
-    draws          = t.draw_propose(space, gen)        # uses the generator
+    draws          = t.draw_propose(space, gen)        # consumes a stream
     state, cands   = t.propose(space, state, best, draws)   # pure
     draws          = t.draw_observe(space, gen)        # None when unused
     state          = t.observe(space, state, cands, qor, best, draws)
@@ -25,6 +25,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import rng
 from ..space.spec import CandBatch, Space
 
 
@@ -80,19 +81,19 @@ class Technique:
     def supports(self, space: Space) -> bool:
         return True
 
-    def draw_init(self, space: Space, gen: torch.Generator) -> Any:
+    def draw_init(self, space: Space, gen: rng.Stream) -> Any:
         return None
 
     def init_state(self, space: Space, draws: Any):
         raise NotImplementedError
 
-    def draw_propose(self, space: Space, gen: torch.Generator) -> Any:
+    def draw_propose(self, space: Space, gen: rng.Stream) -> Any:
         raise NotImplementedError
 
     def propose(self, space: Space, state, best: Best, draws: Any):
         raise NotImplementedError
 
-    def draw_observe(self, space: Space, gen: torch.Generator) -> Any:
+    def draw_observe(self, space: Space, gen: rng.Stream) -> Any:
         return None
 
     def observe(self, space: Space, state, cands: CandBatch,

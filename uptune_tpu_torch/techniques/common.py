@@ -3,7 +3,7 @@
 Counterpart of `uptune_tpu/techniques/common.py`.  A "parameter" is one
 scalar lane or one permutation block; a mutation pass picks, per row, one
 forced parameter plus a Bernoulli subset of the rest.  Each block comes
-as a draw step (`draw_*`, uses the generator) and a pure function of the
+as a draw step (`draw_*`, consumes a stream) and a pure function of the
 draws; the draws' NamedTuples mirror the JAX package's key splits one to
 one, so a test can fill them with the numbers JAX drew.
 """
@@ -29,7 +29,7 @@ def n_params(space: Space) -> int:
     return space.n_scalar + len(space.perm_sizes)
 
 
-def draw_param_mutation_mask(space: Space, gen: torch.Generator,
+def draw_param_mutation_mask(space: Space, gen: rng.Stream,
                              n: int) -> MaskDraws:
     P = n_params(space)
     return MaskDraws(rng.uniform(gen, (n, P)), rng.uniform(gen, (n, P)))
@@ -40,13 +40,11 @@ def param_mutation_mask(space: Space, n: int, rate: float, must: int,
     """[n, n_params] bool: per row, `must` forced distinct params (the
     smallest scores; a stable argsort, as jnp.argsort is) plus
     coin < rate on the others.  Param order: scalar lanes, perm blocks."""
-    P = n_params(space)
-    forced = torch.zeros((n, P), dtype=torch.bool,
-                         device=draws.scores.device)
+    mutate = draws.coins < rate
     if must > 0:
         idx = torch.argsort(draws.scores, dim=1, stable=True)[:, :must]
-        forced.scatter_(1, idx, True)
-    return forced | (draws.coins < rate)
+        mutate = mutate.scatter(1, idx, True)
+    return mutate
 
 
 # -- one random permutation manipulator per row -------------------------------
@@ -63,7 +61,7 @@ def _invert_d(n: int) -> int:
     return max(1, n // 4)
 
 
-def draw_perm_random_op(gen: torch.Generator, rows: int,
+def draw_perm_random_op(gen: rng.Stream, rows: int,
                         n: int) -> PermOpDraws:
     r, s = pops.draw_random_swap(gen, rows, n)
     return PermOpDraws(
@@ -98,7 +96,7 @@ class MutateDraws(NamedTuple):
     perms: Tuple[Union[torch.Tensor, PermOpDraws], ...]
 
 
-def draw_mutate_batch(space: Space, gen: torch.Generator, n: int,
+def draw_mutate_batch(space: Space, gen: rng.Stream, n: int,
                       sigma: Optional[float]) -> MutateDraws:
     D = space.n_scalar
     mask = draw_param_mutation_mask(space, gen, n)
@@ -148,7 +146,7 @@ class LinearDraws(NamedTuple):
     shuffles: Tuple[torch.Tensor, ...]   # per perm block [B, s_k]
 
 
-def draw_de_linear_batch(space: Space, gen: torch.Generator,
+def draw_de_linear_batch(space: Space, gen: rng.Stream,
                          n: int) -> LinearDraws:
     return LinearDraws(
         rng.uniform(gen, (n, space.n_scalar)),

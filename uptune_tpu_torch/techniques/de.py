@@ -47,7 +47,7 @@ class DifferentialEvolution(Technique):
     def natural_batch(self, space: Space) -> int:
         return self.population_size
 
-    def draw_init(self, space: Space, gen: torch.Generator) -> CandBatch:
+    def draw_init(self, space: Space, gen: rng.Stream) -> CandBatch:
         return space.random(gen, self.population_size)
 
     def init_state(self, space: Space, draws: CandBatch) -> DEState:
@@ -58,7 +58,7 @@ class DifferentialEvolution(Technique):
                                   device=dev),
                        torch.zeros((), dtype=torch.bool, device=dev))
 
-    def draw_propose(self, space: Space, gen: torch.Generator) -> DEDraws:
+    def draw_propose(self, space: Space, gen: rng.Stream) -> DEDraws:
         P = self.population_size
         n_pool = P - 1 + self.information_sharing
         return DEDraws(

@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import rng
 from ..space.spec import CandBatch, Space
 from .base import Best, Technique, register
 from .common import MutateDraws, draw_mutate_batch, mutate_batch
@@ -48,7 +49,7 @@ class GreedyMutation(Technique):
     def init_state(self, space: Space, draws=None):
         return ()
 
-    def draw_propose(self, space: Space, gen: torch.Generator) -> GreedyDraws:
+    def draw_propose(self, space: Space, gen: rng.Stream) -> GreedyDraws:
         return GreedyDraws(space.random(gen, self.batch),
                            draw_mutate_batch(space, gen, self.batch,
                                              self.sigma))

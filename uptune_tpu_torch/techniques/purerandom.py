@@ -2,8 +2,7 @@
 fresh uniform batch — the draws are the proposal."""
 from __future__ import annotations
 
-import torch
-
+from .. import rng
 from ..space.spec import CandBatch, Space
 from .base import Best, Technique, register
 
@@ -19,7 +18,7 @@ class PureRandom(Technique):
     def init_state(self, space: Space, draws=None):
         return ()
 
-    def draw_propose(self, space: Space, gen: torch.Generator) -> CandBatch:
+    def draw_propose(self, space: Space, gen: rng.Stream) -> CandBatch:
         return space.random(gen, self.batch)
 
     def propose(self, space: Space, state, best: Best, draws: CandBatch):

@@ -9,7 +9,7 @@ unit lanes; permutation blocks ride along from the seed point.  On
 convergence the simplex restarts around the global best.
 
 The JAX state carries its own restart key (`SimplexState.key`); here the
-restart draws come from the engine's generator through `draw_observe`,
+restart draws come from the engine's key through `draw_observe`,
 so the state holds tensors only.
 """
 from __future__ import annotations
@@ -81,7 +81,7 @@ class NelderMead(Technique):
 
     # ---- initial simplex (Random/Right/Regular mixins) ---------------------
     def _draw_others(self, space: Space,
-                     gen: torch.Generator) -> Optional[torch.Tensor]:
+                     gen: rng.Stream) -> Optional[torch.Tensor]:
         if self.init_style != "random":
             return None
         return rng.uniform(gen, (_simplex_size(space) - 1, space.n_scalar))
@@ -104,7 +104,7 @@ class NelderMead(Technique):
         return torch.cat([seed_u[None, :], others], dim=0)
 
     def draw_init(self, space: Space,
-                  gen: torch.Generator) -> SimplexInitDraws:
+                  gen: rng.Stream) -> SimplexInitDraws:
         return SimplexInitDraws(space.random(gen, 1),
                                 self._draw_others(space, gen))
 
@@ -145,7 +145,7 @@ class NelderMead(Technique):
                                   for p in state.perms))
 
     # ---- propose / observe ---------------------------------------------------
-    def draw_propose(self, space: Space, gen: torch.Generator) -> torch.Tensor:
+    def draw_propose(self, space: Space, gen: rng.Stream) -> torch.Tensor:
         """[3, D] U[0,1): the INIT phase's padding rows."""
         return rng.uniform(gen, (3, space.n_scalar))
 
@@ -174,7 +174,7 @@ class NelderMead(Technique):
         return new_state, self._attach_perms(state, u)
 
     def draw_observe(self, space: Space,
-                     gen: torch.Generator) -> RestartDraws:
+                     gen: rng.Stream) -> RestartDraws:
         return RestartDraws(rng.uniform(gen, (space.n_scalar,)),
                             self._draw_others(space, gen))
 
@@ -204,10 +204,10 @@ class NelderMead(Technique):
         repl_q = torch.where(case_expand, qe,
                              torch.where(case_reflect, qr, q_cont))
         # replace the worst (last of the sorted simplex)
-        loop_pts = pts.clone()
-        loop_pts[-1] = torch.where(case_shrink, pts[-1], repl_pt)
-        loop_vals = vals.clone()
-        loop_vals[-1] = torch.where(case_shrink, vals[-1], repl_q)
+        loop_pts = torch.cat(
+            [pts[:-1], torch.where(case_shrink, pts[-1], repl_pt)[None]])
+        loop_vals = torch.cat(
+            [vals[:-1], torch.where(case_shrink, vals[-1], repl_q)[None]])
         # shrink: all but the best replaced by the measured shrink points
         loop_pts = torch.where(case_shrink,
                                torch.cat([pts[:1], shrink_pts], dim=0),
