@@ -87,16 +87,46 @@ setting is printed.  Phases, each printing one JSON line:
 11. tf32   - TF32 switched on globally, the 1024-row GP refitted: the fit
              and its scores against the TF32-off fit within the mean and
              sd tolerances, and the caller's setting left as it was;
-12. profile (with --profile) - device time by kernel and the idle share
-             over a few plain, surrogate-scored (by launcher C, then by
-             `score_flat` through A and through B) and batched (N = 256
-             and the N = 4 flagship) engine steps, and the device time
-             of A's kernel and of each pass of B, C and D;
-13. kernels - one entry per kernel: launches on the main path, error
+12. portfolio_flagship - the flagship's space under every non-meta arm
+             that supports it and is not a default arm (PSO and the GA
+             under the five crossovers, ga-base, GGA, composable DE,
+             bandit mutation, pattern search, annealing, RegularTorczon,
+             MultiTorczon, MultiNelderMead) at scale 11: 6104 rows a
+             step, a 2^15-row history; 50 plain steps, then 20 scored by
+             launcher C against the surrogate phase's GP; launches (merge
+             70, C 20), a finite best, every stored tour a permutation,
+             C's scores of one proposal (6104 rows) against the CPU's,
+             and one commit on the card and on the CPU bitwise;
+13. portfolio_batched - 256 instances of rosenbrock-16d (a 2^11-row
+             history each) under the AUCBanditMetaTechniqueTPU members
+             (DE, normal greedy mutation, CMA-ES, NelderMead) plus
+             pattern search, annealing, RegularTorczon, bandit mutation
+             and MultiNelderMead: 294 rows an instance, 75,264 a step;
+             30 steps exchanging every 16 (the merge once a step, every
+             best equal to the global minimum right after the exchange);
+             the ops a step equal at N = 4 and N = 256 (dispatched
+             ops, and device ops in each of several profiler windows
+             on the same inputs, one for each launch call of the host;
+             a window in which the profiler dropped device records is
+             retaken); the host
+             synchronisations a step (CMA-ES's batched `eigh`); instances
+             0, 127 and 255 of an 8-step run bitwise equal to single card
+             runs; one batched commit on the card and on the CPU: bitwise
+             but for CMA-ES's state, whose eigendecomposition differs
+             between cuSOLVER and LAPACK (held to rtol 1e-5 / atol 1e-6,
+             the basis through B diag(lambda) B^T);
+14. profile (with --profile) - device time by kernel, the idle share and
+             the host synchronisations over a few plain, surrogate-scored
+             (by launcher C, then by `score_flat` through A and through B),
+             batched (N = 256 and the N = 4 flagship) and portfolio
+             (plain and scored flagship, batched N = 256) engine steps,
+             and the device time of A's kernel and of each pass of B, C
+             and D;
+15. kernels - one entry per kernel: launches on the main path, error
              against the plain version (and, for the GP kernels, its
              largest ratio to the tolerance), times and bound; the merge
              also over its instance axis, and the launches of the
-             batched paths.
+             batched and portfolio paths.
 
 """
 from __future__ import annotations
@@ -162,6 +192,22 @@ MULTI_SINGLE_STEPS = 20     # steps of one instance alone, the yardstick
 BF_N, BF_STEPS, BF_MATCH_STEPS = 4, 20, 10
 # the merge over an instance axis: (N, cap, b) of the two batched paths
 MERGE_INSTANCES = ((MULTI_N, MULTI_CAP, 114), (BF_N, CAPACITY, 6040))
+# the portfolio paths: the flagship under the new arms at scale 11 (6104
+# rows a step), plain then scored by launcher C; and the multi-instance
+# protocol under nine arms (294 rows an instance), exchanging every 16
+# steps, with a shorter run held against single runs of three instances
+PF_SCALE, PF_ROWS, PF_STEPS, PF_SCORED = 11, 6104, 50, 20
+PB_N, PB_ROWS, PB_STEPS, PB_MATCH_STEPS = 256, 294, 30, 8
+PB_MATCH = (0, 127, 255)
+# profiler windows the portfolio step's launch count takes at each N, the
+# windows that may be retaken when the profiler drops device records
+# (`launch_counts`), and the empty kernels that open every profiler
+# window (`profiled`)
+COUNT_WINDOWS, RETAKES = 3, 4
+SENTINELS, SENTINEL_KERNEL = 8, "launch_floor_kernel"
+# CMA-ES's state on the card against the CPU's (tests/test_torch_
+# techniques.py holds the port to the JAX package at the same tolerance)
+CMA_TOL = {"rtol": 1e-5, "atol": 1e-6}
 # tolerances (tests/test_pallas_score.py:31,137-139): the posterior mean,
 # and sd / EI / LCB
 MEAN_TOL = {"rtol": 1e-4, "atol": 1e-5}
@@ -918,18 +964,17 @@ def engine_phase(dev) -> tuple:
     return eng, st, out
 
 
-def reference_phase(eng, st, dev) -> dict:
-    """One commit on the card and on the CPU from the same inputs.  The
-    proposal is snapped through the host codecs (`to_configs` then
-    `from_configs`) so no LOG_INT lane sits on a .5 rounding boundary,
-    where the card's expm1 and the CPU's may round to different integers
-    and hash differently; the raw QoR is computed once, on the CPU.  The
-    observe draws come from the same key on each device (the counter-based
-    generator draws the same uniforms on both).  Every op of the commit is
-    then exact, so the states must agree bitwise."""
-    from uptune_tpu_torch.flagship import flagship
+def commit_on_cpu(eng, eng_c, st, dev) -> tuple:
+    """One commit of `st` on the card (engine `eng`) and on the CPU
+    (`eng_c`, the same arms) from the same inputs: (card state, CPU
+    state).  The proposal is snapped through the host codecs
+    (`to_configs` then `from_configs`) so no LOG_INT lane sits on a .5
+    rounding boundary, where the card's expm1 and the CPU's may round to
+    different integers and hash differently; the raw QoR is computed
+    once, on the CPU.  The observe draws come from the same key on each
+    device (the counter-based generator draws the same uniforms on
+    both)."""
     cpu = torch.device("cpu")
-    eng_c = flagship(SCALE, history_capacity=CAPACITY, device=cpu)
     tst, cands, key = eng.propose(st)
     space = eng.space
     cands_c = space.from_configs(space.to_configs(cands), device=cpu)
@@ -938,6 +983,17 @@ def reference_phase(eng, st, dev) -> dict:
     out_c = eng_c.commit(tree_to(st, cpu), tree_to(tst, cpu), cands_c,
                          raw_c, key.cpu())
     torch.cuda.synchronize()
+    return out_g, out_c
+
+
+def reference_phase(eng, st, dev) -> dict:
+    """One commit on the card and on the CPU from the same inputs
+    (`commit_on_cpu`).  Every op of the commit is then exact, so the
+    states must agree bitwise."""
+    from uptune_tpu_torch.flagship import flagship
+    eng_c = flagship(SCALE, history_capacity=CAPACITY,
+                     device=torch.device("cpu"))
+    out_g, out_c = commit_on_cpu(eng, eng_c, st, dev)
     lg, lc = tree_leaves(out_g), tree_leaves(out_c)
     bad = [k for k in lc if not torch.equal(col_bits(lg[k].cpu()),
                                             col_bits(lc[k]))]
@@ -1061,13 +1117,67 @@ def trees_differ(a, b) -> list:
                                              col_bits(lb[k].cpu()))]
 
 
-def launch_counts(fn, steps: int) -> dict:
+# CUDA runtime and driver calls that put work on the device
+LAUNCH_CALL = re.compile(r"^cu(da)?(LaunchKernel|Memcpy|Memset)")
+# the kernels of cuBLAS (products) and cuSOLVER (eigh), which pick among
+# kernels by the size of a batch
+LIBRARY_KERNEL = re.compile(r"gemm|gemv|sytrd|syev|stedc|ormtr|orgtr")
+
+
+def profiled(fn):
+    """fn() inside a torch.profiler window (CPU and CUDA activity), the
+    device idle at both ends.  The window opens with SENTINELS empty
+    kernels (the merge library's `launch_floor_kernel`) queued before
+    fn(): the profiler loses the device records of the first one to three
+    kernels of a window (the host's launch calls are all recorded), and
+    these absorb the loss.  `device_events` and `launch_calls` leave
+    them out."""
+    from torch.profiler import ProfilerActivity, profile
+    from uptune_tpu_torch import native
+    floor = merge_library("ut_merge_launch_floor",
+                          [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(SENTINELS):
+            native.check(floor(1, 1, 32, stream), native.MERGE)
+        fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def device_events(prof) -> list:
+    """The device events (kernels, copies, sets) of a `profiled` window,
+    in order of start, without its sentinels."""
+    from torch.autograd import DeviceType
+    return sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and SENTINEL_KERNEL not in e.name),
+                  key=lambda e: e.time_range.start)
+
+
+def launch_calls(prof) -> int:
+    """The host's calls that put work on the device in a `profiled`
+    window, without its sentinels."""
+    from torch.autograd import DeviceType
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CPU
+               and LAUNCH_CALL.match(e.name)) - SENTINELS
+
+
+def launch_counts(fn, steps: int, windows: int = 1) -> dict:
     """What fn() (`steps` batched steps) launches a step: CUDA kernels
     and copies by the profiler, and the ops torch dispatches (a
-    TorchDispatchMode)."""
+    TorchDispatchMode), over `windows` profiler windows on the same
+    inputs.  Every launch call of the host puts one op on the device, so
+    a window that records fewer device events than launch calls lost
+    records in the profiler, not work on the card: it is set aside and
+    retaken, up to RETAKES times in all.  `short_windows` says, for each
+    window set aside, how many records it lacked, where they lie among a
+    complete window's (in order of start) and what they are.  If too few
+    windows are complete, the short ones are kept, and the caller's
+    comparison of device ops with launch calls fails."""
     import collections
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Ops(TorchDispatchMode):
@@ -1079,19 +1189,50 @@ def launch_counts(fn, steps: int) -> dict:
             self.n[str(func)] += 1
             return func(*args, **(kwargs or {}))
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = sum(e.count for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
+    kept, aside, calls = [], [], []
+    while len(kept) < windows and len(calls) < windows + RETAKES:
+        prof = profiled(fn)
+        seq = [e.name for e in device_events(prof)]
+        calls.append(launch_calls(prof))
+        (kept if len(seq) == calls[-1] else aside).append(
+            (len(calls) - 1, seq))
+    ref = kept[0][1] if kept else max((q for _, q in aside), key=len)
+    short = []
+    for i, seq in aside:
+        p = next((j for j, (x, y) in enumerate(zip(seq, ref)) if x != y),
+                 min(len(seq), len(ref)))
+        q = next((j for j, (x, y) in enumerate(zip(seq[p:][::-1],
+                                                   ref[::-1])) if x != y),
+                 len(seq) - p)
+        short.append({"window": i, "missing": calls[i] - len(seq),
+                      "first_missing_at": p, "of": len(ref),
+                      "contiguous": p + q == len(seq),
+                      "names": [(k[:90], c) for k, c in collections.Counter(
+                          ref[p:len(ref) - q]).most_common(8)],
+                      "launch_calls": calls[i]})
+    if len(kept) < windows:
+        kept += aside
     with Ops() as ops:
         fn()
     torch.cuda.synchronize()
-    return {"device_ops_per_step": kernels / steps,
+    seqs = [q for _, q in kept]
+    return {"device_ops_per_step": len(ref) / steps,
+            "device_ops_per_window": [len(x) / steps for x in seqs],
+            "launch_calls_per_window": [c / steps for c in calls],
+            "short_windows": short,
             "dispatched_ops_per_step": sum(ops.n.values()) / steps,
-            "dispatched": ops.n}
+            "dispatched": ops.n, "device_ops": collections.Counter(ref)}
+
+
+def ops_differ(a: dict, b: dict) -> list:
+    """The device kernels and dispatched ops whose counts differ between
+    two `launch_counts` results: [(name, count in a, count in b)]."""
+    out = []
+    for key in ("device_ops", "dispatched"):
+        for k in sorted(set(a[key]) | set(b[key])):
+            if a[key].get(k, 0) != b[key].get(k, 0):
+                out.append((k[:90], a[key].get(k, 0), b[key].get(k, 0)))
+    return out
 
 
 def batched_phase(dev) -> tuple:
@@ -1119,10 +1260,16 @@ def batched_phase(dev) -> tuple:
         st = be.run(be.init(SEED), 2)
         counts[n] = launch_counts(lambda: be.run(st, 2), 2)
         out["launches_per_step"][n] = {
-            k: v for k, v in counts[n].items() if k != "dispatched"}
+            k: v for k, v in counts[n].items()
+            if k not in ("dispatched", "device_ops")}
     small, big = counts[MULTI_SMALL_N], counts[MULTI_N]
+    # the one window kept at each N records a device op for each launch
+    # call of the host
     same = (small["device_ops_per_step"] == big["device_ops_per_step"]
-            and small["dispatched"] == big["dispatched"])
+            and small["dispatched"] == big["dispatched"]
+            and len(set(small["device_ops_per_window"]
+                        + small["launch_calls_per_window"]
+                        + big["launch_calls_per_window"])) == 1)
     out["launches_per_step"]["equal"] = same
     if not same:
         emit(out)
@@ -1377,6 +1524,308 @@ def tf32_phase(cases, feats: tuple, dev) -> dict:
     return out
 
 
+# -- the portfolio paths ------------------------------------------------------
+def sync_count(fn) -> dict:
+    """The host-device synchronisations fn() makes (torch's sync debug
+    mode warns once for each), counted by the innermost line of the port
+    on the Python stack at the time."""
+    import collections
+    import traceback
+    import warnings
+    where = collections.Counter()
+    pkg = str(ROOT / "uptune_tpu_torch")
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        # not the mode's own notice that it is a prototype
+        if "called a synchronizing" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()
+                if f.filename.startswith(pkg)]
+        at = (f"{Path(ours[-1].filename).relative_to(ROOT)}:"
+              f"{ours[-1].lineno}" if ours
+              else f"{Path(filename).name}:{lineno}")
+        where[at] += 1
+
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    return dict(where)
+
+
+def stored_tours_ok(tstates, n: int) -> bool:
+    """Every permutation an arm's state stores is one of range(n)."""
+    return all(is_perm_rows(leaf, n)
+               for path, leaf in tree_leaves(tstates).items()
+               if "perms" in path)
+
+
+def portfolio_flagship_phase(cases, feats: tuple, dev) -> tuple:
+    """The flagship under the portfolio arms (see the module docstring),
+    with the launch counts set to 0 just before the timed run and read
+    just after."""
+    from uptune_tpu_torch import native
+    from uptune_tpu_torch.engine import surrogate_eval_fn
+    from uptune_tpu_torch.flagship import N_CITIES, flagship_portfolio
+    nc, ncat = feats
+    st_gp, _, best_y, _, _ = cases["mixed_n1024"]
+    eng = flagship_portfolio(PF_SCALE, history_capacity=CAPACITY,
+                             device=dev)
+    rows = eng.total_batch
+    if rows != PF_ROWS:
+        raise AssertionError(f"scale {PF_SCALE} gives {rows} rows a step, "
+                             f"not {PF_ROWS}")
+    ev = surrogate_eval_fn(eng.space, st_gp, kind="ei", best_y=best_y,
+                           impl="fused", n_cont=nc, n_cat=ncat)
+    st = eng.step(eng.step(eng.init(seed=SEED + 8)), eval_fn=ev)   # warm
+    torch.cuda.synchronize()
+
+    native.reset_launches()                 # the main path's run starts here
+    t0 = time.perf_counter()
+    for _ in range(PF_STEPS):
+        st = eng.step(st)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(PF_SCORED):
+        st = eng.step(st, eval_fn=ev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {k.name: k.launches for k in native.KERNELS}
+
+    best = eng.best_qor(st)
+    out = {"phase": "portfolio_flagship", "scale": PF_SCALE,
+           "rows_per_step": rows, "arms": [t.name for t in eng.arms],
+           "rows_per_arm": eng.batches, "history_capacity": CAPACITY,
+           "plain_steps": PF_STEPS,
+           "plain_ms_per_step": (t1 - t0) / PF_STEPS * 1e3,
+           "plain_acquisitions_per_s": rows * PF_STEPS / (t1 - t0),
+           "scored_steps": PF_SCORED, "kind": "ei",
+           "scored_ms_per_step": (t2 - t1) / PF_SCORED * 1e3,
+           "scored_acquisitions_per_s": rows * PF_SCORED / (t2 - t1),
+           "best_qor": best, "evals": int(st.evals), "acqs": int(st.acqs),
+           "hist_dropped": int(st.hist.dropped), "launches": launches,
+           "syncs_per_step": sync_count(lambda: eng.step(st)),
+           "syncs_per_scored_step": sync_count(
+               lambda: eng.step(st, eval_fn=ev))}
+    bad = []
+    want = {k.name: 0 for k in native.KERNELS}
+    want.update(merge_rows=PF_STEPS + PF_SCORED, acquire_scores=PF_SCORED)
+    if launches != want:
+        bad.append(f"launches {launches}, expected {want}")
+    if not torch.isfinite(torch.tensor(best)):
+        bad.append(f"best_qor {best} is not finite")
+    cands = eng.propose(st)[1]
+    if not (stored_tours_ok(st.tstates, N_CITIES)
+            and is_perm_rows(st.best.perms[0], N_CITIES)
+            and is_perm_rows(cands.perms[0], N_CITIES)):
+        bad.append("a tour is not a permutation")
+    # C's scores of one proposal (this path's 6104 rows) on the card
+    # against the CPU's
+    cpu = torch.device("cpu")
+    got = ev.fn(cands, ev.aux)
+    ref = ev.fn(tree_to(cands, cpu), tree_to(ev.aux, cpu))
+    out["cpu_reference_max_abs_err"], ratio = tol_excess(
+        got.cpu(), ref, SD_TOL, float(ev.aux[0].y_std))
+    out["cpu_reference_err_over_tol"] = ratio
+    if not ratio <= 1.0:
+        bad.append(f"C's scores differ from the CPU's: {ratio:.3g}x the "
+                   f"sd tolerance")
+    # one commit on the card and on the CPU: every op exact, bitwise
+    eng_c = flagship_portfolio(PF_SCALE, history_capacity=CAPACITY,
+                               device=cpu)
+    out_g, out_c = commit_on_cpu(eng, eng_c, st, dev)
+    mism = trees_differ(out_g, out_c)
+    out["commit_leaves"] = len(tree_leaves(out_c))
+    out["commit_cpu_mismatched"] = mism
+    if mism:
+        bad.append(f"card and CPU commits differ at {mism[:6]}")
+    emit(out)
+    if bad:
+        raise AssertionError("portfolio flagship: " + "; ".join(bad))
+    return out, (eng, st, ev)
+
+
+def batched_portfolio_engine(dev):
+    """rosenbrock-16d in [-5, 5] under the AUCBanditMetaTechniqueTPU
+    members and five more arms, a 2^11-row history, on `dev`."""
+    from uptune_tpu_torch.engine import FusedEngine
+    from uptune_tpu_torch.techniques import get_root
+    from uptune_tpu_torch.workloads import rosenbrock_device, rosenbrock_space
+    arms = list(get_root(["AUCBanditMetaTechniqueTPU"]).techniques)
+    arms += [get_root([n]) for n in (
+        "PatternSearch", "PseudoAnnealingSearch", "RegularTorczon",
+        "AUCBanditMutationTechnique", "MultiNelderMead")]
+    return FusedEngine(rosenbrock_space(16, -5.0, 5.0),
+                       lambda v, p: rosenbrock_device(v), arms=arms,
+                       history_capacity=MULTI_CAP, device=dev)
+
+
+def cma_leaves_ok(a, b, prefix: str) -> tuple:
+    """CMA-ES's state in two trees (the card's and the CPU's) under
+    `prefix`: (bitwise paths, paths beyond CMA_TOL).  The basis is held
+    through B diag(lambda) B^T, every float leaf to CMA_TOL, the
+    generation bitwise."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    keys = [k for k in la if k.startswith(prefix)]
+    bitwise, beyond = [], []
+    for k in keys:
+        x, y = la[k].cpu(), lb[k].cpu()
+        if torch.equal(col_bits(x), col_bits(y)):
+            bitwise.append(k)
+            continue
+        if k.endswith("eig_b"):
+            sq = k[:-len("eig_b")] + "eig_sq"
+            x = (x * la[sq].cpu()[..., None, :] ** 2) @ x.mT
+            y = (y * lb[sq].cpu()[..., None, :] ** 2) @ y.mT
+        if (not x.is_floating_point()
+                or not torch.allclose(x, y, **CMA_TOL)):
+            beyond.append(k)
+    return bitwise, beyond
+
+
+def portfolio_batched_phase(dev) -> tuple:
+    """The multi-instance protocol under the portfolio arms (see the
+    module docstring), with the launch counts set to 0 just before the
+    timed run and read just after."""
+    from uptune_tpu_torch import native
+    from uptune_tpu_torch.engine import BatchedEngine
+    from uptune_tpu_torch.space.spec import CandBatch
+    eng = batched_portfolio_engine(dev)
+    b = eng.total_batch
+    if b != PB_ROWS:
+        raise AssertionError(f"{b} rows an instance, not {PB_ROWS}")
+    out = {"phase": "portfolio_batched", "space": "rosenbrock-16d [-5, 5]",
+           "arms": [t.name for t in eng.arms], "rows_per_arm": eng.batches,
+           "rows_per_instance": b, "history_capacity": MULTI_CAP,
+           "instances": PB_N, "rows_per_step": PB_N * b, "steps": PB_STEPS,
+           "exchange_every": MULTI_EXCHANGE, "launches_per_step": {}}
+    bad = []
+    # what a step launches at N = 4 and at N = 256 (every step exchanges)
+    counts = {}
+    for n in (MULTI_SMALL_N, PB_N):
+        be = BatchedEngine(eng, n, exchange_every=1)
+        st = be.run(be.init(SEED), 2)
+        counts[n] = launch_counts(lambda: be.run(st, 2), 2, COUNT_WINDOWS)
+        out["launches_per_step"][n] = {
+            k: v for k, v in counts[n].items()
+            if k not in ("dispatched", "device_ops")}
+    small, big = counts[MULTI_SMALL_N], counts[PB_N]
+    # every window kept at both N records the same device ops, one for
+    # each launch call of the host, and every window taken (those set
+    # aside too) makes the same launch calls
+    per = small["device_ops_per_window"] + big["device_ops_per_window"]
+    calls = small["launch_calls_per_window"] + big["launch_calls_per_window"]
+    same = (small["dispatched"] == big["dispatched"]
+            and len(set(per + calls)) == 1)
+    out["launches_per_step"]["equal"] = same
+    # cuBLAS and cuSOLVER pick other kernels of one count for other
+    # batch sizes (the float64 products, eigh's tridiagonalization);
+    # every other kernel's count is equal at both N
+    differ = ops_differ(small, big)
+    out["launches_per_step"]["kernels_named_otherwise"] = differ[:12]
+    ours = [d for d in differ if not LIBRARY_KERNEL.search(d[0])]
+    if ours:
+        bad.append(f"kernels outside cuBLAS and cuSOLVER launch other "
+                   f"counts at N={MULTI_SMALL_N} and N={PB_N}: {ours[:8]}")
+    if not same:
+        bad.append(f"a step's ops differ between N={MULTI_SMALL_N} and "
+                   f"N={PB_N} or between windows: device {per}, launch "
+                   f"calls {calls}; {ops_differ(small, big)[:8]}")
+
+    be = BatchedEngine(eng, PB_N, exchange_every=MULTI_EXCHANGE)
+    st = be.run(be.init(SEED + 9), 1)            # warm step
+    torch.cuda.synchronize()
+    native.reset_launches()                      # the run starts here
+    t0 = time.perf_counter()
+    st = be.run(st, MULTI_EXCHANGE)              # exchanges at its last step
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    q = st.best.qor
+    exchanged = (bool((q == q.min()).all())
+                 and bool((st.best.u == st.best.u[0]).all()))
+    t2 = time.perf_counter()
+    st = be.run(st, PB_STEPS - MULTI_EXCHANGE)
+    torch.cuda.synchronize()
+    wall = (t1 - t0) + (time.perf_counter() - t2)
+    launches = {k.name: k.launches for k in native.KERNELS}
+    out.update({
+        "seconds": wall, "ms_per_step": wall / PB_STEPS * 1e3,
+        "acquisitions_per_s": PB_N * b * PB_STEPS / wall,
+        "best_qor": float(be.best_qors(st).min()),
+        "evals": int(st.evals.sum()), "acqs": int(st.acqs.sum()),
+        "hist_dropped": int(st.hist.dropped.sum()), "launches": launches,
+        "all_equal_after_exchange": exchanged,
+        "syncs_per_step": sync_count(lambda: be.run(st, 1))})
+    want = {k.name: 0 for k in native.KERNELS}
+    want["merge_rows"] = PB_STEPS
+    if launches != want:
+        bad.append(f"launches {launches}, expected {want}")
+    if not exchanged:
+        bad.append("after an exchanging step the instances' bests differ")
+    h0 = st.hist.h0
+    if (not np_all_finite(be.best_qors(st))
+            or not bool((h0[:, 1:] >= h0[:, :-1]).all())
+            or int(st.acqs.sum()) != PB_N * b * (PB_STEPS + 1)):
+        bad.append("a best is not finite, a history is not sorted or rows "
+                   "are lost")
+
+    # instances of an unexchanged run equal single card runs
+    be0 = BatchedEngine(eng, PB_N)
+    seed = SEED + 10
+    sb = be0.run(be0.init(seed), PB_MATCH_STEPS)
+    seeds = be0.instance_seeds(seed)
+    differ = {}
+    for i in PB_MATCH:
+        d = trees_differ(row_of(sb, i),
+                         eng.run(eng.init(seeds[i]), PB_MATCH_STEPS))
+        if d:
+            differ[i] = d[:6]
+    out["matched_seed_steps"] = PB_MATCH_STEPS
+    out["matched_seed_instances"] = list(PB_MATCH)
+    out["matched_seed_mismatches"] = differ
+    if differ:
+        bad.append(f"batched instances differ from single runs: {differ}")
+
+    # one batched commit (with the exchange) on the card and on the CPU;
+    # float lanes hash on a grid of u alone, so no codec snap is needed
+    cpu = torch.device("cpu")
+    eng_c = batched_portfolio_engine(cpu)
+    tst, cands, keys = torch.func.vmap(eng.propose)(sb)
+    n, nb = cands.u.shape[:2]
+    cands_c = tree_to(cands, cpu)
+    raw_c = eng_c.evaluate(CandBatch(cands_c.u.reshape(n * nb, -1), ())
+                           ).reshape(n, nb)
+    out_g = be0.commit(sb, tst, tree_to(cands_c, dev), raw_c.to(dev), keys,
+                       exchange=True)
+    out_c = BatchedEngine(eng_c, PB_N).commit(
+        tree_to(sb, cpu), tree_to(tst, cpu), cands_c, raw_c, keys.cpu(),
+        exchange=True)
+    torch.cuda.synchronize()
+    ci = [type(t).__name__ for t in eng.arms].index("CMAES")
+    prefix = f"state.tstates[{ci}]."
+    mism = [k for k in trees_differ(out_g, out_c)
+            if not k.startswith(prefix)]
+    cma_bitwise, cma_beyond = cma_leaves_ok(out_g, out_c, prefix)
+    out["commit_leaves"] = len(tree_leaves(out_c))
+    out["commit_cpu_mismatched"] = mism
+    out["commit_cma_bitwise"] = [k[len(prefix):] for k in cma_bitwise]
+    out["commit_cma_beyond_tol"] = cma_beyond
+    if mism or cma_beyond:
+        bad.append(f"card and CPU batched commits differ at "
+                   f"{(mism + cma_beyond)[:6]}")
+    emit(out)
+    if bad:
+        raise AssertionError("portfolio batched: " + "; ".join(bad))
+    return out, (be, st)
+
+
 # the short name of every kernel function of csrc/*.cu (with its template
 # arguments) within ptxas's mangled one
 PTXAS_KERNEL = re.compile(
@@ -1404,26 +1853,26 @@ def profile_phase(step, st, ms_per_step: float, steps: int = 5,
     """Device time by kernel over a short window of engine steps
     (`step(state) -> state`), and the device's idle share of an
     unprofiled step (`ms_per_step`, timed in the path's phase): the
-    profiler's own host cost would inflate the window's wall time."""
+    profiler's own host cost would inflate the window's wall time; and
+    the host syncs of one more step, by line (`sync_count`)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
+        s = st
         for _ in range(steps):
-            st = step(st)
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:      # kernels, copies, sets
-            rows.append((e.self_device_time_total, e.key, e.count))
-    rows.sort(reverse=True)
+            s = step(s)
+    prof = profiled(run)
+    rows = sorted(((e.self_device_time_total, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and SENTINEL_KERNEL not in e.key), reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3 / steps
     emit({"phase": "profile", "path": name, "steps": steps,
           "device_ms_per_step": busy_ms,
           "device_ops_per_step": sum(r[2] for r in rows) / steps,
           "ms_per_step_unprofiled": ms_per_step,
           "device_idle_share": 1 - busy_ms / ms_per_step,
+          "syncs_per_step": sync_count(lambda: step(st)),
           "top": [{"name": k[:90], "device_us_per_step": us / steps,
                    "count_per_step": n / steps}
                   for us, k, n in rows[:20]]})
@@ -1434,7 +1883,6 @@ def passes_profile(cases, calls: int = 10) -> None:
     at the main state: a torch.profiler window over `calls` calls of each
     launcher."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from uptune_tpu_torch.ops import acquire as acq
     from uptune_tpu_torch.surrogate import pallas_score as ps
     st, xq, best, nc, ncat = cases["mixed_n1024"]
@@ -1447,15 +1895,11 @@ def passes_profile(cases, calls: int = 10) -> None:
                                                   TOP_K)}
     for name, fn in runs.items():
         fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
+        prof = profiled(lambda: [fn() for _ in range(calls)])
         rows = sorted(((e.self_device_time_total, e.key, e.count)
                        for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA), reverse=True)
+                       if e.device_type == DeviceType.CUDA
+                       and SENTINEL_KERNEL not in e.key), reverse=True)
         emit({"phase": "profile", "path": f"{name}_passes", "calls": calls,
               "device_us_per_call": sum(r[0] for r in rows) / calls,
               "passes": [{"name": k[:90], "device_us_per_call": us / calls,
@@ -1504,6 +1948,9 @@ def main() -> int:
     multi, (be_m, st_m) = batched_phase(dev)
     flag, (be_f, st_f, ev_f) = batched_flagship_phase(cases, feats, dev)
     tf32_phase(cases, feats, dev)
+    pflag, (eng_pf, st_pf, ev_pf) = portfolio_flagship_phase(cases, feats,
+                                                             dev)
+    pbat, (be_pb, st_pb) = portfolio_batched_phase(dev)
     if args.profile:
         profile_phase(eng.step, st, engine["ms_per_step"])
         profile_phase(lambda s: eng.step(s, eval_fn=ev), st_s,
@@ -1519,6 +1966,13 @@ def main() -> int:
                       name=f"batched_n{MULTI_N}")
         profile_phase(lambda s: be_f.run(s, 1, eval_fn=ev_f), st_f,
                       flag["ms_per_step"], name=f"batched_flagship_n{BF_N}")
+        profile_phase(eng_pf.step, st_pf, pflag["plain_ms_per_step"],
+                      name="portfolio_flagship")
+        profile_phase(lambda s: eng_pf.step(s, eval_fn=ev_pf), st_pf,
+                      pflag["scored_ms_per_step"],
+                      name="portfolio_flagship_scored")
+        profile_phase(lambda s: be_pb.run(s, 1), st_pb, pbat["ms_per_step"],
+                      name=f"portfolio_batched_n{PB_N}")
         passes_profile(cases)
 
     entries = []
@@ -1527,7 +1981,9 @@ def main() -> int:
                   "source": str(k.source.relative_to(ROOT)),
                   "replaces": ", ".join(k.replaces), "matched": True}
         batched = {"launches_batched": multi["runs"][0]["launches"][k.name],
-                   "launches_batched_flagship": flag["launches"][k.name]}
+                   "launches_batched_flagship": flag["launches"][k.name],
+                   "launches_portfolio_flagship": pflag["launches"][k.name],
+                   "launches_portfolio_batched": pbat["launches"][k.name]}
         if k.name == "merge_rows":
             entries.append(dict(
                 common, **batched, launches=engine["launches"][k.name],

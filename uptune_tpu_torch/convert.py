@@ -7,8 +7,9 @@ builds the port's state on `device`: the per-arm technique states, the
 `Best`, the `HistState` (uint32 hashes as int64) and the counters.  A
 stacked state (every leaf with a leading instance axis, as the JAX
 package's `BatchedEngine` keeps it) becomes the port's stacked state.
-The JAX PRNG keys do not carry over (the engine's and NelderMead's
-restart key); the port's key is made from `seed` instead, for a stacked
+The JAX PRNG keys do not carry over (the engine's, the simplex restart
+key and the annealing chain's); the port's key is made from `seed`
+instead, for a stacked
 state as `BatchedEngine.instance_seeds(seed)` makes the instances'.  The
 parity tests use it to start both packages from one state.
 
@@ -29,9 +30,20 @@ from .driver.history import HistState
 from .engine.fused import EngineState
 from .space.spec import CandBatch, Space
 from .surrogate.gp import GPState
+from .techniques.annealing import SAState
+from .techniques.banditmutation import BMState
 from .techniques.base import Best
+from .techniques.cmaes import CMAState
 from .techniques.de import DEState
+from .techniques.pattern import PatternState
+from .techniques.pso import PSOState
 from .techniques.simplex import SimplexState
+
+# the technique states, by class name (the JAX package's use the same
+# names and fields, plus the PRNG keys the port leaves out)
+_TSTATES = {c.__name__: c for c in (DEState, SimplexState, PSOState,
+                                    PatternState, SAState, BMState,
+                                    CMAState)}
 
 
 def _t(a: Any, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -61,22 +73,32 @@ def from_jax_hist(h: Any, device: torch.device) -> HistState:
                      _t(h.dropped, i32, device))
 
 
+def _tstate_field(x: Any, device: torch.device):
+    """One field of a technique state: a candidate batch, a tuple of
+    permutation blocks (int64), or an array (float32, bool or int32)."""
+    if type(x).__name__ == "CandBatch":
+        return from_jax_cands(x, device)
+    if isinstance(x, tuple):
+        return tuple(_t(p, torch.int64, device) for p in x)
+    kind = np.asarray(x).dtype.kind
+    dtype = {"f": torch.float32, "b": torch.bool}.get(kind, torch.int32)
+    return _t(x, dtype, device)
+
+
 def from_jax_tstate(ts: Any, device: torch.device):
-    """One arm's state: DEState, SimplexState (its key dropped), or the
-    empty tuple of the stateless arms."""
-    if hasattr(ts, "pop"):
-        return DEState(from_jax_cands(ts.pop, device),
-                       _t(ts.qor, torch.float32, device),
-                       _t(ts.bootstrapped, torch.bool, device))
-    if hasattr(ts, "pts_u"):
-        return SimplexState(_t(ts.pts_u, torch.float32, device),
-                            _t(ts.vals, torch.float32, device),
-                            tuple(_t(p, torch.int64, device)
-                                  for p in ts.perms),
-                            _t(ts.phase, torch.int32, device),
-                            _t(ts.stale, torch.int32, device))
+    """One arm's state: any technique state of `_TSTATES` (its key
+    dropped), MultiSimplex's (turn, member states), or the empty tuple
+    of the stateless arms."""
+    cls = _TSTATES.get(type(ts).__name__)
+    if cls is not None:
+        return cls(*(_tstate_field(getattr(ts, f), device)
+                     for f in cls._fields))
     if isinstance(ts, tuple) and not ts:
         return ()
+    if (isinstance(ts, tuple) and len(ts) == 2
+            and isinstance(ts[1], tuple)):
+        return (_t(ts[0], torch.int32, device),
+                tuple(from_jax_tstate(m, device) for m in ts[1]))
     raise TypeError(f"no port of technique state {type(ts).__name__}")
 
 

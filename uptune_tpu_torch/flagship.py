@@ -6,9 +6,14 @@ kind), scored by rosenbrock on the floats plus the closed-tour length of
 the permutation over a fixed random TSP instance.  The default arms are
 scaled by `scale`, and a PureRandom arm pads the step to a multiple of 8
 rows: 111 + 1 rows at scale 1, 6033 + 7 = 6040 rows at scale 64.
+
+`flagship_portfolio` runs the same space and objective under every other
+non-meta arm that supports it (`portfolio_arms`): 546 rows a scale plus
+95 rows of simplexes, padded to 6104 rows at scale 11.
 """
 from __future__ import annotations
 
+import copy
 from typing import Tuple
 
 import torch
@@ -20,6 +25,7 @@ from .engine.fused import FusedEngine, default_arms
 from .space.params import (BoolParam, EnumParam, FloatParam, IntParam,
                            LogIntParam, PermParam, Pow2Param)
 from .space.spec import Space
+from .techniques.base import Technique
 from .techniques.purerandom import PureRandom
 from .workloads.synthetic import (random_tsp_distances, rosenbrock_device,
                                   tsp_device)
@@ -52,12 +58,58 @@ def flagship(scale: int = 1, history_capacity: int = 1 << 15,
     """The flagship FusedEngine on `device`."""
     device = resolve_device(device)
     space = flagship_space()
-    arms = default_arms(scale)
-    total = sum(t.natural_batch(space) for t in arms)
-    pad = (-total) % 8
-    if pad:
-        arms.append(PureRandom(batch=pad))
-    return FusedEngine(space, flagship_objective(device), arms=arms,
+    return FusedEngine(space, flagship_objective(device),
+                       arms=_padded(default_arms(scale), space),
+                       history_capacity=history_capacity, device=device)
+
+
+def resized(t: Technique, rows: int) -> Technique:
+    """A deep copy of `t` proposing `rows` rows a step: its population or
+    batch is set to `rows` (a composable DE's is its wrapped DE's)."""
+    t = copy.deepcopy(t)
+    inner = getattr(t, "_de", t)
+    for field in ("N", "batch", "population_size"):
+        if hasattr(inner, field):
+            setattr(inner, field, rows)
+            return t
+    raise TypeError(f"{t.name} has no population or batch to resize")
+
+
+def portfolio_arms(scale: int = 1) -> list:
+    """Every non-meta arm of the registry that supports the flagship's
+    space and is not a default arm, taken from the registry with their
+    populations scaled by `scale`: the PSO_GA_Bandit members (PSO and the
+    GA under each crossover, and ga-base), GGA, composable DE (OX1, CX),
+    bandit mutation, pattern search and annealing; then RegularTorczon,
+    MultiTorczon and MultiNelderMead (the simplexes' sizes follow the
+    space)."""
+    from .techniques.base import get_root
+    space = flagship_space()
+    members = list(get_root(["PSO_GA_Bandit"]).techniques) + [
+        get_root([n]) for n in (
+            "GGA", "ComposableDiffEvolution", "ComposableDiffEvolutionCX",
+            "AUCBanditMutationTechnique", "PatternSearch",
+            "PseudoAnnealingSearch")]
+    arms = [resized(t, scale * t.natural_batch(space)) for t in members]
+    return arms + [get_root([n]) for n in (
+        "RegularTorczon", "MultiTorczon", "MultiNelderMead")]
+
+
+def _padded(arms: list, space: Space) -> list:
+    """`arms` and a PureRandom arm padding the step to a multiple of 8
+    rows."""
+    pad = (-sum(t.natural_batch(space) for t in arms)) % 8
+    return arms + [PureRandom(batch=pad)] if pad else arms
+
+
+def flagship_portfolio(scale: int = 1, history_capacity: int = 1 << 15,
+                       device: DeviceLike = "cuda") -> FusedEngine:
+    """The flagship's space and objective under `portfolio_arms(scale)`,
+    on `device`."""
+    device = resolve_device(device)
+    space = flagship_space()
+    return FusedEngine(space, flagship_objective(device),
+                       arms=_padded(portfolio_arms(scale), space),
                        history_capacity=history_capacity, device=device)
 
 

@@ -8,12 +8,17 @@ the whole [B, n] batch at once.  Every stochastic op is split in two:
 * `<op>_batch(pm, <draws>)` is a pure function of the batch and draws.
 
 The parity tests feed the pure part the numbers `jax.random` drew for the
-JAX op.  The crossovers (PX/PMX/CX/OX1/OX3) are not ported yet; they come
-with a later slice of the port.
+JAX op.  The crossovers (PX/PMX/CX/OX1/OX3) draw their cut points (or the
+CX start) per row and take them with the block size `d` as
+`cross_<op>_batch(p1, p2, d, draws)`; `CROSSOVERS[name]` pairs each draw
+step with its pure function.  The JAX package's sequential walks (PMX's
+mapping chase, CX's cycle) are `lax.fori_loop`s; here they are loops of
+a fixed count (d and n) of batched gathers, with nothing read on the
+host.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -99,6 +104,153 @@ def random_invert_batch(pm: torch.Tensor, d: int,
     in_win = (i >= r) & (i < r + d)
     src = torch.where(in_win, 2 * r + d - 1 - i, i)
     return torch.gather(pm, 1, src)
+
+
+# -- crossovers (op3_cross_PX / PMX / CX / OX1 / OX3) ---------------------
+def _cut_len(d: int, n: int) -> int:
+    return max(1, min(int(d), n))
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[b, idx[b, j]] for [B, n] x and [B, m] idx."""
+    return torch.gather(x, 1, idx)
+
+
+def draw_cross_px(gen: rng.Stream, rows: int, n: int,
+                  d: int = 0) -> torch.Tensor:
+    """[rows] int64 cuts in [2, n]."""
+    return rng.randint(gen, (rows,), 2, n + 1)
+
+
+def cross_px_batch(p1: torch.Tensor, p2: torch.Tensor, d: int,
+                   c: torch.Tensor) -> torch.Tensor:
+    """Partition crossover: p1's first c[b] elements reordered by their
+    order in p2; the tail keeps p1's order (a stable argsort, as the JAX
+    op's)."""
+    n = p1.shape[1]
+    i = torch.arange(n, device=p1.device)[None, :]
+    key = torch.where(i < c.to(torch.int64)[:, None], _take(_inv(p2), p1),
+                      n + i)
+    return _take(p1, torch.argsort(key, dim=1, stable=True))
+
+
+def draw_cross_pmx(gen: rng.Stream, rows: int, n: int,
+                   d: int) -> torch.Tensor:
+    """[rows] int64 window starts in [0, n - d + 1)."""
+    return rng.randint(gen, (rows,), 0, n - _cut_len(d, n) + 1)
+
+
+def cross_pmx_batch(p1: torch.Tensor, p2: torch.Tensor, d: int,
+                    r: torch.Tensor) -> torch.Tensor:
+    """Partially-mapped crossover: p2's window [r, r+d) copied into p1;
+    a value displaced outside the window follows the window's p2 -> p1
+    mapping until it lands on a value not in the window (at most d
+    steps: a chase of exactly d steps, each a pair of gathers)."""
+    n = p1.shape[1]
+    d = _cut_len(d, n)
+    pos2 = _inv(p2)
+    r = r.to(torch.int64)[:, None]
+    i = torch.arange(n, device=p1.device)[None, :]
+    in_win = (i >= r) & (i < r + d)
+    v = p1
+    for _ in range(d):
+        at = _take(pos2, v)                     # position of v in p2
+        in_seg = (at >= r) & (at < r + d)
+        v = torch.where(in_seg, _take(p1, at), v)
+    return torch.where(in_win, p2, v)
+
+
+def draw_cross_cx(gen: rng.Stream, rows: int, n: int,
+                  d: int = 0) -> torch.Tensor:
+    """[rows] int64 cycle starts in [0, n)."""
+    return rng.randint(gen, (rows,), 0, n)
+
+
+def cross_cx_batch(p1: torch.Tensor, p2: torch.Tensor, d: int,
+                   s: torch.Tensor) -> torch.Tensor:
+    """Cyclic crossover: walk the cycle i -> pos2[p1[i]] from s[b] (n
+    steps, the walk standing still once it closes), then take p2's
+    values on the cycle and p1's elsewhere."""
+    n = p1.shape[1]
+    step = _take(_inv(p2), p1)                  # i -> pos2[p1[i]]
+    s = s.to(torch.int64)[:, None]
+    cols = torch.arange(n, device=p1.device)[None, :]
+    i = s
+    on = torch.zeros_like(p1, dtype=torch.bool)
+    done = torch.zeros_like(s, dtype=torch.bool)
+    for _ in range(n):
+        on = on | (cols == i)
+        nxt = _take(step, i)
+        done = done | (nxt == s)
+        i = torch.where(done, i, nxt)
+    return torch.where(on, p2, p1)
+
+
+def draw_cross_ox(gen: rng.Stream, rows: int, n: int, d: int,
+                  same_cut: bool) -> torch.Tensor:
+    """[rows, 2] int64 (r1, r2): the insertion point in p1's remainder
+    and p2's window start, both in [0, n - d + 1); r1 = r2 with
+    `same_cut` (OX1)."""
+    hi = n - _cut_len(d, n) + 1
+    r2 = rng.randint(gen, (rows,), 0, hi)
+    r1 = r2 if same_cut else rng.randint(gen, (rows,), 0, hi)
+    return torch.stack([r1, r2], dim=1)
+
+
+def _ox_batch(p1: torch.Tensor, p2: torch.Tensor, d: int,
+              cuts: torch.Tensor) -> torch.Tensor:
+    """OX1/OX3: p2's window [r2, r2+d) inserted at position r1 of the
+    sequence of p1's remaining elements in p1-order."""
+    n = p1.shape[1]
+    d = _cut_len(d, n)
+    cuts = cuts.to(torch.int64)
+    r1, r2 = cuts[:, :1], cuts[:, 1:]
+    pos2 = _inv(p2)
+    seg_of = (pos2 >= r2) & (pos2 < r2 + d)     # by item
+    at2 = _take(pos2, p1)
+    keep = ~_take(seg_of.to(torch.int64), p1).to(torch.bool)
+    rem_rank = torch.cumsum(keep.to(torch.int64), dim=1) - 1
+    out_keep = torch.where(rem_rank < r1, rem_rank, rem_rank + d)
+    out_idx = torch.where(keep, out_keep, r1 + (at2 - r2))
+    return torch.zeros_like(p1).scatter(1, out_idx, p1)
+
+
+def draw_cross_ox1(gen: rng.Stream, rows: int, n: int,
+                   d: int) -> torch.Tensor:
+    return draw_cross_ox(gen, rows, n, d, same_cut=True)
+
+
+def draw_cross_ox3(gen: rng.Stream, rows: int, n: int,
+                   d: int) -> torch.Tensor:
+    return draw_cross_ox(gen, rows, n, d, same_cut=False)
+
+
+def cross_ox1_batch(p1: torch.Tensor, p2: torch.Tensor, d: int,
+                    cuts: torch.Tensor) -> torch.Tensor:
+    """Ordered crossover (Davis 1985): one shared cut."""
+    return _ox_batch(p1, p2, d, cuts)
+
+
+def cross_ox3_batch(p1: torch.Tensor, p2: torch.Tensor, d: int,
+                    cuts: torch.Tensor) -> torch.Tensor:
+    """Ordered crossover v3 (Deep 2010): independent cuts."""
+    return _ox_batch(p1, p2, d, cuts)
+
+
+class Crossover(NamedTuple):
+    """A crossover's draw step, `draw(gen, rows, n, d)`, and its pure
+    function, `apply(p1, p2, d, draws)`."""
+    draw: Callable[..., torch.Tensor]
+    apply: Callable[..., torch.Tensor]
+
+
+CROSSOVERS: Dict[str, Crossover] = {
+    "PX": Crossover(draw_cross_px, cross_px_batch),
+    "PMX": Crossover(draw_cross_pmx, cross_pmx_batch),
+    "CX": Crossover(draw_cross_cx, cross_cx_batch),
+    "OX1": Crossover(draw_cross_ox1, cross_ox1_batch),
+    "OX3": Crossover(draw_cross_ox3, cross_ox3_batch),
+}
 
 
 # -- topological normalisation (ScheduleParam) -------------------------------

@@ -15,13 +15,13 @@ The draws' shapes depend only on (space, hyperparameters), never on the
 state: every technique draws unconditionally and selects branchlessly, as
 in the JAX package.  QoR is always minimized; missing results are +inf.
 
-The registry holds the arms ported so far (PureRandom, GreedyMutation
-without crossover, DifferentialEvolution, NelderMead); asking for another
-arm of the JAX package raises an error naming the later slice.
+The registry holds every technique of the JAX package under its name,
+the host-side meta-techniques (`bandit.py`) included; `get_root` resolves
+the driver's `--technique` arguments as the JAX package's does.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -108,13 +108,23 @@ class Technique:
 # registry
 # --------------------------------------------------------------------------
 _registry: Dict[str, Technique] = {}
+_experimental: set = set()
 
 
-def register(t: Technique) -> Technique:
+def register(t: Technique, experimental: bool = False) -> Technique:
+    """`experimental=True` flags a name measured behind the defaults; it
+    stays selectable by name."""
     if t.name in _registry:
         raise ValueError(f"duplicate technique name {t.name!r}")
     _registry[t.name] = t
+    if experimental:
+        _experimental.add(t.name)
     return t
+
+
+def is_experimental(name: str) -> bool:
+    _ensure_loaded()
+    return name in _experimental
 
 
 def all_technique_names() -> List[str]:
@@ -127,21 +137,37 @@ def get_technique(name: str) -> Technique:
     try:
         return _registry[name]
     except KeyError:
-        raise KeyError(
-            f"technique {name!r} is not ported: this slice of the port has "
-            f"{sorted(_registry)}; the other arms of the JAX package "
-            f"(GA crossovers, Torczon, multi-simplex, PSO, pattern search, "
-            f"annealing, bandit mutation, CMA-ES and the bandit "
-            f"meta-techniques) come with a later slice") from None
+        raise KeyError(f"unknown technique {name!r}; "
+                       f"known: {sorted(_registry)}") from None
+
+
+def get_root(names: Optional[Sequence[str]] = None) -> Technique:
+    """Resolve --technique arguments to a root technique: the default
+    portfolio (AUCBanditMetaTechniqueA) when none is given, the one
+    technique when one is, a round-robin portfolio of them when several
+    are.  Returns a deep copy: a meta-technique carries host state (the
+    bandit's window, the round-robin cursor) that must not leak between
+    runs."""
+    import copy
+    _ensure_loaded()
+    from .bandit import RoundRobinMeta  # bandit imports base
+    if not names:
+        return copy.deepcopy(_registry["AUCBanditMetaTechniqueA"])
+    if len(names) == 1:
+        return copy.deepcopy(get_technique(names[0]))
+    return RoundRobinMeta([copy.deepcopy(get_technique(n)) for n in names],
+                          name="+".join(names))
 
 
 _loaded = False
 
 
 def _ensure_loaded():
-    """Import the technique modules so their register() calls run."""
+    """Import every technique module so their register() calls run."""
     global _loaded
     if _loaded:
         return
-    from . import de, evolutionary, purerandom, simplex  # noqa: F401
+    from . import purerandom, de, evolutionary, pso, annealing  # noqa: F401
+    from . import pattern, simplex, bandit, banditmutation      # noqa: F401
+    from . import cmaes                                         # noqa: F401
     _loaded = True

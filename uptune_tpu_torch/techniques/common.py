@@ -175,3 +175,41 @@ def de_linear_batch(space: Space, base: CandBatch, x1: CandBatch,
         new = torch.where(differ[:, None], shuffled, x1.perms[k])
         perms.append(torch.where(pmask[:, None], new, base.perms[k]))
     return CandBatch(u, tuple(perms))
+
+
+# -- permutation crossover between two parents --------------------------------
+def _cross_d(size: int, strength: float) -> int:
+    return max(1, int(round(size * strength)))
+
+
+def draw_crossover_perms(space: Space, gen: rng.Stream, rows: int, op: str,
+                         strength: float = 1.0 / 3.0,
+                         min_size: int = 7) -> Tuple[Optional[torch.Tensor],
+                                                     ...]:
+    """Per perm block, the crossover's per-row draws (None for a block
+    below `min_size`, which the crossover leaves alone)."""
+    cx = pops.CROSSOVERS[op]
+    return tuple(cx.draw(gen, rows, size, _cross_d(size, strength))
+                 if size >= min_size else None
+                 for size in space.perm_sizes)
+
+
+def crossover_perms(space: Space, child: CandBatch, a: CandBatch,
+                    b: CandBatch, op: str,
+                    draws: Tuple[Optional[torch.Tensor], ...],
+                    strength: float = 1.0 / 3.0,
+                    min_size: int = 7) -> CandBatch:
+    """Crossover `op` (PX/PMX/CX/OX1/OX3) between parents a and b on every
+    perm block of size >= min_size, at d = round(size * strength) (at
+    least 1), written into `child`'s perm slots; a smaller block takes
+    a's.  `draws` from `draw_crossover_perms`."""
+    if not space.perm_sizes:
+        return child
+    cx = pops.CROSSOVERS[op]
+    perms = []
+    for d, pa, pb, size in zip(draws, a.perms, b.perms, space.perm_sizes):
+        if size >= min_size:
+            perms.append(cx.apply(pa, pb, _cross_d(size, strength), d))
+        else:
+            perms.append(pa)
+    return CandBatch(child.u, tuple(perms))
