@@ -16,14 +16,17 @@ setting is printed.  Phases, each printing one JSON line:
              nvcc per source, started together), with ptxas's registers,
              spills and shared memory for every kernel function;
 3. merge   - the merge kernel against its plain version on the card, at
-             cap 2^15 / b 6040 (half-full and full history), cap 2048 /
-             b 2048, and at the edges: b = 70,000 into cap 2^15 (most rows
+             cap 2^15 / b 6040 (half-full and full history), at the
+             driver's cap 2^16 / b 32 (the Tuner's default history and
+             its dedup bucket on the flagship's space; half-full and
+             full), cap 2048 / b 2048, and at the edges: b = 70,000 into cap 2^15 (most rows
              land past cap), b = 1, b = cap with every new row before
              every history row, and cap 5000 / b 777 (cap not a multiple
              of a block's rows); all four columns bitwise; kernel, plain
              and library times (CUDA events, median of 50 runs after
              warm-up), and beside the byte bound the time of an empty
-             kernel of the same grid (`launch_floor_ms`); with --profile
+             kernel of the same grid (`launch_floor_ms`), at cap 2^15 /
+             b 6040 and at the driver's shape; with --profile
              also the kernel at 128, 256 and 512 rows a block; and the
              merge over an instance axis (N 256, cap 2^11, b 114 and N 4,
              cap 2^15, b 6040: one launch for all N, bitwise per
@@ -115,18 +118,38 @@ setting is printed.  Phases, each printing one JSON line:
              but for CMA-ES's state, whose eigendecomposition differs
              between cuSOLVER and LAPACK (held to rtol 1e-5 / atol 1e-6,
              the basis through B diag(lambda) B^T);
-14. profile (with --profile) - device time by kernel, the idle share and
+14. driver - the ask/tell tuning driver, `Tuner(flagship_space(),
+             flagship_host_objective(card)).run(test_limit=5000)`: the
+             library's default budget, history (2^16 rows) and portfolio
+             (AUCBanditMetaTechniqueA, a 32-row dedup bucket), after an
+             untimed warm-up tune; counts set to 0 just before `run` and
+             read just after (one merge launch for every committing
+             ticket, nothing else); tickets, evals/s, ms a ticket, the
+             median `t_propose` / `t_dedup`, the host synchronisations
+             and the device ops a ticket; no configuration evaluated
+             twice (the archive's hashes unique), nothing evicted, a
+             finite best, every stored tour a permutation; the same tune
+             on the CPU in this process (ms a ticket, evals/s); a CPU
+             Tuner resuming the card's archive, whose live history rows,
+             best, evals and trace must equal the card's bitwise; a tune
+             at cap 2^12 and 8000 evaluations that evicts inside its
+             commits, one commit of it replayed on the CPU bitwise; and
+             ask(min_trials=256) told in a seeded shuffled order with one
+             ticket fully and one partly cancelled (no hash out twice,
+             evals equal to the trials told, no observe and no credit for
+             the withdrawn ticket);
+15. profile (with --profile) - device time by kernel, the idle share and
              the host synchronisations over a few plain, surrogate-scored
              (by launcher C, then by `score_flat` through A and through B),
              batched (N = 256 and the N = 4 flagship) and portfolio
-             (plain and scored flagship, batched N = 256) engine steps,
-             and the device time of A's kernel and of each pass of B, C
-             and D;
-15. kernels - one entry per kernel: launches on the main path, error
+             (plain and scored flagship, batched N = 256) engine steps
+             and driver tickets, and the device time of A's kernel and of
+             each pass of B, C and D;
+16. kernels - one entry per kernel: launches on the main path, error
              against the plain version (and, for the GP kernels, its
              largest ratio to the tolerance), times and bound; the merge
-             also over its instance axis, and the launches of the
-             batched and portfolio paths.
+             also over its instance axis and at the driver's shape, and
+             the launches of the batched, portfolio and driver paths.
 
 """
 from __future__ import annotations
@@ -158,9 +181,11 @@ SCALE, CAPACITY, STEPS, SEED = 64, 1 << 15, 200, 0
 SIZES = (  # (name, cap, b, live history rows)
     ("cap32768_b6040_half", 1 << 15, 6040, 1 << 14),
     ("cap32768_b6040_full", 1 << 15, 6040, 1 << 15),
+    ("cap65536_b32_half", 1 << 16, 32, 1 << 15),
+    ("cap65536_b32_full", 1 << 16, 32, 1 << 16),
     ("cap2048_b2048", 2048, 2048, 2000),
 )
-TIMED = "cap32768_b6040_full"
+TIMED, DRIVER_TIMED = "cap32768_b6040_full", "cap65536_b32_full"
 # rows a block of the merge kernel may take (csrc/merge.cu instantiates
 # these; the library reports the one the port uses)
 MERGE_ROWS = (128, 256, 512)
@@ -199,6 +224,13 @@ MERGE_INSTANCES = ((MULTI_N, MULTI_CAP, 114), (BF_N, CAPACITY, 6040))
 PF_SCALE, PF_ROWS, PF_STEPS, PF_SCORED = 11, 6104, 50, 20
 PB_N, PB_ROWS, PB_STEPS, PB_MATCH_STEPS = 256, 294, 30, 8
 PB_MATCH = (0, 127, 255)
+# the driver: the library's default budget and history on the flagship's
+# space (the default portfolio's dedup bucket there is 32 rows), after an
+# untimed warm-up tune; a tune at a history that fills and evicts; the
+# trials one ask() takes; the tickets whose syncs and ops are counted
+DRIVER_LIMIT, DRIVER_CAP, DRIVER_B, DRIVER_WARM = 5000, 1 << 16, 32, 300
+EVICT_LIMIT, EVICT_CAP = 8000, 1 << 12
+ASK_TRIALS, COUNT_TICKETS = 256, 20
 # profiler windows the portfolio step's launch count takes at each N, the
 # windows that may be retaken when the profiler drops device records
 # (`launch_counts`), and the empty kernels that open every profiler
@@ -361,7 +393,7 @@ def merge_phase(dev, sweep: bool) -> dict:
     from uptune_tpu_torch import native
     from uptune_tpu_torch.ops import dedup
     out = {"phase": "merge", "tolerance": "bitwise", "cases": []}
-    timed = None
+    timed = {}
     cases = [(name, *merge_inputs(cap, b, n_live, 100 + i, dev))
              for i, (name, cap, b, n_live) in enumerate(SIZES)]
     cases += list(edge_merges(dev))
@@ -401,28 +433,39 @@ def merge_phase(dev, sweep: bool) -> dict:
             emit(out)
             raise AssertionError(f"merge {name}: kernel err {err}, library "
                                  f"err {lib_err} against the plain version")
-        if name == TIMED:
-            timed = (hist, new, pos, case)
-    hist, new, pos, case = timed
-    cap, b = case["cap"], case["b"]
+        if name in (TIMED, DRIVER_TIMED):
+            timed[name] = (hist, new, pos, case)
     floor = merge_library("ut_merge_launch_floor",
                           [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
-    def floor_ms(rows, n=1, cap=cap):   # an empty kernel of the grid
+    def floor_ms(rows, n, cap):   # an empty kernel of the grid
         return median_ms(lambda: native.check(floor(
             n, cap, rows, torch.cuda.current_stream().cuda_stream),
             native.MERGE))
-    case["rows_per_block"] = native.MERGE.query("ut_merge_rows_per_block")
-    case["ms"] = median_ms(lambda: dedup.merge_rows_cuda(hist, new, pos))
-    case["launch_floor_ms"] = floor_ms(0)
-    case["call_ms"] = call_ms(lambda: dedup.merge_rows_cuda(hist, new, pos))
-    case["plain_ms"] = median_ms(lambda: dedup.merge_rows(hist, new, pos))
-    case["library_ms"] = median_ms(lambda: library_merge(hist, new))
+    for hist, new, pos, case in timed.values():
+        cap, b = case["cap"], case["b"]
+        case["rows_per_block"] = native.MERGE.query(
+            "ut_merge_rows_per_block")
+        case["ms"] = median_ms(lambda: dedup.merge_rows_cuda(hist, new, pos))
+        case["launch_floor_ms"] = floor_ms(0, 1, cap)
+        case["call_ms"] = call_ms(
+            lambda: dedup.merge_rows_cuda(hist, new, pos))
+        case["plain_ms"] = median_ms(lambda: dedup.merge_rows(hist, new, pos))
+        case["library_ms"] = median_ms(lambda: library_merge(hist, new))
+        # the bytes a merge must move: each of the cap output rows (24
+        # bytes: h0, h1 int64, qor, age) written once and read once from
+        # its one source row, new or history; every position read once.
+        # Batch rows that land at or past cap are never read.
+        case["bytes"] = 48 * cap + 4 * b
+        case["bound_ms"] = case["bytes"] / HBM_BYTES_PER_S * 1e3
+    hist, new, pos, case = timed[TIMED]
+    cap = case["cap"]
     if sweep:
         # the block sizes in turns, three rounds: one round's order and
         # the card's state weigh as much as the sizes differ
         rounds = [{r: (median_ms(lambda: merge_at(r, hist, new, pos)),
-                       floor_ms(r)) for r in MERGE_ROWS} for _ in range(3)]
+                       floor_ms(r, 1, cap)) for r in MERGE_ROWS}
+                  for _ in range(3)]
         case["sweep"] = {
             r: {"ms": statistics.median(x[r][0] for x in rounds),
                 "ms_rounds": [x[r][0] for x in rounds],
@@ -432,13 +475,6 @@ def merge_phase(dev, sweep: bool) -> dict:
         # kernel's time moves within this phase
         case["ms_after_sweep"] = median_ms(
             lambda: dedup.merge_rows_cuda(hist, new, pos))
-    # the bytes a merge must move: each of the cap output rows (24 bytes:
-    # h0, h1 int64, qor, age) written once and read once from its one
-    # source row, new or history; every position read once.  Batch rows
-    # that land at or past cap are never read.
-    nbytes = 48 * cap + 4 * b
-    case["bytes"] = nbytes
-    case["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
     out["instance_axis"] = [merge_instances_case(n, c, bb, floor_ms, dev)
                             for n, c, bb in MERGE_INSTANCES]
     emit(out)
@@ -446,7 +482,7 @@ def merge_phase(dev, sweep: bool) -> dict:
     if bad:
         raise AssertionError(f"merge over an instance axis differs from "
                              f"the plain version: {bad}")
-    return out, case
+    return out, case, timed[DRIVER_TIMED][3]
 
 
 def merge_instances_case(n: int, cap: int, b: int, floor_ms, dev) -> dict:
@@ -1525,10 +1561,11 @@ def tf32_phase(cases, feats: tuple, dev) -> dict:
 
 
 # -- the portfolio paths ------------------------------------------------------
-def sync_count(fn) -> dict:
+def sync_count(fn, depth: int = 1) -> dict:
     """The host-device synchronisations fn() makes (torch's sync debug
     mode warns once for each), counted by the innermost line of the port
-    on the Python stack at the time."""
+    on the Python stack at the time (with `depth` > 1, the innermost
+    `depth` lines, callee first: a helper's callers apart)."""
     import collections
     import traceback
     import warnings
@@ -1541,9 +1578,9 @@ def sync_count(fn) -> dict:
             return
         ours = [f for f in traceback.extract_stack()
                 if f.filename.startswith(pkg)]
-        at = (f"{Path(ours[-1].filename).relative_to(ROOT)}:"
-              f"{ours[-1].lineno}" if ours
-              else f"{Path(filename).name}:{lineno}")
+        at = (" <- ".join(f"{Path(f.filename).relative_to(ROOT)}:"
+                          f"{f.lineno}" for f in ours[::-1][:depth])
+              if ours else f"{Path(filename).name}:{lineno}")
         where[at] += 1
 
     torch.cuda.synchronize()
@@ -1826,6 +1863,263 @@ def portfolio_batched_phase(dev) -> tuple:
     return out, (be, st)
 
 
+# -- the ask/tell driver -------------------------------------------------------
+def driver_tuner(dev, cap: int, seed: int, archive=None):
+    """A Tuner on the flagship's space with the flagship's host objective
+    on `dev`, the default portfolio and history of `cap` rows: (tuner,
+    its StepStats, its commit count).  The commits are counted around
+    `Tuner._commit`, the one place a ticket merges into the history."""
+    from uptune_tpu_torch.driver import Tuner
+    from uptune_tpu_torch.driver.plugins import SearchHook
+    from uptune_tpu_torch.flagship import (flagship_host_objective,
+                                           flagship_space)
+
+    class Steps(SearchHook):
+        def __init__(self):
+            self.stats = []
+
+        def on_step(self, tuner, stats):
+            self.stats.append(stats)
+    rec = Steps()
+    t = Tuner(flagship_space(), flagship_host_objective(dev), seed=seed,
+              capacity=cap, archive=archive, hooks=[rec], device=dev)
+    commits = [0]
+    commit = t._commit
+
+    def counted(*args):
+        commits[0] += 1
+        commit(*args)
+    t._commit = counted
+    return t, rec.stats, commits
+
+
+def live_rows(hist) -> torch.Tensor:
+    """A history's live rows as [n, 3] int64 (h0, h1, qor's bits), in
+    (h0, h1) order: what dedup and the known-QoR lookup see."""
+    h0, h1, q, age = (x.cpu() for x in (hist.h0, hist.h1, hist.qor,
+                                        hist.age))
+    live = age >= 0
+    rows = torch.stack([h0[live], h1[live], col_bits(q[live])], dim=1)
+    order = torch.sort(rows[:, 1], stable=True).indices
+    rows = rows[order]
+    return rows[torch.sort(rows[:, 0], stable=True).indices]
+
+
+def driver_phase(dev) -> tuple:
+    """The Tuner on the card (see the module docstring), with the launch
+    counts set to 0 just before the timed tune and read just after."""
+    import collections
+    import random
+    import tempfile
+    import numpy as np
+    from uptune_tpu_torch import native
+    from uptune_tpu_torch.driver import Tuner
+    from uptune_tpu_torch.driver.history import History
+    from uptune_tpu_torch.flagship import (N_CITIES, flagship_host_objective,
+                                           flagship_space)
+    from uptune_tpu_torch.space.spec import CandBatch
+    cpu = torch.device("cpu")
+    space = flagship_space()
+    work = tempfile.TemporaryDirectory(prefix="ut_driver_")
+    arc = str(Path(work.name) / "card.jsonl")
+    bad = []
+    warm, _, _ = driver_tuner(dev, DRIVER_CAP, SEED + 20)
+    warm.run(test_limit=DRIVER_WARM)
+    torch.cuda.synchronize()
+
+    t, stats, commits = driver_tuner(dev, DRIVER_CAP, SEED + 21, arc)
+    native.reset_launches()                 # the main path's run starts here
+    t0 = time.perf_counter()
+    res = t.run(test_limit=DRIVER_LIMIT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in native.KERNELS}
+    tickets = res.steps
+    out = {"phase": "driver", "space": "flagship",
+           "technique": t.root.name,
+           "rows_per_arm": {m.name: t._nb[m.name] for m in t.members},
+           "bucket": t._bucket, "history_capacity": DRIVER_CAP,
+           "test_limit": DRIVER_LIMIT, "tickets": tickets,
+           "evals": res.evals, "seconds": wall,
+           "ms_per_ticket": wall / tickets * 1e3,
+           "evals_per_s": res.evals / wall,
+           "t_propose_median_ms": statistics.median(
+               s.t_propose for s in stats) * 1e3,
+           "t_dedup_median_ms": statistics.median(
+               s.t_dedup for s in stats) * 1e3,
+           "pulls": dict(collections.Counter(s.technique for s in stats)),
+           "commits": commits[0], "launches": launches,
+           "best_qor": res.best_qor,
+           "hist_dropped": int(t.hist_state.dropped)}
+    want = {k.name: 0 for k in native.KERNELS}
+    want["merge_rows"] = commits[0]
+    if launches != want or not commits[0]:
+        bad.append(f"launches {launches}, expected {want}")
+    if t._bucket != DRIVER_B:
+        bad.append(f"dedup bucket {t._bucket}, not {DRIVER_B}")
+    if out["hist_dropped"]:
+        bad.append(f"{out['hist_dropped']} history rows evicted")
+    if not np.isfinite(res.best_qor):
+        bad.append(f"best_qor {res.best_qor} is not finite")
+
+    # host syncs and device ops a ticket, over further tickets
+    def tickets_of(n):
+        return lambda: [t.step() for _ in range(n)]
+    out["syncs_per_ticket"] = {
+        k: v / COUNT_TICKETS
+        for k, v in sync_count(tickets_of(COUNT_TICKETS), 2).items()}
+    counts = launch_counts(tickets_of(COUNT_TICKETS), COUNT_TICKETS)
+    out["device_ops_per_ticket"] = counts["device_ops_per_step"]
+    out["launch_calls_per_ticket"] = counts["launch_calls_per_window"]
+    out["dispatched_ops_per_ticket"] = counts["dispatched_ops_per_step"]
+    out["top_device_ops"] = [(k[:90], c / COUNT_TICKETS) for k, c in
+                             counts["device_ops"].most_common(12)]
+
+    # no configuration evaluated twice; every stored tour a permutation
+    t._flush_archive()
+    rows = [json.loads(x) for x in open(arc)][1:]
+    u = torch.tensor([r["u"] for r in rows], dtype=torch.float32)
+    tours = torch.tensor([r["perms"][0] for r in rows], dtype=torch.int64)
+    packed = Tuner._pack_hashes(
+        space.hash_batch(CandBatch(u, (tours,))).numpy())
+    out["archive_rows"] = len(rows)
+    out["archive_unique_hashes"] = int(np.unique(packed).size)
+    if not len(rows) == out["archive_unique_hashes"] == t.evals:
+        bad.append(f"{len(rows)} archive rows, {out['archive_unique_hashes']}"
+                   f" distinct hashes, {t.evals} evals")
+    if not (stored_tours_ok(tuple(t._tstates.values()), N_CITIES)
+            and is_perm_rows(t.best.perms[0], N_CITIES)
+            and is_perm_rows(tours, N_CITIES)):
+        bad.append("a tour is not a permutation")
+
+    # the same tune on the CPU, in this process
+    tc, _, _ = driver_tuner(cpu, DRIVER_CAP, SEED + 21)
+    t0 = time.perf_counter()
+    rc = tc.run(test_limit=DRIVER_LIMIT)
+    wall_c = time.perf_counter() - t0
+    out["cpu"] = {"tickets": rc.steps, "evals": rc.evals,
+                  "seconds": wall_c, "ms_per_ticket": wall_c / rc.steps * 1e3,
+                  "evals_per_s": rc.evals / wall_c, "best_qor": rc.best_qor}
+
+    # a CPU tuner resumes the card's archive: the same live history rows,
+    # best, evals and trace, bitwise
+    tr = Tuner(space, None, capacity=DRIVER_CAP, archive=arc, resume=True,
+               device="cpu")
+    same_rows = torch.equal(live_rows(t.hist_state), live_rows(tr.hist_state))
+    out["cpu_resume"] = {
+        "live_rows": int((t.hist_state.age >= 0).sum()),
+        "rows_equal": same_rows,
+        "best_equal": tr._best_q == t._best_q,
+        "evals_equal": tr.evals == t.evals,
+        "trace_equal": tr.trace == t.trace}
+    if not all(out["cpu_resume"][k] for k in (
+            "rows_equal", "best_equal", "evals_equal", "trace_equal")):
+        bad.append(f"the CPU resume differs: {out['cpu_resume']}")
+    tr.close()
+
+    # eviction inside real commits; one commit replayed on the CPU
+    te, _, commits_e = driver_tuner(dev, EVICT_CAP, SEED + 22)
+    native.reset_launches()
+    rese = te.run(test_limit=EVICT_LIMIT)
+    torch.cuda.synchronize()
+    evict = {"history_capacity": EVICT_CAP, "test_limit": EVICT_LIMIT,
+             "tickets": rese.steps, "evals": rese.evals,
+             "commits": commits_e[0],
+             "merge_launches": native.MERGE.launches,
+             "hist_dropped": int(te.hist_state.dropped)}
+    seen = {}
+    commit = te._commit
+
+    def capture(hashes, cands, qor, newly):
+        seen.update(pre=(te.hist_state, te.best),
+                    args=(hashes, cands, qor, newly))
+        commit(hashes, cands, qor, newly)
+        seen["post"] = (te.hist_state, te.best)
+    te._commit = capture
+    while "post" not in seen:
+        te.step()
+    (hist, best), (hashes, cands, qor, newly) = seen["pre"], seen["args"]
+    hist_c = History(EVICT_CAP, device=cpu).insert(
+        tree_to(hist, cpu), hashes.cpu(), qor.cpu(), newly.cpu())
+    best_c = tree_to(best, cpu).update(tree_to(cands, cpu), qor.cpu())
+    evict["commit_evicted"] = int(seen["post"][0].dropped - hist.dropped)
+    evict["commit_cpu_mismatched"] = trees_differ(seen["post"],
+                                                  (hist_c, best_c))
+    out["evict"] = evict
+    if (evict["merge_launches"] != evict["commits"]
+            or not evict["hist_dropped"] or not evict["commit_evicted"]
+            or evict["commit_cpu_mismatched"]):
+        bad.append(f"eviction on the card: {evict}")
+
+    # ask/tell: one ask of 256 trials, told in a seeded shuffled order,
+    # one ticket fully and one partly cancelled
+    ta, _, _ = driver_tuner(dev, DRIVER_CAP, SEED + 23)
+    for _ in range(5):
+        ta.step()
+    evals0 = ta.evals
+    trials = ta.ask(min_trials=ASK_TRIALS)
+    tickets_a = list(dict.fromkeys(tr.ticket for tr in trials))
+    arm_tickets = [tk for tk in tickets_a if not tk.injected]
+    keys = [int(tr.ticket.packed[tr.row]) for tr in trials]
+    ask = {"trials": len(trials), "tickets": len(tickets_a),
+           "distinct_hashes": len(set(keys)),
+           "pending": len(ta._pending)}
+    if len(arm_tickets) < 2:
+        bad.append(f"ask({ASK_TRIALS}) opened {len(arm_tickets)} arm "
+                   f"tickets")
+    else:
+        full, part = arm_tickets[0], arm_tickets[1]
+        current, observed, credited = [None], [], []
+        finalize = ta._finalize
+
+        def finalizing(tk):
+            current[0] = tk
+            try:
+                return finalize(tk)
+            finally:
+                current[0] = None
+        ta._finalize = finalizing
+        for m in ta.members:
+            def observing(*args, _observe=m.observe, **kw):
+                observed.append(current[0])
+                return _observe(*args, **kw)
+            m.observe = observing
+        credit = ta.root.credit
+
+        def crediting(*args, **kw):
+            credited.append(current[0])
+            return credit(*args, **kw)
+        ta.root.credit = crediting
+        vals = flagship_host_objective(dev)([tr.config for tr in trials])
+        order = list(range(len(trials)))
+        random.Random(SEED).shuffle(order)
+        told = 0
+        for i in order:
+            tr = trials[i]
+            if tr.ticket is full or (tr.ticket is part and tr.slot % 2):
+                ta.cancel(tr)
+            else:
+                ta.tell(tr, float(vals[i]))
+                told += 1
+        ask.update(told=told, evals=ta.evals - evals0,
+                   cancelled=len(trials) - told,
+                   withdrawn_observed=any(tk is full for tk in observed),
+                   withdrawn_credited=any(tk is full for tk in credited),
+                   partial_observed=any(tk is part for tk in observed),
+                   pending_after=len(ta._pending))
+        if (ask["distinct_hashes"] != len(trials)
+                or ask["pending"] != len(trials) or ask["evals"] != told
+                or ask["withdrawn_observed"] or ask["withdrawn_credited"]
+                or not ask["partial_observed"] or ask["pending_after"]):
+            bad.append(f"ask/tell: {ask}")
+    out["ask_tell"] = ask
+    emit(out)
+    work.cleanup()
+    if bad:
+        raise AssertionError("driver: " + "; ".join(bad))
+    return out, t
+
+
 # the short name of every kernel function of csrc/*.cu (with its template
 # arguments) within ptxas's mangled one
 PTXAS_KERNEL = re.compile(
@@ -1938,7 +2232,7 @@ def main() -> int:
           "ptxas": {str(k.library_path().relative_to(ROOT)): ptxas_summary(
               k.build_log) for k in kernels}})
 
-    merge, timed = merge_phase(dev, args.profile)
+    merge, timed, timed_driver = merge_phase(dev, args.profile)
     cases, feats = surrogate_phase(dev)
     _, gp_times = gp_kernels_phase(cases)
     eng, st, engine = engine_phase(dev)
@@ -1951,6 +2245,7 @@ def main() -> int:
     pflag, (eng_pf, st_pf, ev_pf) = portfolio_flagship_phase(cases, feats,
                                                              dev)
     pbat, (be_pb, st_pb) = portfolio_batched_phase(dev)
+    drv, tuner = driver_phase(dev)
     if args.profile:
         profile_phase(eng.step, st, engine["ms_per_step"])
         profile_phase(lambda s: eng.step(s, eval_fn=ev), st_s,
@@ -1973,6 +2268,8 @@ def main() -> int:
                       name="portfolio_flagship_scored")
         profile_phase(lambda s: be_pb.run(s, 1), st_pb, pbat["ms_per_step"],
                       name=f"portfolio_batched_n{PB_N}")
+        profile_phase(lambda s: (tuner.step(), s)[1], None,
+                      drv["ms_per_ticket"], name="driver_ticket")
         passes_profile(cases)
 
     entries = []
@@ -1983,7 +2280,8 @@ def main() -> int:
         batched = {"launches_batched": multi["runs"][0]["launches"][k.name],
                    "launches_batched_flagship": flag["launches"][k.name],
                    "launches_portfolio_flagship": pflag["launches"][k.name],
-                   "launches_portfolio_batched": pbat["launches"][k.name]}
+                   "launches_portfolio_batched": pbat["launches"][k.name],
+                   "launches_driver": drv["launches"][k.name]}
         if k.name == "merge_rows":
             entries.append(dict(
                 common, **batched, launches=engine["launches"][k.name],
@@ -1999,7 +2297,10 @@ def main() -> int:
                 bound_ms=timed["bound_ms"], bound_by="bytes",
                 launch_floor_ms=timed["launch_floor_ms"],
                 rows_per_block=timed["rows_per_block"],
-                library_ms=timed["library_ms"]))
+                library_ms=timed["library_ms"],
+                driver_shape={key: timed_driver[key] for key in (
+                    "cap", "b", "ms", "call_ms", "launch_floor_ms",
+                    "plain_ms", "library_ms", "bytes", "bound_ms")}))
             continue
         t = gp_times[k.name]
         entries.append(dict(

@@ -1,3 +1,2 @@
-"""The device-resident dedup history (the program-mode driver comes with a
-later slice of the port)."""
+from .driver import StepStats, TuneResult, Tuner  # noqa: F401
 from .history import History, HistState, dup_source, unique_mask  # noqa: F401

@@ -139,13 +139,9 @@ class FusedEngine:
 
     # ------------------------------------------------------------------
     def _draw(self, key: torch.Tensor, phase: str, draw: Callable):
-        """`draw(gen)` on a stream of `key` that hashes at once as many
-        elements as this phase used last time (what it draws does not
-        depend on that)."""
-        gen = rng.Stream(key, self._hints.get(phase, 0))
-        out = draw(gen)
-        self._hints[phase] = gen.used
-        return out
+        """`draw(gen)` on a stream of `key` sized by this phase's last
+        draw (`rng.hinted`)."""
+        return rng.hinted(key, self._hints, phase, draw)
 
     def draw_propose(self, key: torch.Tensor) -> tuple:
         """Every arm's propose draws, from the draw key `propose` splits

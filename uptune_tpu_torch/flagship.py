@@ -3,9 +3,11 @@
 The port's counterpart of `__graft_entry__._flagship`: 8 floats, an int,
 a log-int, a pow2, a bool, an enum and a 12-city permutation (every codec
 kind), scored by rosenbrock on the floats plus the closed-tour length of
-the permutation over a fixed random TSP instance.  The default arms are
-scaled by `scale`, and a PureRandom arm pads the step to a multiple of 8
-rows: 111 + 1 rows at scale 1, 6033 + 7 = 6040 rows at scale 64.
+the permutation over a fixed random TSP instance (`flagship_objective`
+over decoded values for the engines, `flagship_host_objective` over
+config dicts for the `Tuner`).  The default arms are scaled by `scale`,
+and a PureRandom arm pads the step to a multiple of 8 rows: 111 + 1 rows
+at scale 1, 6033 + 7 = 6040 rows at scale 64.
 
 `flagship_portfolio` runs the same space and objective under every other
 non-meta arm that supports it (`portfolio_arms`): 546 rows a scale plus
@@ -27,8 +29,8 @@ from .space.params import (BoolParam, EnumParam, FloatParam, IntParam,
 from .space.spec import Space
 from .techniques.base import Technique
 from .techniques.purerandom import PureRandom
-from .workloads.synthetic import (random_tsp_distances, rosenbrock_device,
-                                  tsp_device)
+from .workloads.synthetic import (_configs_to_x, random_tsp_distances,
+                                  rosenbrock_device, tsp_device)
 
 N_CITIES = 12
 TSP_SEED = 7
@@ -50,6 +52,26 @@ def flagship_objective(device: torch.device):
 
     def objective(vals, perms):
         return rosenbrock_device(vals[..., :8]) + tsp_device(perms[0], dist)
+    return objective
+
+
+def flagship_host_objective(device: DeviceLike = "cuda"):
+    """The flagship's objective for the `Tuner`: config dicts -> numpy
+    values, in the manner of `workloads.make_host_objective`: the float
+    lanes x0..x7 (float32) and the tours (int64) go to `device` as one
+    batch (on the card through pinned memory, without a synchronisation),
+    are scored there in one call, and the values come back."""
+    dev = resolve_device(device)
+    score = flagship_objective(dev)
+
+    def put(t):
+        return (t.pin_memory().to(dev, non_blocking=True)
+                if dev.type == "cuda" else t)
+
+    def objective(cfgs):
+        x = torch.as_tensor(_configs_to_x(cfgs, 8), dtype=torch.float32)
+        tours = torch.as_tensor([c["tour"] for c in cfgs], dtype=torch.int64)
+        return score(put(x), (put(tours),)).cpu().numpy()
     return objective
 
 

@@ -10,7 +10,8 @@ draws for all N instances in the same launches as one key does.
 
 * `key(seed)` makes a key from an integer; `split(key, n)` derives n
   independent keys ([n, 2]) in one hash pass.
-* `Stream(key)` hands out consecutive elements of the key's stream; the
+* `Stream(key)` hands out consecutive elements of the key's stream
+  (`hinted` makes one sized by what a draw phase took last time); the
   draw helpers below (`uniform`, `normal`, `randint`, `permutations`,
   `choice_without_replacement`) take a stream and consume from it in
   call order.  A stream hashes a block of elements at a time (`hint`
@@ -107,6 +108,16 @@ class Stream:
         a = self.used - self._start
         self.used += n
         return self._words[..., a:a + n], self._floats[..., a:a + n]
+
+
+def hinted(key: torch.Tensor, hints: dict, phase, draw):
+    """draw(stream) on a stream of `key` that hashes at once as many
+    elements as `phase` took last time (`hints`, updated here); what it
+    draws does not depend on that."""
+    gen = Stream(key, hints.get(phase, 0))
+    out = draw(gen)
+    hints[phase] = gen.used
+    return out
 
 
 def generator(seed: int, device) -> Stream:
