@@ -138,18 +138,41 @@ setting is printed.  Phases, each printing one JSON line:
              ticket fully and one partly cancelled (no hash out twice,
              evals equal to the trials told, no observe and no credit for
              the withdrawn ticket);
-15. profile (with --profile) - device time by kernel, the idle share and
+15. surrogate_driver - the Tuner with the port's surrogate manager:
+             `Tuner(flagship_space(), flagship_host_objective(card),
+             surrogate="gp", surrogate_opts={**CALIBRATED_OPTS,
+             "async_refit": True}).run(test_limit=2000)` under a caller's
+             TF32 setting (counts set to 0 just before, read just after:
+             one merge launch a committing ticket, no launch of D, whose
+             gate the 512-row pool is below); tickets, evals/s, ms a
+             ticket, median t_propose / t_dedup, host syncs a ticket by
+             line, refits started and published, extensions, blocking
+             and background refit seconds, rows pruned, surrogate
+             tickets; no configuration evaluated twice, tours
+             permutations, a finite best, snapshot versions that never go
+             down, every published tensor finite after drain(), the TF32
+             setting kept and one refit under it equal to one without;
+             the same tune on the CPU; then the 4096-row pool (D once a
+             pool pull, D's top-32 held against its plain version on the
+             card at every published snapshot a pull ranked against,
+             buckets and extension-grown states, and timed at each bucket
+             N beside its bound and `acquire_topk_ref`); the MLP ensemble
+             (1000 evaluations; one fit on the card against the CPU's);
+             and one GP refit on the card against the CPU's;
+16. profile (with --profile) - device time by kernel, the idle share and
              the host synchronisations over a few plain, surrogate-scored
              (by launcher C, then by `score_flat` through A and through B),
              batched (N = 256 and the N = 4 flagship) and portfolio
              (plain and scored flagship, batched N = 256) engine steps
-             and driver tickets, and the device time of A's kernel and of
-             each pass of B, C and D;
-16. kernels - one entry per kernel: launches on the main path, error
+             and driver tickets (plain, and with the calibrated GP
+             manager), and the device time of A's kernel and of each
+             pass of B, C and D;
+17. kernels - one entry per kernel: launches on the main path, error
              against the plain version (and, for the GP kernels, its
              largest ratio to the tolerance), times and bound; the merge
              also over its instance axis and at the driver's shape, and
-             the launches of the batched, portfolio and driver paths.
+             the launches of the batched, portfolio, driver and surrogate
+             driver paths (D also timed at the manager's shapes).
 
 """
 from __future__ import annotations
@@ -231,6 +254,20 @@ PB_MATCH = (0, 127, 255)
 DRIVER_LIMIT, DRIVER_CAP, DRIVER_B, DRIVER_WARM = 5000, 1 << 16, 32, 300
 EVICT_LIMIT, EVICT_CAP = 8000, 1 << 12
 ASK_TRIALS, COUNT_TICKETS = 256, 20
+# the surrogate driver: the calibrated GP manager with async refits (as
+# program mode runs it) at the JAX package's surrogate-protocol budget,
+# then the smallest pool the reference ranks with its fused top-k
+# (propose_batch 32 x pool_mult 128 = 4096 rows) with sync refits, and
+# the MLP ensemble; the MLP's card-against-CPU tolerance in units of the
+# targets' std (tests/test_torch_mlp.py FIT_TOL_Y_STD)
+SD_LIMIT, SD_POOL_LIMIT, SD_MLP_LIMIT = 2000, 1000, 1000
+SD_POOL = {"propose_batch": 32, "pool_mult": 128}
+MLP_TOL_Y_STD = 1e-4
+# 3xTF32 (hi hi + hi lo + lo hi) drops the lo lo product: a relative
+# error of up to 2^-22 a product against float32's 2^-24, so where an
+# ill-conditioned K^-1 magnifies rounding D may sit up to 4x as far from
+# float64 as the float32 plain version
+TF32_ERROR_RATIO = 4.0
 # profiler windows the portfolio step's launch count takes at each N, the
 # windows that may be retaken when the profiler drops device records
 # (`launch_counts`), and the empty kernels that open every profiler
@@ -1864,11 +1901,12 @@ def portfolio_batched_phase(dev) -> tuple:
 
 
 # -- the ask/tell driver -------------------------------------------------------
-def driver_tuner(dev, cap: int, seed: int, archive=None):
+def driver_tuner(dev, cap: int, seed: int, archive=None, **kw):
     """A Tuner on the flagship's space with the flagship's host objective
-    on `dev`, the default portfolio and history of `cap` rows: (tuner,
-    its StepStats, its commit count).  The commits are counted around
-    `Tuner._commit`, the one place a ticket merges into the history."""
+    on `dev`, the default portfolio and history of `cap` rows (and any
+    further Tuner arguments `kw`): (tuner, its StepStats, its commit
+    count).  The commits are counted around `Tuner._commit`, the one
+    place a ticket merges into the history."""
     from uptune_tpu_torch.driver import Tuner
     from uptune_tpu_torch.driver.plugins import SearchHook
     from uptune_tpu_torch.flagship import (flagship_host_objective,
@@ -1882,7 +1920,7 @@ def driver_tuner(dev, cap: int, seed: int, archive=None):
             self.stats.append(stats)
     rec = Steps()
     t = Tuner(flagship_space(), flagship_host_objective(dev), seed=seed,
-              capacity=cap, archive=archive, hooks=[rec], device=dev)
+              capacity=cap, archive=archive, hooks=[rec], device=dev, **kw)
     commits = [0]
     commit = t._commit
 
@@ -2120,6 +2158,395 @@ def driver_phase(dev) -> tuple:
     return out, t
 
 
+# -- the surrogate manager on the driver -----------------------------------------
+def surrogate_tuner(dev, kind: str, opts: dict, seed: int, arc=None):
+    """A Tuner on the flagship whose surrogate is the port's manager of
+    `kind` with `opts` (see `driver_tuner`)."""
+    return driver_tuner(dev, DRIVER_CAP, seed, arc, surrogate=kind,
+                        surrogate_opts=opts)
+
+
+def surrogate_run(t, stats, commits, limit: int, bad: list) -> dict:
+    """`t.run(test_limit=limit)` with the launch counts set to 0 just
+    before and read just after; the manager's counters; snapshot versions
+    that never went down."""
+    import numpy as np
+    from uptune_tpu_torch import native
+    dev = t.device
+    native.reset_launches()
+    t0 = time.perf_counter()
+    res = t.run(test_limit=limit)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    sm = t.surrogate
+    out = {"kind": sm.kind, "device": str(dev), "test_limit": limit,
+           "tickets": res.steps, "evals": res.evals, "seconds": wall,
+           "ms_per_ticket": wall / res.steps * 1e3,
+           "evals_per_s": res.evals / wall,
+           "t_propose_median_ms": statistics.median(
+               s.t_propose for s in stats) * 1e3,
+           "t_dedup_median_ms": statistics.median(
+               s.t_dedup for s in stats) * 1e3,
+           "commits": commits[0],
+           "launches": {k.name: k.launches for k in native.KERNELS},
+           "best_qor": res.best_qor,
+           "refits_started": sm.refits_started,
+           "refits_published": sm.refits, "extensions": sm.incr_updates,
+           "blocking_refit_s": sm.t_refit_total,
+           "background_refit_s": sm.t_refit_bg_total,
+           "rows_pruned": t.pruned_total,
+           "surrogate_tickets": t.arm_stats.get("surrogate", [0])[0],
+           "snapshot_version": sm.snapshot_version}
+    versions = [s.snapshot_version for s in stats]
+    if any(b < a for a, b in zip(versions, versions[1:])):
+        bad.append(f"{sm.kind} on {dev}: a snapshot version went down")
+    if not np.isfinite(res.best_qor):
+        bad.append(f"{sm.kind} on {dev}: best_qor {res.best_qor}")
+    return out
+
+
+def archive_ok(t, arc: str, n_cities: int) -> dict:
+    """No configuration evaluated twice (the archive's hashes unique, one
+    row an evaluation); every stored tour a permutation."""
+    import numpy as np
+    from uptune_tpu_torch.driver import Tuner
+    from uptune_tpu_torch.space.spec import CandBatch
+    t._flush_archive()
+    rows = [json.loads(x) for x in open(arc)][1:]
+    u = torch.tensor([r["u"] for r in rows], dtype=torch.float32)
+    tours = torch.tensor([r["perms"][0] for r in rows], dtype=torch.int64)
+    packed = Tuner._pack_hashes(
+        t.space.hash_batch(CandBatch(u, (tours,))).numpy())
+    return {"archive_rows": len(rows),
+            "unique_hashes": int(np.unique(packed).size),
+            "archive_evals": t.evals,
+            "tours_ok": stored_tours_ok(tuple(t._tstates.values()), n_cities)
+            and is_perm_rows(t.best.perms[0], n_cities)
+            and is_perm_rows(tours, n_cities)}
+
+
+def posterior_excess(a, b, xq, nc: int, ncat: int) -> dict:
+    """GP state `a` against `b` on queries `xq`: the posterior mean and
+    sd over their tolerances, in b's standardized units."""
+    from uptune_tpu_torch.surrogate import gp
+    ma, sa = gp.predict(a, xq.to(a.x.device, a.x.dtype), nc, ncat)
+    mb, sb = gp.predict(b, xq.to(b.x.device, b.x.dtype), nc, ncat)
+    ys, ym = float(b.y_std), float(b.y_mean)
+    out = {"hyperparameters_equal": all(
+        float(getattr(a, f)) == float(getattr(b, f))
+        for f in ("lengthscale", "noise", "ls_cat"))}
+    out["mean_max_abs_err"], out["mean_err_over_tol"] = tol_excess(
+        ma.cpu(), mb.cpu(), MEAN_TOL, ys, ym)
+    out["sd_max_abs_err"], out["sd_err_over_tol"] = tol_excess(
+        sa.cpu(), sb.cpu(), SD_TOL, ys)
+    return out
+
+
+def gp_f64(st, y: torch.Tensor, nc: int, ncat: int):
+    """GP state `st` refitted in float64 on the CPU from its own rows,
+    mask and hyperparameters and the raw targets `y` it was fitted to,
+    standardised as `st` was."""
+    from uptune_tpu_torch.surrogate import gp
+    s = tree_to(st, torch.device("cpu"))
+    m = s.mask.double()
+    f = gp.fit(s.x.double(), y.double(), s.lengthscale.double(),
+               s.noise.double(), mask=m, n_cont=nc, n_cat=ncat,
+               ls_cat=torch.as_tensor(s.ls_cat).double())
+    yc = torch.where(torch.isfinite(y) & (m > 0), y.double(),
+                     y.double()[torch.isfinite(y) & (m > 0)].max())
+    yn = (yc - s.y_mean.double()) / s.y_std.double() * m
+    return f._replace(alpha=torch.cholesky_solve(yn[:, None], f.chol)[:, 0],
+                      y_mean=s.y_mean.double(), y_std=s.y_std.double())
+
+
+def surrogate_driver_phase(dev) -> tuple:
+    """The Tuner with the port's surrogate manager on the card (see the
+    module docstring): the calibrated GP manager with async refits, the
+    fused top-k's pool, the MLP ensemble, and a refit on the card against
+    the CPU's.  -> (the phase's line, the calibrated tuner)."""
+    import tempfile
+    import numpy as np
+    from uptune_tpu_torch import native, rng
+    from uptune_tpu_torch.calibrated import CALIBRATED_OPTS
+    from uptune_tpu_torch.flagship import N_CITIES
+    from uptune_tpu_torch.ops import acquire as acq
+    from uptune_tpu_torch.surrogate import manager as man
+    from uptune_tpu_torch.surrogate import mlp
+    from uptune_tpu_torch.surrogate import pallas_score as ps
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    work = tempfile.TemporaryDirectory(prefix="ut_surrogate_")
+    bad = []
+    out = {"phase": "surrogate_driver",
+           "tolerances": {"mean": MEAN_TOL, "sd": SD_TOL,
+                          "mlp_predictions_over_y_std": MLP_TOL_Y_STD}}
+
+    def kernels_want(merges, topk=0):
+        want = {k.name: 0 for k in native.KERNELS}
+        want["merge_rows"], want["acquire_topk"] = merges, topk
+        return want
+
+    # 1. calibrated, async refits, under the caller's TF32 setting
+    arc = str(Path(work.name) / "calibrated.jsonl")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    setting = torch.get_float32_matmul_precision()
+    try:
+        t, stats, commits = surrogate_tuner(
+            dev, "gp", {**CALIBRATED_OPTS, "async_refit": True}, SEED + 30,
+            arc)
+        cal = surrogate_run(t, stats, commits, SD_LIMIT, bad)
+        sm = t.surrogate
+        cal["pool_rows"] = sm._pool_geo.pool
+        if cal["launches"] != kernels_want(commits[0]) or not commits[0]:
+            bad.append(f"calibrated launches {cal['launches']}, expected "
+                       f"{kernels_want(commits[0])}")
+        cal["syncs_per_ticket"] = {
+            k: v / COUNT_TICKETS for k, v in sync_count(
+                lambda: [t.step() for _ in range(COUNT_TICKETS)],
+                2).items()}
+        sm.drain()
+        cal["published_finite"] = all(bool(torch.isfinite(x).all())
+                                      for x in man._leaves(sm._snap.state))
+        cal["tf32_setting_kept"] = (
+            torch.get_float32_matmul_precision() == setting
+            and torch.backends.cuda.matmul.allow_tf32)
+        # one refit under the caller's TF32, one without: equal fits
+        args = sm._refit_args()
+        sm._refit_full(*args)
+        on = sm._snap.state
+        torch.backends.cuda.matmul.allow_tf32 = False
+        sm._refit_full(*args)
+        off = sm._snap.state
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    xq = torch.from_numpy(np.stack(sm._xs[:512])).to(dev)
+    cal["tf32_refit"] = posterior_excess(on, off, xq, sm._n_cont, sm._n_cat)
+    cal.update(archive_ok(t, arc, N_CITIES))
+    t.close()
+    if not (cal["published_finite"] and cal["tf32_setting_kept"]
+            and cal["tours_ok"] and cal["archive_rows"]
+            == cal["unique_hashes"] == cal["archive_evals"]
+            and cal["tf32_refit"]["hyperparameters_equal"]
+            and cal["tf32_refit"]["mean_err_over_tol"] <= 1
+            and cal["tf32_refit"]["sd_err_over_tol"] <= 1):
+        bad.append(f"calibrated run: {cal}")
+    out["calibrated"] = cal
+    nc, ncat = sm._n_cont, sm._n_cat
+
+    # the same tune on the CPU, in this process (sync refits); its rows,
+    # the same in every run (the card's async run's depend on timing),
+    # feed the card-against-CPU refit below
+    tc, stats_c, commits_c = surrogate_tuner(cpu, "gp", CALIBRATED_OPTS,
+                                             SEED + 30)
+    out["calibrated_cpu"] = surrogate_run(tc, stats_c, commits_c, SD_LIMIT,
+                                          bad)
+    rows_x = np.stack(tc.surrogate._xs)
+    rows_y = np.asarray(tc.surrogate._ys, np.float32)
+    xq_refit = torch.from_numpy(rows_x[:512])
+    tc.close()
+
+    # 2. the fused top-k's pool (4096 rows), sync refits: D once a pool
+    # pull, held against its plain version at every published snapshot
+    # a pull ranked against
+    t2, stats2, commits2 = surrogate_tuner(
+        dev, "gp", {**CALIBRATED_OPTS, **SD_POOL}, SEED + 31)
+    sm2 = t2.surrogate
+    pulls, caps, grown = [0], {}, set()
+    rank, extend = sm2._rank_pool, sm2._maybe_extend
+
+    def ranking(state, cands, best_y):
+        pulls[0] += 1
+        caps.setdefault(sm2._snap.version, (state, cands, best_y,
+                                            sm2._snap))
+        return rank(state, cands, best_y)
+
+    def extending():
+        rows = extend()
+        if rows:
+            grown.add(sm2._snap.version)
+        return rows
+    sm2._rank_pool, sm2._maybe_extend = ranking, extending
+    big = surrogate_run(t2, stats2, commits2, SD_POOL_LIMIT, bad)
+    big["pool_rows"], big["pool_pulls"] = sm2._pool_geo.pool, pulls[0]
+    if (big["launches"] != kernels_want(commits2[0], pulls[0])
+            or not pulls[0] or big["pool_rows"] != 4096):
+        bad.append(f"large-pool launches {big['launches']}, expected "
+                   f"{kernels_want(commits2[0], pulls[0])}")
+    # the run's first ticket brings ~31 rows, past the 32-row bucket: a
+    # manager fitted on its first 16 rows (as a preload leaves it) ranks
+    # one pool at N 32
+    m32 = man.SurrogateManager(t2.space, "gp", device=dev,
+                               **{**CALIBRATED_OPTS, **SD_POOL})
+    m32._xs, m32._ys = list(sm2._xs[:16]), list(sm2._ys[:16])
+    m32.maybe_refit()
+    rank32 = m32._rank_pool
+
+    def ranking32(state, cands, best_y):
+        caps[0] = (state, cands, best_y, m32._snap)
+        return rank32(state, cands, best_y)
+    m32._rank_pool = ranking32
+    m32.propose_pool(rng.key(SEED + 35, dev), t2.best.u, t2.best.perms,
+                     t2._best_q)
+    k = sm2.propose_batch
+    cases, timed = [], {}
+    for version, (state, cands, best_y, snap) in sorted(caps.items()):
+        feats = sm2._sx(sm2.space.features(cands))
+        blocks, kinv, params = acq.prep(state, feats, "ei", best_y, BETA,
+                                        sm2._n_cont, sm2._n_cat)
+        vg, ig = acq.topk_cuda(*blocks, kinv, params, "ei", k)
+        vw, iw = acq.topk_plain(*blocks, kinv, params, "ei", k)
+        ys = float(state.y_std)
+        n = int(state.x.shape[0])
+        # the same utilities in float64 from the same float32 operands
+        b64 = [None if x is None else x.double() for x in blocks]
+        ref = acq.utilities(*ps.tile_moments(
+            ps.kernel_tile(*b64[:4]), b64[4], kinv.double()),
+            params.double(), "ei")
+        case = {"version": version or "16-row fit", "n": n,
+                "in_bucket": snap.in_bucket,
+                "exact": snap.exact, "extended": version in grown,
+                "noise": float(state.noise),
+                "index_mismatches": topk_index_mismatches(
+                    iw, vw / ys, ig, SD_TOL),
+                "values_err_over_tol": tol_excess(vg, vw, SD_TOL, ys)[1],
+                "kernel_f64_err_over_tol": tol_excess(
+                    vg, ref[ig.long()], SD_TOL, ys)[1],
+                "plain_f64_err_over_tol": tol_excess(
+                    vw, ref[iw.long()], SD_TOL, ys)[1],
+                "descending": bool((vg[1:] <= vg[:-1]).all())}
+        # D's picks a top k of the float64 utilities, but for rows within
+        # twice the larger of the two versions' distance from float64
+        slack = 2 * max(float((vg.double() - ref[ig.long()]).abs().max()),
+                        float((vw.double() - ref[iw.long()]).abs().max()))
+        case["picks_f64_ok"] = bool(
+            ref[ig.long()].min() >= torch.sort(ref, descending=True)
+            .values[k - 1] - slack)
+        # the nominal rule; else D's picks within the tolerance of float64
+        # or within TF32_ERROR_RATIO times the plain version's picks'
+        # distance from it: at an ill-conditioned K^-1 (noise 1e-4 or
+        # 1e-3 on clustered rows) both sit several tolerances away (the
+        # plain version's farthest row of the pool is printed beside)
+        case["plain_pool_f64_err_over_tol"] = tol_excess(
+            acq.utilities_plain(*blocks, kinv, params, "ei"), ref, SD_TOL,
+            ys)[1]
+        case["ok"] = case["descending"] and (
+            (not case["index_mismatches"]
+             and case["values_err_over_tol"] <= 1)
+            or (case["picks_f64_ok"] and case["kernel_f64_err_over_tol"]
+                <= max(1.0, TF32_ERROR_RATIO
+                       * case["plain_f64_err_over_tol"])))
+        cases.append(case)
+        if not case["ok"]:
+            bad.append(f"D at the manager's shapes: {case}")
+        if n not in timed:
+            b, f = feats.shape
+            timed[n] = dict(
+                gp_bound(b, n, f, True, 8 * k + 20),
+                shape=f"B={b} N={n} F={f} kind=ei k={k}",
+                ms=median_ms(lambda: acq.topk_cuda(*blocks, kinv, params,
+                                                   "ei", k)),
+                plain_ms=median_ms(lambda: acq.topk_plain(
+                    *blocks, kinv, params, "ei", k)),
+                library_ms=median_ms(lambda: acq.select_topk(
+                    acq.utilities_ref(*blocks, kinv, params, "ei"), k)))
+    big["topk_cases"] = len(cases)
+    big["topk_buckets"] = sorted(timed)
+    big["topk_extended_cases"] = sum(c["extended"] for c in cases)
+    big["topk_max_values_err_over_tol"] = max(
+        (c["values_err_over_tol"] for c in cases), default=None)
+    big["topk_nominal_ok_cases"] = sum(
+        not c["index_mismatches"] and c["values_err_over_tol"] <= 1
+        for c in cases)
+    big["topk_max_kernel_f64_err_over_tol"] = max(
+        (c["kernel_f64_err_over_tol"] for c in cases), default=None)
+    big["topk_max_plain_f64_err_over_tol"] = max(
+        (c["plain_f64_err_over_tol"] for c in cases), default=None)
+    big["topk_max_plain_pool_f64_err_over_tol"] = max(
+        (c["plain_pool_f64_err_over_tol"] for c in cases), default=None)
+    big["topk_case_list"] = cases
+    big["topk_index_mismatches"] = sum(c["index_mismatches"] for c in cases)
+    big["topk_timed"] = timed
+    if not big["topk_extended_cases"] or 32 not in timed or len(timed) < 2:
+        bad.append(f"D checked at buckets {sorted(timed)}, "
+                   f"{big['topk_extended_cases']} extended states")
+    t2.close()
+    out["large_pool"] = big
+
+    # 3. the MLP ensemble; one fit on the card and on the CPU from the
+    # same rows and init draws
+    t3, stats3, commits3 = surrogate_tuner(dev, "mlp", CALIBRATED_OPTS,
+                                           SEED + 32)
+    mr = surrogate_run(t3, stats3, commits3, SD_MLP_LIMIT, bad)
+    if mr["launches"] != kernels_want(commits3[0]):
+        bad.append(f"mlp launches {mr['launches']}")
+    sm3 = t3.surrogate
+    x = np.stack(sm3._xs[:64])
+    y = np.asarray(sm3._ys[:64], np.float32)
+    init = mlp.draw_init(rng.Stream(rng.key(SEED + 34, dev)),
+                         mlp.layer_sizes(x.shape[1]), sm3.n_members)
+    fits = {d: mlp.fit(tuple(z.to(d) for z in init),
+                       torch.from_numpy(x).to(d), torch.from_numpy(y).to(d),
+                       n_members=sm3.n_members) for d in (dev, cpu)}
+    xq3 = torch.from_numpy(np.stack(sm3._xs[:512]))
+    pg = mlp.predict_members(fits[dev], xq3.to(dev)).cpu()
+    pc = mlp.predict_members(fits[cpu], xq3)
+    mr["fit_card_vs_cpu_over_y_std"] = float(
+        (pg - pc).abs().max() / fits[cpu].y_std)
+    if not mr["fit_card_vs_cpu_over_y_std"] <= MLP_TOL_Y_STD:
+        bad.append(f"mlp fit on the card against the CPU: "
+                   f"{mr['fit_card_vs_cpu_over_y_std']}")
+    t3.close()
+    out["mlp"] = mr
+
+    # 4. one refit on the card and on the CPU from the same rows (the CPU
+    # tune's) and keys
+    snaps = {}
+    for d in (dev, cpu):
+        m = man.SurrogateManager(t.space, "gp", device=d, **CALIBRATED_OPTS)
+        ks, kf = rng.split(rng.key(SEED + 33, d), 2).unbind(0)
+        m._refit_full(rows_x, rows_y, ks, kf)
+        snaps[d] = m._snap
+    g, c = snaps[dev], snaps[cpu]
+    refit = {"rows": len(rows_y), "bucket": int(g.state.x.shape[0]),
+             "threshold_equal": g.threshold == c.threshold,
+             "best_y_equal": g.best_y == c.best_y,
+             "train_rows_equal": bool(torch.equal(g.state.x.cpu(),
+                                                   c.state.x)),
+             "noise": float(c.state.noise),
+             "lengthscale": float(c.state.lengthscale)}
+    refit.update(posterior_excess(g.state, c.state, xq_refit, nc, ncat))
+    # each side's distance from the same fit in float64 (the CPU's
+    # subsample, hyperparameters and standardisation)
+    seed_word = int(rng.split(rng.key(SEED + 33, cpu), 2)[0, -1])
+    _, ys_sub = man.SurrogateManager._host_subsample(
+        rows_x, rows_y, seed_word, CALIBRATED_OPTS["max_points"])
+    y_pad = torch.zeros(refit["bucket"])
+    y_pad[:len(ys_sub)] = torch.from_numpy(ys_sub)
+    f64 = gp_f64(c.state, y_pad, nc, ncat)
+    for side, st in (("card", g.state), ("cpu", c.state)):
+        e = posterior_excess(st, f64, xq_refit, nc, ncat)
+        refit[f"{side}_f64_mean_err_over_tol"] = e["mean_err_over_tol"]
+        refit[f"{side}_f64_sd_err_over_tol"] = e["sd_err_over_tol"]
+    nominal = (refit["mean_err_over_tol"] <= 1
+               and refit["sd_err_over_tol"] <= 1)
+    near = all(refit[f"card_f64_{m}_err_over_tol"] <= max(
+        1.0, 2 * refit[f"cpu_f64_{m}_err_over_tol"]) for m in ("mean", "sd"))
+    refit["nominal_ok"], refit["f64_ok"] = nominal, near
+    if not (refit["threshold_equal"] and refit["best_y_equal"]
+            and refit["train_rows_equal"] and refit["hyperparameters_equal"]
+            and (nominal or near)):
+        bad.append(f"a refit on the card against the CPU: {refit}")
+    out["refit_card_vs_cpu"] = refit
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    work.cleanup()
+    if bad:
+        raise AssertionError("surrogate driver: " + "; ".join(bad))
+    return out, t
+
+
 # the short name of every kernel function of csrc/*.cu (with its template
 # arguments) within ptxas's mangled one
 PTXAS_KERNEL = re.compile(
@@ -2246,6 +2673,7 @@ def main() -> int:
                                                              dev)
     pbat, (be_pb, st_pb) = portfolio_batched_phase(dev)
     drv, tuner = driver_phase(dev)
+    sdrv, stuner = surrogate_driver_phase(dev)
     if args.profile:
         profile_phase(eng.step, st, engine["ms_per_step"])
         profile_phase(lambda s: eng.step(s, eval_fn=ev), st_s,
@@ -2270,6 +2698,9 @@ def main() -> int:
                       name=f"portfolio_batched_n{PB_N}")
         profile_phase(lambda s: (tuner.step(), s)[1], None,
                       drv["ms_per_ticket"], name="driver_ticket")
+        profile_phase(lambda s: (stuner.step(), s)[1], None,
+                      sdrv["calibrated"]["ms_per_ticket"],
+                      name="surrogate_driver_ticket")
         passes_profile(cases)
 
     entries = []
@@ -2281,7 +2712,10 @@ def main() -> int:
                    "launches_batched_flagship": flag["launches"][k.name],
                    "launches_portfolio_flagship": pflag["launches"][k.name],
                    "launches_portfolio_batched": pbat["launches"][k.name],
-                   "launches_driver": drv["launches"][k.name]}
+                   "launches_driver": drv["launches"][k.name],
+                   "launches_surrogate_driver": sum(
+                       sdrv[r]["launches"][k.name] for r in (
+                           "calibrated", "large_pool", "mlp"))}
         if k.name == "merge_rows":
             entries.append(dict(
                 common, **batched, launches=engine["launches"][k.name],
@@ -2311,7 +2745,12 @@ def main() -> int:
             kernel_ms=t["ms"], call_ms=t["call_ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
-            **{key: t[key] for key in ("bound_f32_ms",) if key in t}))
+            **{key: t[key] for key in ("bound_f32_ms",) if key in t},
+            **({"manager_shapes": {str(n): {key: v[key] for key in (
+                "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by")} for n, v in sdrv["large_pool"][
+                    "topk_timed"].items()}}
+               if k.name == "acquire_topk" else {})))
     emit({"kernels": entries})
     torch.cuda.synchronize()
     print(smi, flush=True)

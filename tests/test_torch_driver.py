@@ -714,8 +714,17 @@ def test_default_device_is_the_card():
 
 
 def test_string_surrogate_names_the_missing_module():
-    with pytest.raises(NotImplementedError, match="surrogate/manager.py"):
-        _tuner(_ros(2), _ros_obj(2), surrogate="gp")
+    """A surrogate given by name builds the port's manager on the tuner's
+    device with `surrogate_opts`; an unknown name raises, naming the
+    known ones."""
+    from uptune_tpu_torch.surrogate.manager import SurrogateManager
+    t = _tuner(_ros(2), _ros_obj(2), surrogate="gp",
+               surrogate_opts={"min_points": 8})
+    assert isinstance(t.surrogate, SurrogateManager)
+    assert (t.surrogate.kind, t.surrogate.device, t.surrogate.min_points) \
+        == ("gp", CPU, 8)
+    with pytest.raises(ValueError, match="known: \\('gp', 'mlp'\\)"):
+        _tuner(_ros(2), _ros_obj(2), surrogate="xgb")
 
 
 def test_flagship_tune_on_cpu(tmp_path):

@@ -306,3 +306,51 @@ def test_from_jax_gp_roundtrip():
     mj, _ = jgp.predict(sj, jnp.asarray(xq), nc, ncat)
     mt, _ = tgp.predict(st, T(xq), nc, ncat)
     np.testing.assert_allclose(N(mt), np.asarray(mj), **MEAN_TOL)
+
+
+# -- full_f32 across threads ---------------------------------------------------
+def test_full_f32_windows_overlap_across_threads():
+    """Two threads open and close nested `full_f32` windows in an
+    interleaved order under a caller's TF32 setting: inside every window
+    the setting is full float32, and the caller's is back at the end
+    (the first window to open saved it, the last to close restores
+    it)."""
+    import threading
+    seen = []
+    steps = [threading.Event() for _ in range(6)]
+
+    def inside(tag):
+        seen.append((tag, torch.get_float32_matmul_precision()))
+
+    def a():                          # opens first, closes in the middle
+        with tgp.full_f32():
+            inside("a")
+            steps[0].set()
+            steps[1].wait(10)
+            inside("a")
+        steps[2].set()
+
+    def b():                          # nested windows, closes last
+        steps[0].wait(10)
+        with tgp.full_f32():
+            inside("b")
+            steps[1].set()
+            steps[2].wait(10)
+            inside("b after a closed")
+            with tgp.full_f32():
+                inside("b nested")
+            inside("b")
+
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        ts = [threading.Thread(target=f) for f in (a, b)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(30)
+        after = torch.get_float32_matmul_precision()
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert len(seen) == 6 and all(p == "highest" for _, p in seen), seen
+    assert after == "high"

@@ -86,6 +86,20 @@ def test_no_jax_import_in_the_source(root):
             assert top not in ("jax", "jaxlib", "uptune_tpu"), (f, name)
 
 
+@pytest.mark.parametrize("module", ["surrogate/manager.py",
+                                    "surrogate/mlp.py",
+                                    "surrogate/screen.py"])
+def test_the_surrogate_modules_import_no_jax(module):
+    """The surrogate manager and its model and screen modules exist and
+    import neither JAX nor the JAX package (each keeps its own copy of
+    what it needs)."""
+    f = PKG / module
+    names = list(_imports(f))
+    assert f.is_file() and names
+    assert not [n for n in names
+                if n.split(".")[0] in ("jax", "jaxlib", "uptune_tpu")]
+
+
 def test_fused_engine_needs_a_card_unless_asked_for_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("this host has a card")

@@ -148,6 +148,21 @@ def test_features_seed_default_pad(setup):
         cands_t[0]
 
 
+def test_concat_matches_concat_cands_and_jax(setup):
+    """`CandBatch.concat` (the surrogate pool joins its random and local
+    rows with it) equals `concat_cands` and the JAX method on converted
+    inputs, bitwise."""
+    _, _, cands_j, cands_t = setup
+    a_t, b_t = cands_t[:3], cands_t[7:12]
+    got = a_t.concat(b_t)
+    assert got.batch == 8
+    assert_cands_equal(cands_j[:3].concat(cands_j[7:12]), got, "concat")
+    ref = concat_cands([a_t, b_t])
+    assert torch.equal(got.u, ref.u)
+    assert all(torch.equal(p, q) for p, q in zip(got.perms, ref.perms))
+    assert all(p.dtype == torch.int64 for p in got.perms)
+
+
 def test_random_is_valid():
     space_t = TSpace(_specs(TP))
     gen = trng.generator(3, "cpu")

@@ -7,8 +7,8 @@ package it keeps its own copy (`space/params.py`, `calibrated.py`,
 `driver/plugins.py`, `driver/objectives.py`, `driver/inputs.py`).
 
 Ported so far (the fused tuning step end to end, the GP surrogate, the
-batched multi-instance engine, every technique, and the ask/tell
-driver):
+batched multi-instance engine, every technique, the ask/tell driver and
+its surrogate manager):
 
 * `space`      — parameter specs, the flat encoding, codecs and hashing;
 * `ops`        — numeric and permutation operators, the dedup merge
@@ -26,11 +26,16 @@ driver):
 * `engine.fused`   — `FusedEngine` (init / propose / commit / step / run);
 * `engine.batched` — `BatchedEngine`, `exchange_best` and the surrogate
                  evaluator; `tune_batch` (`api/batch.py`) on top;
-* `surrogate`  — the GP and its kernels (`csrc/gp_tile.cu`);
+* `surrogate`  — the GP and its kernels (`csrc/gp_tile.cu`), the MLP
+                 ensemble, the feature screen, and the manager
+                 (`surrogate.manager.SurrogateManager`: refits, the async
+                 snapshot plane, the keep mask and the proposal pool;
+                 `Tuner(surrogate="gp" | "mlp")` builds it);
 * `workloads`  — the synthetic objectives, on the device and over
                  config dicts for the `Tuner`;
 * `flagship`   — the mixed-space flagship workload;
-* `convert`    — a JAX engine state (as numpy arrays) -> the port's.
+* `convert`    — a JAX engine state (as numpy arrays), GP, MLP ensemble
+                 or surrogate snapshot -> the port's.
 
 Entry points take `device=` and default to ``"cuda"``; without a card
 they raise unless the caller passes ``device="cpu"``.  Randomness comes

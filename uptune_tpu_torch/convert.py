@@ -15,7 +15,10 @@ parity tests use it to start both packages from one state.
 
 `from_jax_gp(arrays)` does the same for a JAX `GPState` (numpy leaves):
 every field, `mask`, `ls_cat` and the optional `kinv` included, so the
-tests score both packages from one fit.
+tests score both packages from one fit.  `from_jax_mlp` carries a JAX
+`MLPEnsembleState` over, and `from_jax_snapshot` a JAX surrogate
+manager's `SurrogateSnapshot` (GP or MLP state), so both managers can
+score from one model.
 """
 from __future__ import annotations
 
@@ -30,6 +33,8 @@ from .driver.history import HistState
 from .engine.fused import EngineState
 from .space.spec import CandBatch, Space
 from .surrogate.gp import GPState
+from .surrogate.manager import SurrogateSnapshot
+from .surrogate.mlp import MLPEnsembleState
 from .techniques.annealing import SAState
 from .techniques.banditmutation import BMState
 from .techniques.base import Best
@@ -132,3 +137,25 @@ def from_jax_gp(arrays: Any, device: DeviceLike = "cuda") -> GPState:
                                   "lengthscale", "noise", "mask", "ls_cat")),
                    kinv=(None if arrays.kinv is None
                          else _t(arrays.kinv, f32, device)))
+
+
+def from_jax_mlp(state: Any, device: DeviceLike = "cuda") -> MLPEnsembleState:
+    """A JAX MLPEnsembleState (every member's parameters stacked on a
+    leading axis) -> the port's on `device`."""
+    device = resolve_device(device)
+    f32 = torch.float32
+    params = tuple((_t(w, f32, device), _t(b, f32, device))
+                   for w, b in state.params)
+    return MLPEnsembleState(params, *(_t(getattr(state, name), f32, device)
+                                      for name in ("x_mean", "x_std",
+                                                   "y_mean", "y_std")))
+
+
+def from_jax_snapshot(snap: Any,
+                      device: DeviceLike = "cuda") -> SurrogateSnapshot:
+    """A JAX SurrogateSnapshot -> the port's: its GP or MLP state carried
+    over, every other field as it is."""
+    st = snap.state
+    state = (from_jax_mlp(st, device) if hasattr(st, "params")
+             else from_jax_gp(st, device))
+    return SurrogateSnapshot(state, *snap[1:])

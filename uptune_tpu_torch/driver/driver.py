@@ -39,11 +39,12 @@ How the port differs from the JAX driver:
   next ticket's `prev` and for `result()`.  Host values go to the card
   through pinned memory without a synchronisation (`_to_device`).
 
-Left out, each with the work that brings it back: the surrogate manager
-built from a string (``surrogate="gp"`` raises; a surrogate object is
-driven through the JAX driver's calls), and the `obs` spans, counters
-and tuning journal (`StepStats.n_compiles` / `t_compile` stay 0, as in
-an untraced JAX run).
+A surrogate given by name (``surrogate="gp"`` or ``"mlp"``) builds the
+port's `SurrogateManager` (`surrogate/manager.py`) on the tuner's device
+with `surrogate_opts`; a surrogate object is driven through the same
+calls.  Left out, with the work that brings it back: the `obs` spans,
+counters and tuning journal (`StepStats.n_compiles` / `t_compile` stay
+0, as in an untraced JAX run).
 """
 from __future__ import annotations
 
@@ -62,6 +63,8 @@ import torch
 
 from .. import rng
 from ..device import DeviceLike, resolve_device
+from ..device import to_device as _to_device
+from ..device import to_host as _to_host
 from ..space.spec import CandBatch, Space, pad_cands
 from ..techniques import base as tbase
 from ..techniques.bandit import MetaTechnique
@@ -72,40 +75,6 @@ from .plugins import fire as _fire
 Objective = Callable[[List[Dict[str, Any]]], Sequence[float]]
 
 log = logging.getLogger("uptune_tpu_torch")
-
-
-def _to_host(*ts: torch.Tensor) -> List[np.ndarray]:
-    """numpy copies of tensors that lie on one device.  On the card one
-    device->host transfer (one synchronisation) carries them all: each
-    tensor's elements as int64 words (float32 by its bit pattern), read
-    back into its own dtype and shape."""
-    if ts[0].device.type != "cuda":
-        return [t.detach().numpy().copy() for t in ts]
-    words = torch.cat([
-        (t.view(torch.int32) if t.dtype == torch.float32 else t)
-        .to(torch.int64).reshape(-1) for t in ts]).cpu().numpy()
-    out, off = [], 0
-    for t in ts:
-        w = words[off:off + t.numel()].reshape(tuple(t.shape))
-        off += t.numel()
-        if t.dtype == torch.float32:
-            w = w.astype(np.int32).view(np.float32)
-        elif t.dtype == torch.bool:
-            w = w.astype(bool)
-        elif t.dtype == torch.int32:
-            w = w.astype(np.int32)
-        out.append(w)
-    return out
-
-
-def _to_device(a: np.ndarray, dtype: torch.dtype,
-               dev: torch.device) -> torch.Tensor:
-    """A host array on `dev` as `dtype`; to the card through pinned
-    memory, queued on the stream without a synchronisation."""
-    t = torch.from_numpy(np.array(a)).to(dtype)
-    if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t
 
 
 class StepStats(NamedTuple):
@@ -291,11 +260,13 @@ class Tuner:
         self.arm_stats: Dict[str, List[int]] = {}
         self.hooks = list(hooks or [])
 
+        # surrogate pruning and the proposal plane: a name builds the
+        # manager on the tuner's device
         if isinstance(surrogate, str):
-            raise NotImplementedError(
-                f"surrogate={surrogate!r} needs the surrogate manager "
-                f"(uptune_tpu_torch/surrogate/manager.py), which the port "
-                f"does not have yet; pass a surrogate object")
+            from ..surrogate.manager import SurrogateManager
+            surrogate = SurrogateManager(
+                space, surrogate, seed=seed, device=self.device,
+                **(surrogate_opts or {}))
         self.surrogate = surrogate
 
         root = technique

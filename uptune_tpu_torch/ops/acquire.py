@@ -198,8 +198,10 @@ def prep(state, xq: torch.Tensor, kind: str, best_y, beta: float,
     blocks = prep_blocks(state, xq, n_cont, n_cat)
     kinv = None if kind == "mean" else state_kinv(state)
 
-    def f32(v):
-        return torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(())
+    def f32(v):                      # a number fills on the device: no copy
+        if isinstance(v, torch.Tensor):
+            return v.to(device=dev, dtype=torch.float32).reshape(())
+        return torch.full((), float(v), dtype=torch.float32, device=dev)
     params = torch.stack([
         f32(state.noise), f32(state.y_mean), f32(state.y_std),
         f32(0.0 if best_y is None else best_y), f32(beta)])

@@ -49,6 +49,9 @@ class CandBatch(NamedTuple):
                             "batch dim")
         return CandBatch(self.u[idx], tuple(p[idx] for p in self.perms))
 
+    def concat(self, other: "CandBatch") -> "CandBatch":
+        return concat_cands([self, other])
+
 
 def concat_cands(cands: Sequence[CandBatch]) -> CandBatch:
     return CandBatch(
@@ -82,6 +85,8 @@ class _Tables(NamedTuple):
     hash_lo: torch.Tensor      # [2, n_lanes] i64: low 16 bits of the u32
     hash_hi: torch.Tensor      #   hash multipliers / high 16 bits
     dep_mats: Tuple[Optional[torch.Tensor], ...]
+    num_idx: torch.Tensor      # [D - n_cat] i64 numeric lanes
+    cat_idx: torch.Tensor      # [n_cat] i64 categorical lanes
 
 
 class Space:
@@ -184,7 +189,9 @@ class Space:
                 put(self.vlo_np), put(self.vhi_np), put(self._int_mask_np),
                 put(self._complex_mask_np), put(m & 0xFFFF), put(m >> 16),
                 tuple(None if d is None else put(d)
-                      for d in self._dep_mats_np))
+                      for d in self._dep_mats_np),
+                put(self.num_lane_idx.astype(np.int64)),
+                put(self.cat_lane_idx.astype(np.int64)))
             self._tables_by_device[device] = t
         return t
 
@@ -327,10 +334,10 @@ class Space:
         vals = self.decode_scalars(u)
         u_snap = self.encode_scalars(vals)
         dev = feats.device
-        num = torch.as_tensor(self.num_lane_idx, device=dev)
-        parts = [u_snap[..., num], feats[..., D:]]
+        t = self.tables(dev)
+        parts = [u_snap[..., t.num_idx], feats[..., D:]]
         if self.n_cat:
-            codes = vals[..., torch.as_tensor(self.cat_lane_idx, device=dev)]
+            codes = vals[..., t.cat_idx]
             oh = codes[..., None] == torch.arange(
                 self.cat_max_codes, dtype=torch.float32, device=dev)
             oh = oh.reshape(*codes.shape[:-1],

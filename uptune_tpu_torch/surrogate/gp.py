@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
@@ -45,6 +46,53 @@ class GPState(NamedTuple):
     kinv: Optional[torch.Tensor] = None
 
 
+# `full_f32` windows open in the process, and the caller's setting saved
+# by the first to open (restored by the last to close): the setting is
+# process-global, and the async refit worker and the driver thread may
+# be inside windows at once
+_F32_LOCK = threading.Lock()
+_F32_DEPTH = 0
+_F32_SAVED: Optional[tuple] = None
+
+
+def _backends() -> tuple:
+    return (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+
+
+def _f32_enter() -> None:
+    """Open a window: the first one saves the caller's setting (through
+    the API that set it) and switches TF32 off."""
+    global _F32_DEPTH, _F32_SAVED
+    with _F32_LOCK:
+        if _F32_DEPTH == 0:
+            try:
+                _F32_SAVED = ("legacy", torch.get_float32_matmul_precision())
+            except RuntimeError:        # set through fp32_precision
+                _F32_SAVED = ("backends",
+                              [b.fp32_precision for b in _backends()])
+            if _F32_SAVED[0] == "legacy":
+                torch.set_float32_matmul_precision("highest")
+            else:
+                for b in _backends():
+                    b.fp32_precision = "ieee"
+        _F32_DEPTH += 1
+
+
+def _f32_exit() -> None:
+    """Close a window: the last one restores the saved setting."""
+    global _F32_DEPTH, _F32_SAVED
+    with _F32_LOCK:
+        _F32_DEPTH -= 1
+        if _F32_DEPTH == 0:
+            how, prev = _F32_SAVED
+            if how == "legacy":
+                torch.set_float32_matmul_precision(prev)
+            else:
+                for b, v in zip(_backends(), prev):
+                    b.fp32_precision = v
+            _F32_SAVED = None
+
+
 @contextlib.contextmanager
 def full_f32():
     """Run float32 matrix products in full float32 (no TF32, on any
@@ -52,31 +100,23 @@ def full_f32():
     may have set it: the legacy one (`allow_tf32`,
     `set_float32_matmul_precision`), which then reads back, or the
     per-backend `fp32_precision` one, after which the legacy getter
-    raises; each is restored through the API that set it."""
-    try:
-        saved = torch.get_float32_matmul_precision()
-    except RuntimeError:            # set through fp32_precision
-        saved = None
-    if saved is not None:
-        torch.set_float32_matmul_precision("highest")
-        try:
-            yield
-        finally:
-            torch.set_float32_matmul_precision(saved)
-        return
-    backends = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
-    prev = [b.fp32_precision for b in backends]
-    for b in backends:
-        b.fp32_precision = "ieee"
+    raises; each is restored through the API that set it.  Windows may
+    nest and overlap across threads: the setting is saved when the first
+    opens and restored when the last closes."""
+    _f32_enter()
     try:
         yield
     finally:
-        for b, v in zip(backends, prev):
-            b.fp32_precision = v
+        _f32_exit()
 
 
 def _f32(v, device) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32, device=device)
+    """`v` as float32 on `device`; a host value goes to the card through
+    pinned memory, without a synchronisation."""
+    if isinstance(v, torch.Tensor) or torch.device(device).type != "cuda":
+        return torch.as_tensor(v, dtype=torch.float32, device=device)
+    return torch.tensor(v, dtype=torch.float32).pin_memory().to(
+        device, non_blocking=True)
 
 
 def _raw_d2(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
