@@ -6,6 +6,9 @@ toolkit:
 
     python3 chip_smoke.py              # the full check (one card)
     python3 chip_smoke.py --profile    # also a torch.profiler window
+    python3 chip_smoke.py --gp-times --tree DIR
+                                       # A-D's times at F 31 from the
+                                       # checkout DIR (the A/B mode)
 
 It imports nothing of JAX or of the JAX package.  TF32 is switched off
 for matrix products (the GP's distances and Cholesky are f32) and the
@@ -55,6 +58,19 @@ setting is printed.  Phases, each printing one JSON line:
              library times and the bound at the main state (the 3xTF32
              tensor-core bound and the f32 one), and the time of C
              with kind "mean" (its kernel rows and final passes alone);
+             then `gp_wide`: A-D at the gcc-options space's width (96
+             continuous lanes + 233 categorical one-hot over 4 codes,
+             F = 1028, from configurations of a space shaped like the
+             mined one, `workloads.gcc_like_records`; past the widths
+             one block of krows / A held before they took chunks), a GP
+             fitted on 1024 of them, at the main shapes (B 6040, N 1024,
+             k 128) and the manager's (B 4096, N 32-256, k 32), and a
+             continuous-only and a categorical-only state of 400 lanes
+             at the main shapes (the single-kind instances), with the
+             same rules (the nominal tolerance, or within the tolerance
+             of float64 or 4x the plain version's distance from it where
+             K^-1 is ill-conditioned); kernel, plain and library times
+             and the bound there;
 6. engine  - the flagship at scale 64 (6040 rows a step, a 2^15-row
              history): init, one warm step, then the timed steps with the
              launch counts set to 0 just before and read just after; one
@@ -159,7 +175,26 @@ setting is printed.  Phases, each printing one JSON line:
              N beside its bound and `acquire_topk_ref`); the MLP ensemble
              (1000 evaluations; one fit on the card against the CPU's);
              and one GP refit on the card against the CPU's;
-16. profile (with --profile) - device time by kernel, the idle share and
+16. program - program mode: `python -m uptune_tpu_torch.cli
+             rosenbrock.py -pf 4 --test-limit 200 --seed 0` on a copy of
+             the unchanged sample (its child imports the JAX package):
+             exit 0, a finite best no worse than the default, 200 told
+             trials of distinct configurations, best.json equal to the
+             printed line; `--resume --test-limit 250` builds no archived
+             configuration again; the same tune with `--device cpu`;
+             the ProgramTuner in process at -pf 4 (counts set to 0 just
+             before and read just after: one merge launch a committing
+             ticket, nothing else; host syncs a ticket by line; median
+             t_propose / t_dedup against t_eval_wait; pool utilisation);
+             two runs at one worker without prefetch, the child
+             importing either package, with equal archives (and the
+             child's import time, without torch); then the gcc-options
+             sample (the machine's g++ mined first, timed) through the
+             CLI's main with `--learning-models gp -pf 4 --test-limit
+             24 --runtime-limit 120`: a finite best beside the default
+             -O2's, the width, builds, refits, no launch of D (a
+             512-row pool) and the merge's launches;
+17. profile (with --profile) - device time by kernel, the idle share and
              the host synchronisations over a few plain, surrogate-scored
              (by launcher C, then by `score_flat` through A and through B),
              batched (N = 256 and the N = 4 flagship) and portfolio
@@ -167,12 +202,13 @@ setting is printed.  Phases, each printing one JSON line:
              and driver tickets (plain, and with the calibrated GP
              manager), and the device time of A's kernel and of each
              pass of B, C and D;
-17. kernels - one entry per kernel: launches on the main path, error
+18. kernels - one entry per kernel: launches on the main path, error
              against the plain version (and, for the GP kernels, its
              largest ratio to the tolerance), times and bound; the merge
              also over its instance axis and at the driver's shape, and
-             the launches of the batched, portfolio, driver and surrogate
-             driver paths (D also timed at the manager's shapes).
+             the launches of the batched, portfolio, driver, surrogate
+             driver and program paths (D also timed at the manager's
+             shapes), and A-D's times at F = 1028.
 
 """
 from __future__ import annotations
@@ -288,6 +324,22 @@ BETA = 2.0
 # the sd's; -mean to the mean's
 UTILITY_TOL = {"mean": "mean", "ei": "mean + sd", "lcb": "mean + beta sd"}
 NEAR_CASE = "mixed_n1024_near_training"
+# the widest space the repo ships: samples/gcc-options over g++ 12 (232
+# flags, 95 params, olevel, block_size) is 96 continuous lanes and 233
+# categorical ones one-hot over 4 codes, F = 1028, past the 361 / 376
+# features one block of krows / A held before they took chunks; checked at
+# the main shapes and at the manager's (B 4096, its buckets N, k 32)
+WIDE_N_TRAIN, WIDE_MANAGER_B, WIDE_MANAGER_K = 1024, 4096, 32
+WIDE_MANAGER_N = (32, 64, 128, 256)
+# lanes of the continuous-only and the categorical-only wide states (400
+# floats; 100 enums one-hot over 4 codes), past both limits too
+WIDE_SINGLE = 400
+WIDE_KEYS = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "max_err_over_tol")
+# program mode: the rosenbrock sample's trials through the CLI and in
+# process, the trials of its resume, of the lockstep runs, and of the
+# gcc-options tune (builds of ~3 s each)
+PROGRAM_LIMIT, PROGRAM_RESUME, PROGRAM_LOCKSTEP, GCC_LIMIT = 200, 250, 60, 24
 
 
 def emit(obj) -> None:
@@ -702,14 +754,15 @@ def gp_bound(b: int, n: int, f: int, var: bool, out_bytes: int) -> dict:
     """The least time for one call: its FLOPs (distances 2BNF, mean 2BN,
     and for the variance kinds k K^-1 2BN^2 plus q 2BN) or its bytes
     (queries, training rows, alpha, K^-1, outputs, each once) over HBM's
-    rate, whichever is larger.  Every launcher runs one product on the
-    tensor cores in 3xTF32, which keeps f32's accuracy: k K^-1 (B, C and
-    D) or the distances' cross term (A).  It counts as 3x its FLOPs in
-    TF32 at the dense TF32 rate, the rest at the f32 rate; `bound_f32_ms`
-    is the bound with every FLOP at the f32 rate, beside it."""
+    rate, whichever is larger.  The distances' cross term and k K^-1 are
+    matrix products the tensor cores can take in 3xTF32, which keeps
+    f32's accuracy (A does the first there, B, C and D the second): for
+    every launcher both count as 3x their FLOPs in TF32 at the dense TF32
+    rate, the rest at the f32 rate; `bound_f32_ms` is the bound with
+    every FLOP at the f32 rate, beside it."""
     mm = 2 * b * n * n if var else 0
     rest = 2 * b * n * f + 2 * b * n + (2 * b * n if var else 0)
-    tc = mm if var else 2 * b * n * f
+    tc = 2 * b * n * f + mm
     nbytes = 4 * (b * f + n * f + n + (n * n if var else 0)) + out_bytes
     t_f32 = (mm + rest) / FP32_FLOP_PER_S
     t_ops = 3 * tc / TF32_FLOP_PER_S + (mm + rest - tc) / FP32_FLOP_PER_S
@@ -941,6 +994,282 @@ def gp_kernels_phase(cases) -> tuple:
         lambda: acq.scores_cuda(*blocks, None, params, "mean"))
     emit(out)
     return out, times
+
+
+def gp_times_phase(dev) -> dict:
+    """A-D's kernel times alone at the main state (B 6040, N 1024, F 31,
+    EI, k 128): CUDA events around graph replays, the median of REPS.
+    The A/B mode (`--gp-times --tree DIR`): run once for each tree in
+    turns (parent, change, change, parent), one process each; it calls
+    only entry points the parent trees have too."""
+    from uptune_tpu_torch.flagship import flagship_surrogate
+    from uptune_tpu_torch.ops import acquire as acq
+    from uptune_tpu_torch.surrogate import gp
+    from uptune_tpu_torch.surrogate import pallas_score as ps
+    x, y, (nc, ncat) = flagship_surrogate(N_TRAIN, SEED + 1, dev)
+    xq, _, _ = flagship_surrogate(6040, SEED + 2, dev)
+    st = gp.precompute_kinv(gp.fit_auto_bucketed(
+        x, y, max_points=N_TRAIN, n_cont=nc, n_cat=ncat))
+    blocks, kinv, params = acq.prep(st, xq, "ei", float(y.min()), BETA,
+                                    nc, ncat)
+    fns = {"gp_mean": lambda: ps.mean_tile_cuda(*blocks),
+           "gp_mean_var": lambda: ps.mean_var_tile_cuda(*blocks, kinv),
+           "acquire_scores": lambda: acq.scores_cuda(*blocks, kinv, params,
+                                                     "ei"),
+           "acquire_topk": lambda: acq.topk_cuda(*blocks, kinv, params,
+                                                 "ei", TOP_K)}
+    out = {"phase": "gp_times", "tree": str(Path(
+        sys.modules["uptune_tpu_torch"].__file__).parent.parent),
+        "shape": f"B={xq.shape[0]} N={N_TRAIN} F={xq.shape[1]} kind=ei "
+                 f"k={TOP_K}",
+        "ms": {name: median_ms(fn) for name, fn in fns.items()}}
+    emit(out)
+    return out
+
+
+# -- launchers A-D at the gcc space's width ------------------------------------
+
+def wide_records(kind: str) -> list:
+    """Param records of the gp_wide phase's spaces: "gcc", shaped like
+    the gcc-options sample's (`workloads.gcc_like_records`: no g++
+    mining), F 1028 in both blocks; "cont", WIDE_SINGLE float params (the
+    continuous block alone); "cat", WIDE_SINGLE / 4 enums of 4 options
+    (the categorical block alone)."""
+    from uptune_tpu_torch.workloads import gcc_like_records
+    if kind == "gcc":
+        return gcc_like_records()
+    if kind == "cont":
+        return [{"name": f"p{i:03d}", "type": "float", "default": 0.5,
+                 "lo": 0.0, "hi": 1.0} for i in range(WIDE_SINGLE)]
+    return [{"name": f"e{i:03d}", "type": "enum", "default": "a",
+             "options": ["a", "b", "c", "d"]}
+            for i in range(WIDE_SINGLE // 4)]
+
+
+def wide_surrogate(kind: str, n: int, seed: int, dev):
+    """n configurations drawn from the space of `wide_records(kind)`,
+    their GP features [n, F] and a target: -> (x, y, (n_cont, n_cat)),
+    n_cont None where the space has no categorical lane."""
+    from uptune_tpu_torch import rng
+    from uptune_tpu_torch.exec.space_io import space_from_params
+    space = space_from_params(wide_records(kind))
+    cands = space.random(rng.generator(seed, dev), n)
+    x = space.surrogate_transform(space.features(cands))
+    nc, ncat = space.n_cont_features, space.n_cat
+    # smooth in both blocks, so the fitted lengthscales are long and the
+    # kernel rows far from 0: the continuous lanes' mean and the share
+    # of categorical lanes at their first code
+    y = torch.zeros(n, device=dev)
+    if nc:
+        y = y + 4.0 * x[:, :nc].mean(1)
+    if ncat:
+        y = y + x[:, nc::space.cat_max_codes].mean(1)
+    return x.contiguous(), y, (nc if ncat else None, ncat)
+
+
+def wide_case(name: str, st, xq, best: float, nc: int, ncat: int,
+              k: int) -> dict:
+    """A-D against their plain versions on one state: each value's error
+    over the stated tolerance (GP-standardized units), each side's
+    distance from float64 from the same operands, D's index mismatches
+    and whether its picks are a float64 top k.  A row passes at the
+    nominal tolerance, or where K^-1 is ill-conditioned within the
+    tolerance of float64 or TF32_ERROR_RATIO times the plain version's
+    distance from it (the surrogate_driver phase's rule)."""
+    from uptune_tpu_torch.ops import acquire as acq
+    from uptune_tpu_torch.surrogate import pallas_score as ps
+    blocks, kinv, params = acq.prep(st, xq, "ei", best, BETA, nc, ncat)
+    ys, ym = float(st.y_std), float(st.y_mean)
+
+    def moments(mu_n, q=None):
+        return ps.target_moments(mu_n, q, st.noise, st.y_mean, st.y_std)
+
+    def limit(tol, v):
+        return tol["atol"] + tol["rtol"] * v.double().abs()
+    b64 = [None if t is None else t.double() for t in blocks]
+    mu64, q64 = ps.tile_moments(ps.kernel_tile(*b64[:4]), b64[4],
+                                kinv.double())
+    m64, s64 = moments(mu64, q64)
+    u64 = acq.utilities(mu64, q64, params.double(), "ei")
+    mw, sw = moments(*ps.mean_var_tile_plain(*blocks, kinv))
+    lim = {"mean": limit(MEAN_TOL, (mw - ym) / ys),
+           "sd": limit(SD_TOL, sw / ys)}
+    lim["ei"] = lim["mean"] + lim["sd"]
+    mg, sg = moments(*ps.mean_var_tile_cuda(*blocks, kinv))
+    vg, ig = acq.topk_cuda(*blocks, kinv, params, "ei", k)
+    vw, iw = acq.topk_plain(*blocks, kinv, params, "ei", k)
+    checks = {
+        ("gp_mean", "mean"): (moments(ps.mean_tile_cuda(*blocks))[0],
+                              moments(ps.mean_tile_plain(*blocks))[0],
+                              lim["mean"], m64, m64),
+        ("gp_mean_var", "mean"): (mg, mw, lim["mean"], m64, m64),
+        ("gp_mean_var", "sd"): (sg, sw, lim["sd"], s64, s64),
+        ("acquire_scores", "ei"): (
+            acq.scores_cuda(*blocks, kinv, params, "ei"),
+            acq.utilities_plain(*blocks, kinv, params, "ei"), lim["ei"],
+            u64, u64),
+        ("acquire_topk", f"ei k={k} values"): (
+            vg, vw, lim["ei"][iw.long()], u64[ig.long()], u64[iw.long()]),
+    }
+    out = {"case": name, "rows": int(xq.shape[0]),
+           "train_rows": int(st.x.shape[0]), "features": int(xq.shape[1]),
+           "noise": float(st.noise), "checks": []}
+    ok = True
+    for (kernel, what), (got, want, lm, ref_g, ref_w) in checks.items():
+        def over(a, b):
+            return float(((a.double() - b.double()).abs() / ys / lm).max())
+        c = {"kernel": kernel, "what": what,
+             "max_abs_err": float((got.double() - want.double()).abs().max()),
+             "err_over_tol": over(got, want),
+             "kernel_f64_err_over_tol": over(got, ref_g),
+             "plain_f64_err_over_tol": over(want, ref_w)}
+        c["ok"] = c["err_over_tol"] <= 1 or c["kernel_f64_err_over_tol"] <= max(
+            1.0, TF32_ERROR_RATIO * c["plain_f64_err_over_tol"])
+        out["checks"].append(c)
+        ok = ok and c["ok"]
+    slack = 2 * max(float((vg.double() - u64[ig.long()]).abs().max()),
+                    float((vw.double() - u64[iw.long()]).abs().max()))
+    out["topk_index_mismatches"] = topk_index_mismatches(
+        iw, vw / ys, ig, SD_TOL)
+    out["topk_picks_f64_ok"] = bool(
+        u64[ig.long()].min() >= torch.sort(u64, descending=True)
+        .values[k - 1] - slack)
+    out["topk_descending"] = bool((vg[1:] <= vg[:-1]).all())
+    out["ok"] = ok and out["topk_descending"] and (
+        not out["topk_index_mismatches"] or out["topk_picks_f64_ok"])
+    return out
+
+
+def gp_wide_phase(dev) -> dict:
+    """Launchers A-D at the gcc space's F = 1028 (96 + 233 x 4), past the
+    widths one block took before krows and A chunked the features: a GP
+    fitted by `fit_auto_bucketed` on 1024 configurations drawn from that
+    space, held against the plain versions at the main shapes (B 6040,
+    N 1024, k 128) and at the manager's (B 4096, N 32-256, k 32), and at
+    the main shapes a continuous-only and a categorical-only state of
+    WIDE_SINGLE lanes (the single-kind instances); then
+    kernel, plain and library times and the bound at the main shapes and
+    D's at each manager bucket."""
+    from uptune_tpu_torch.ops import acquire as acq
+    from uptune_tpu_torch.surrogate import gp
+    from uptune_tpu_torch.surrogate import pallas_score as ps
+    x, y, (nc, ncat) = wide_surrogate("gcc", WIDE_N_TRAIN, SEED + 41, dev)
+    xq, _, _ = wide_surrogate("gcc", 6040, SEED + 42, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    main = gp.precompute_kinv(gp.fit_auto_bucketed(
+        x, y, max_points=WIDE_N_TRAIN, n_cont=nc, n_cat=ncat))
+    torch.cuda.synchronize()
+    out = {"phase": "gp_wide", "features": int(x.shape[1]), "n_cont": nc,
+           "n_cat": ncat, "fit_auto_bucketed_s": time.perf_counter() - t0,
+           "limits": {kern.name: kern.query(kern.limit, int(x.shape[1]), 1)
+                      for kern in (ps.MEAN_KERNEL, ps.MEAN_VAR_KERNEL,
+                                   acq.SCORES_KERNEL, acq.TOPK_KERNEL)},
+           "cases": []}
+    out["cases"].append(wide_case(f"gcc_f{x.shape[1]}_n{WIDE_N_TRAIN}",
+                                  main, xq, float(y.min()), nc, ncat, TOP_K))
+    mq = xq[:WIDE_MANAGER_B].contiguous()
+    states = {}
+    for n in WIDE_MANAGER_N:
+        states[n] = gp.precompute_kinv(gp.fit_auto_bucketed(
+            x[:n], y[:n], max_points=WIDE_N_TRAIN, n_cont=nc, n_cat=ncat))
+        out["cases"].append(wide_case(
+            f"gcc_f{x.shape[1]}_manager_n{n}", states[n], mq,
+            float(y[:n].min()), nc, ncat, WIDE_MANAGER_K))
+    # each block alone past the widths one block took (krows'
+    # <kCont only> / <kCat only> and A's single-kind streamed instances)
+    singles = {}
+    for i, kind in enumerate(("cont", "cat")):
+        xs, ys, (ncs, ncats) = wide_surrogate(kind, WIDE_N_TRAIN,
+                                              SEED + 43 + 2 * i, dev)
+        xqs, _, _ = wide_surrogate(kind, 6040, SEED + 44 + 2 * i, dev)
+        st = gp.precompute_kinv(gp.fit_auto_bucketed(
+            xs, ys, max_points=WIDE_N_TRAIN, n_cont=ncs, n_cat=ncats))
+        singles[kind] = (st, xqs, float(ys.min()), ncs, ncats)
+        out["cases"].append(wide_case(
+            f"{kind}_f{xs.shape[1]}_n{WIDE_N_TRAIN}", *singles[kind], TOP_K))
+    bad = [c for c in out["cases"] if not c["ok"]]
+    if bad or min(out["limits"].values()) < WIDE_N_TRAIN:
+        emit(out)
+        raise AssertionError(f"gp kernels at F={x.shape[1]}: {bad}, "
+                             f"limits {out['limits']}")
+
+    blocks, kinv, params = acq.prep(main, xq, "ei", float(y.min()), BETA,
+                                    nc, ncat)
+    b, f = xq.shape
+    n = WIDE_N_TRAIN
+    shape = f"B={b} N={n} F={f} (Fc={nc} Fk={f - nc})"
+    timed = {
+        "gp_mean": (lambda: ps.mean_tile_cuda(*blocks),
+                    lambda: ps.mean_tile_plain(*blocks),
+                    lambda: ps.tile_moments(ps.kernel_tile(*blocks[:4]),
+                                            blocks.alpha)[0],
+                    gp_bound(b, n, f, False, 4 * b), shape),
+        "gp_mean_var": (lambda: ps.mean_var_tile_cuda(*blocks, kinv),
+                        lambda: ps.mean_var_tile_plain(*blocks, kinv),
+                        lambda: ps.tile_moments(ps.kernel_tile(
+                            *blocks[:4]), blocks.alpha, kinv),
+                        gp_bound(b, n, f, True, 8 * b), shape),
+        "acquire_scores": (
+            lambda: acq.scores_cuda(*blocks, kinv, params, "ei"),
+            lambda: acq.utilities_plain(*blocks, kinv, params, "ei"),
+            lambda: acq.utilities_ref(*blocks, kinv, params, "ei"),
+            gp_bound(b, n, f, True, 4 * b + 20), shape + " kind=ei"),
+        "acquire_topk": (
+            lambda: acq.topk_cuda(*blocks, kinv, params, "ei", TOP_K),
+            lambda: acq.topk_plain(*blocks, kinv, params, "ei", TOP_K),
+            lambda: acq.select_topk(
+                acq.utilities_ref(*blocks, kinv, params, "ei"), TOP_K),
+            gp_bound(b, n, f, True, 8 * TOP_K + 20),
+            shape + f" kind=ei k={TOP_K}"),
+    }
+    main_case = out["cases"][0]["checks"]
+    times = {}
+    for name, (kern, plain, lib, bound, shp) in timed.items():
+        times[name] = dict(
+            bound, shape=shp,
+            max_err_over_tol=max(c["err_over_tol"] for c in main_case
+                                 if c["kernel"] == name),
+            ms=median_ms(kern, reps=20), plain_ms=median_ms(plain, reps=10),
+            library_ms=median_ms(lib, reps=10))
+    manager = {}
+    for n, st in states.items():
+        blocks, kinv, params = acq.prep(st, mq, "ei", float(y[:n].min()),
+                                        BETA, nc, ncat)
+        k = WIDE_MANAGER_K
+        manager[n] = dict(
+            gp_bound(WIDE_MANAGER_B, n, f, True, 8 * k + 20),
+            shape=f"B={WIDE_MANAGER_B} N={n} F={f} kind=ei k={k}",
+            ms=median_ms(lambda: acq.topk_cuda(*blocks, kinv, params, "ei",
+                                               k), reps=20),
+            plain_ms=median_ms(lambda: acq.topk_plain(
+                *blocks, kinv, params, "ei", k), reps=10),
+            library_ms=median_ms(lambda: acq.select_topk(
+                acq.utilities_ref(*blocks, kinv, params, "ei"), k),
+                reps=10))
+    single_timed = {}
+    for kind, (st, xqs, best, ncs, ncats) in singles.items():
+        blocks, kinv, params = acq.prep(st, xqs, "ei", best, BETA, ncs,
+                                        ncats)
+        b, fs = xqs.shape
+        fns = {"gp_mean": (lambda: ps.mean_tile_cuda(*blocks), False,
+                           4 * b),
+               "gp_mean_var": (lambda: ps.mean_var_tile_cuda(*blocks, kinv),
+                               True, 8 * b),
+               "acquire_scores": (lambda: acq.scores_cuda(
+                   *blocks, kinv, params, "ei"), True, 4 * b + 20),
+               "acquire_topk": (lambda: acq.topk_cuda(
+                   *blocks, kinv, params, "ei", TOP_K), True,
+                   8 * TOP_K + 20)}
+        single_timed[kind] = {
+            name: dict(gp_bound(b, WIDE_N_TRAIN, fs, var, nbytes),
+                       shape=f"B={b} N={WIDE_N_TRAIN} F={fs} ({kind} only)",
+                       ms=median_ms(fn, reps=20))
+            for name, (fn, var, nbytes) in fns.items()}
+    out["timed"], out["topk_manager_timed"] = times, manager
+    out["single_kind_timed"] = single_timed
+    emit(out)
+    return out
 
 
 # -- the engine ----------------------------------------------------------------
@@ -2547,12 +2876,293 @@ def surrogate_driver_phase(dev) -> tuple:
     return out, t
 
 
+# -- program mode ----------------------------------------------------------------
+
+def ut_cli(args, cwd, timeout: float = 600.0):
+    """`python -m uptune_tpu_torch.cli *args` in `cwd`, as a user runs it
+    from a checkout: -> (CompletedProcess, wall seconds)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "uptune_tpu_torch.cli",
+                        *args], cwd=cwd, env=env, capture_output=True,
+                       text=True, timeout=timeout)
+    return r, time.perf_counter() - t0
+
+
+def read_archive(path) -> list:
+    return [json.loads(x) for x in open(path)][1:]
+
+
+def distinct_cfgs(rows) -> int:
+    return len({json.dumps(r["cfg"], sort_keys=True) for r in rows})
+
+
+# the controller's closing log lines (exec/controller.py): builds launched
+# and the driver's time behind the builds
+STORE_LOG = re.compile(r"store: (\d+) build\(s\) eliminated by cache hits, "
+                       r"(\d+) launched")
+POOL_LOG = re.compile(r"pool utilization=([\d.]+) \(driver t_propose="
+                      r"([\d.]+)s t_dedup=([\d.]+)s behind t_eval_wait="
+                      r"([\d.]+)s")
+
+
+def cli_run(args, cwd, bad: list, what: str) -> dict:
+    """One CLI tune: its result line, seconds, builds launched and the
+    driver's time behind the builds, from its output."""
+    r, wall = ut_cli(args, cwd)
+    out = {"args": " ".join(args), "returncode": r.returncode,
+           "seconds": wall}
+    if r.returncode != 0:
+        bad.append(f"{what}: exit {r.returncode}: {r.stderr[-1500:]}")
+        return out
+    out.update(json.loads(r.stdout.strip().splitlines()[-1]))
+    m, p = STORE_LOG.search(r.stderr), POOL_LOG.search(r.stderr)
+    if m:
+        out["store_hits"], out["builds_launched"] = int(m[1]), int(m[2])
+    if p:
+        out.update(pool_utilization=float(p[1]), t_propose_s=float(p[2]),
+                   t_dedup_s=float(p[3]), t_eval_wait_s=float(p[4]))
+    out["trials_per_s"] = out["evals"] / wall
+    return out
+
+
+def program_tuner(d: Path, dev, seed: int, **kw):
+    """The port's ProgramTuner on d/rosenbrock.py on `dev` with a
+    recorder of its StepStats and a count of its commits: (tuner,
+    stats, commits)."""
+    from uptune_tpu_torch.driver.plugins import SearchHook
+    from uptune_tpu_torch.exec import ProgramTuner
+
+    class Steps(SearchHook):
+        def __init__(self):
+            self.stats = []
+
+        def on_step(self, tuner, stats):
+            self.stats.append(stats)
+    rec, commits = Steps(), [0]
+    pt = ProgramTuner([sys.executable, str(d / "rosenbrock.py")], str(d),
+                      seed=seed, device=dev, hooks=[rec],
+                      env={"PYTHONPATH": str(ROOT)}, **kw)
+    make = pt._make_tuner
+
+    def counted_tuner(space):
+        t = make(space)
+        commit = t._commit
+
+        def counted(*args):
+            commits[0] += 1
+            commit(*args)
+        t._commit = counted
+        return t
+    pt._make_tuner = counted_tuner
+    return pt, rec.stats, commits
+
+
+def program_phase(dev) -> dict:
+    """Program mode on the card (see the module docstring): the unchanged
+    rosenbrock sample through the port's CLI, its resume and the same
+    tune on the CPU; the ProgramTuner in process (launches, syncs a
+    ticket, the driver's time behind the builds), and lockstep archives
+    whichever package the child imports; the gcc-options sample at full
+    width with the calibrated GP."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from uptune_tpu_torch import cli, native
+    from uptune_tpu_torch.exec import controller
+    out = {"phase": "program"}
+    bad = []
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="ut_program_"))
+    samples = ROOT / "samples"
+
+    def copy_sample(name, sub):
+        d = tmp / sub
+        shutil.copytree(samples / name, d, ignore=shutil.ignore_patterns(
+            ".gcc_space_cache*", ".anchor_*", "ut.*", "best*.json",
+            "__pycache__"))
+        return d
+    try:
+        # (a) the user's entry point, the unchanged sample, on the card
+        # (the default), then resumed; the same tune on the CPU beside it
+        d = copy_sample("rosenbrock", "cli_card")
+        first = cli_run(["rosenbrock.py", "-pf", "4", "--test-limit",
+                         str(PROGRAM_LIMIT), "--seed", "0"], d, bad, "cli")
+        if first["returncode"] == 0:
+            rows = read_archive(d / "ut.archive.jsonl")
+            dq = json.load(open(d / "ut.default_qor.json"))["qor"]
+            best = json.load(open(d / "best.json"))
+            first.update(default_qor=dq, archive_rows=len(rows),
+                         distinct_configs=distinct_cfgs(rows))
+            if not (np.isfinite(first["best_qor"])
+                    and first["best_qor"] <= dq
+                    and len(rows) == PROGRAM_LIMIT == first["evals"]
+                    and first["distinct_configs"] == PROGRAM_LIMIT
+                    and best == {"config": first["best_config"],
+                                 "qor": first["best_qor"]}):
+                bad.append(f"cli tune: {first}, best.json {best}")
+            resumed = cli_run(["rosenbrock.py", "-pf", "4", "--test-limit",
+                               str(PROGRAM_RESUME), "--seed", "0",
+                               "--resume"], d, bad, "cli resume")
+            if resumed["returncode"] == 0:
+                rows2 = read_archive(d / "ut.archive.jsonl")
+                resumed.update(archive_rows=len(rows2),
+                               distinct_configs=distinct_cfgs(rows2))
+                if not (rows2[:PROGRAM_LIMIT] == rows
+                        and len(rows2) == PROGRAM_RESUME
+                        and resumed["distinct_configs"] == PROGRAM_RESUME
+                        and resumed.get("builds_launched", 1 << 30)
+                        <= PROGRAM_RESUME - PROGRAM_LIMIT
+                        and resumed["best_qor"] <= first["best_qor"]):
+                    bad.append(f"cli resume: {resumed}")
+            out["cli_resume"] = resumed
+        out["cli"] = first
+        dc = copy_sample("rosenbrock", "cli_cpu")
+        out["cli_cpu"] = cli_run(["rosenbrock.py", "-pf", "4", "--test-limit",
+                                  str(PROGRAM_LIMIT), "--seed", "0",
+                                  "--device", "cpu"], dc, bad, "cli cpu")
+
+        # (b) in process on the card: launches, host syncs a ticket, the
+        # driver's time behind the builds
+        d = copy_sample("rosenbrock", "in_process")
+        pt, stats, commits = program_tuner(d, dev, 0, parallel=4,
+                                           test_limit=PROGRAM_LIMIT)
+        torch.cuda.synchronize()
+        native.reset_launches()               # the main path's run starts here
+        res = []
+        t0 = time.perf_counter()
+        syncs = sync_count(lambda: res.append(pt.run()), 2)
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in native.KERNELS}
+        tickets = len(stats)
+        want = {k.name: 0 for k in native.KERNELS}
+        want["merge_rows"] = commits[0]
+        inproc = {
+            "device": str(dev), "parallel": 4, "test_limit": PROGRAM_LIMIT,
+            "evals": res[0].evals, "best_qor": res[0].best_qor,
+            "seconds": wall, "trials_per_s": res[0].evals / wall,
+            "tickets": tickets, "commits": commits[0], "launches": launches,
+            "syncs_per_ticket": {k: v / max(tickets, 1)
+                                 for k, v in syncs.items()},
+            "syncs_per_ticket_total": sum(syncs.values()) / max(tickets, 1),
+            "t_propose_median_ms": statistics.median(
+                s.t_propose for s in stats) * 1e3,
+            "t_dedup_median_ms": statistics.median(
+                s.t_dedup for s in stats) * 1e3,
+            "t_eval_wait_median_ms": statistics.median(
+                s.t_eval_wait for s in stats) * 1e3,
+            "pool_utilization": pt.pool.utilization(),
+            "builds_launched": pt.pool.launched}
+        out["in_process"] = inproc
+        if launches != want or not commits[0]:
+            bad.append(f"program launches {launches}, expected {want}")
+        if not np.isfinite(res[0].best_qor):
+            bad.append(f"program best {res[0].best_qor}")
+
+        # lockstep at one worker without prefetch: the same archive
+        # whichever package the child imports; that child's import cost
+        arcs = {}
+        for pkg in ("uptune_tpu", "uptune_tpu_torch"):
+            d = copy_sample("rosenbrock", f"lockstep_{pkg}")
+            src = (d / "rosenbrock.py").read_text()
+            (d / "rosenbrock.py").write_text(src.replace(
+                "import uptune_tpu as ut", f"import {pkg} as ut"))
+            p1, _, _ = program_tuner(d, dev, 1, parallel=1, prefetch=0,
+                                     test_limit=PROGRAM_LOCKSTEP)
+            p1.run()
+            arcs[pkg] = [(r["cfg"], r["qor"])
+                         for r in read_archive(d / "ut.archive.jsonl")]
+        code = ("import sys, time; t = time.perf_counter(); "
+                "import uptune_tpu_torch as ut; ut.tune; ut.target; "
+                "print(time.perf_counter() - t, 'torch' in sys.modules)")
+        import os
+        r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                           text=True, env=dict(os.environ,
+                                               PYTHONPATH=str(ROOT)))
+        secs, torch_in = r.stdout.split()
+        out["lockstep"] = {
+            "trials": len(arcs["uptune_tpu_torch"]),
+            "archives_equal": arcs["uptune_tpu"] == arcs["uptune_tpu_torch"],
+            "child_import_s": float(secs),
+            "child_imports_torch": torch_in == "True"}
+        if not (out["lockstep"]["archives_equal"]
+                and out["lockstep"]["trials"] == PROGRAM_LOCKSTEP
+                and torch_in == "False"):
+            bad.append(f"lockstep: {out['lockstep']}")
+
+        # (c) the gcc-options sample at full width: the machine's g++
+        # mined first (timed), then the tune through the CLI's main in
+        # process, with the calibrated GP and async refits
+        g = copy_sample("gcc-options", "gcc")
+        mine = ("import json, time, mine_gcc; t = time.perf_counter(); "
+                "m = mine_gcc.mine(); print(json.dumps({'seconds': "
+                "time.perf_counter() - t, 'version': m['version'], "
+                "'flags': len(m['flags']), 'params': len(m['params'])}))")
+        r = subprocess.run([sys.executable, "-c", mine], cwd=g,
+                           capture_output=True, text=True, timeout=900)
+        if r.returncode != 0:
+            raise AssertionError(f"mining g++ failed: {r.stderr[-1500:]}")
+        gcc = {"mining": json.loads(r.stdout.strip().splitlines()[-1])}
+        made = []
+        make = controller.ProgramTuner._make_tuner
+
+        def recorded(self, space):
+            t = make(self, space)
+            made.append((self, t))
+            return t
+        controller.ProgramTuner._make_tuner = recorded
+        native.reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main([str(g / "tune_gcc.py"), "--learning-models",
+                               "gp", "-pf", "4", "--test-limit",
+                               str(GCC_LIMIT), "--runtime-limit", "120"])
+        finally:
+            controller.ProgramTuner._make_tuner = make
+        gcc["seconds"] = time.perf_counter() - t0
+        gcc["returncode"] = rc
+        if rc != 0 or not made:
+            raise AssertionError(f"gcc-options tune: exit {rc}")
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        gpt, t = made[0]
+        sm = t.surrogate
+        gcc.update(
+            params=len(t.space.specs), n_cont=t.space.n_cont_features,
+            n_cat=t.space.n_cat, features=t.space.n_surrogate_features,
+            evals=line["evals"], best_qor=line["best_qor"],
+            default_qor=gpt.default_qor, builds_launched=gpt.pool.launched,
+            store_hits=gpt.store_hits, tickets=t.steps,
+            pool_utilization=gpt.pool.utilization(),
+            refits_started=sm.refits_started, refits_published=sm.refits,
+            extensions=sm.incr_updates,
+            launches={k.name: k.launches for k in native.KERNELS})
+        out["gcc"] = gcc
+        if not (np.isfinite(line["best_qor"]) and line["evals"] >= GCC_LIMIT
+                and gcc["launches"]["acquire_topk"] == 0
+                and gcc["launches"]["merge_rows"] > 0
+                and gcc["features"] >= 1028):
+            bad.append(f"gcc-options tune: {gcc}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if bad:
+        raise AssertionError("program mode: " + "; ".join(bad))
+    return out
+
+
 # the short name of every kernel function of csrc/*.cu (with its template
 # arguments) within ptxas's mangled one
 PTXAS_KERNEL = re.compile(
     r"(merge_rows_kernelILi\d+E|launch_floor_kernel|kinv_prep_kernel|"
     r"wq_kernel|moments_kernel|topk_merge_kernel|final_kernelILb\dE|"
-    r"krows_kernelILb\dELb\dELb\dE|gp_mean_kernelILb\dELb\dE)")
+    r"krows_kernelILb\dELb\dELb\dE|gp_mean_kernelILb\dELb\dELb\dE)")
 
 
 def ptxas_summary(log: str) -> list:
@@ -2633,12 +3243,23 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile a few engine steps")
+    ap.add_argument("--gp-times", action="store_true",
+                    help="time A-D at the main state alone (the A/B mode; "
+                         "no ok line)")
+    ap.add_argument("--tree", type=Path, default=None,
+                    help="with --gp-times: import the port from this "
+                         "checkout instead of the script's own")
     args = ap.parse_args()
+    if args.tree is not None:
+        if not args.gp_times:
+            ap.error("--tree needs --gp-times")
+        sys.path.insert(0, str(args.tree.resolve()))
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from uptune_tpu_torch import native
@@ -2651,6 +3272,14 @@ def main() -> int:
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
 
+    if args.gp_times:
+        t0 = time.perf_counter()
+        native.build()
+        emit({"phase": "build", "seconds": time.perf_counter() - t0})
+        gp_times_phase(dev)
+        print(smi, flush=True)
+        return 0
+
     t0 = time.perf_counter()
     libs = native.build()
     kernels = native.KERNELS
@@ -2662,6 +3291,7 @@ def main() -> int:
     merge, timed, timed_driver = merge_phase(dev, args.profile)
     cases, feats = surrogate_phase(dev)
     _, gp_times = gp_kernels_phase(cases)
+    wide = gp_wide_phase(dev)
     eng, st, engine = engine_phase(dev)
     reference_phase(eng, st, dev)
     surr, st_s, ev, ev_mean, ev_ei = surrogate_engine_phase(eng, cases,
@@ -2674,6 +3304,7 @@ def main() -> int:
     pbat, (be_pb, st_pb) = portfolio_batched_phase(dev)
     drv, tuner = driver_phase(dev)
     sdrv, stuner = surrogate_driver_phase(dev)
+    prog = program_phase(dev)
     if args.profile:
         profile_phase(eng.step, st, engine["ms_per_step"])
         profile_phase(lambda s: eng.step(s, eval_fn=ev), st_s,
@@ -2715,7 +3346,10 @@ def main() -> int:
                    "launches_driver": drv["launches"][k.name],
                    "launches_surrogate_driver": sum(
                        sdrv[r]["launches"][k.name] for r in (
-                           "calibrated", "large_pool", "mlp"))}
+                           "calibrated", "large_pool", "mlp")),
+                   "launches_program": prog["in_process"]["launches"][
+                       k.name],
+                   "launches_program_gcc": prog["gcc"]["launches"][k.name]}
         if k.name == "merge_rows":
             entries.append(dict(
                 common, **batched, launches=engine["launches"][k.name],
@@ -2750,7 +3384,18 @@ def main() -> int:
                 "shape", "ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by")} for n, v in sdrv["large_pool"][
                     "topk_timed"].items()}}
+               if k.name == "acquire_topk" else {}),
+            **{f"f{wide['features']}": {key: wide["timed"][k.name][key]
+                                        for key in WIDE_KEYS}},
+            **{f"{kind}_only_f{WIDE_SINGLE}": {
+                key: v[k.name][key] for key in WIDE_KEYS
+                if key in v[k.name]}
+               for kind, v in wide["single_kind_timed"].items()},
+            **({f"f{wide['features']}_manager_shapes": {
+                str(n): {key: v[key] for key in WIDE_KEYS if key in v}
+                for n, v in wide["topk_manager_timed"].items()}}
                if k.name == "acquire_topk" else {})))
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": entries})
     torch.cuda.synchronize()
     print(smi, flush=True)

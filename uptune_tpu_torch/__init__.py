@@ -8,7 +8,7 @@ package it keeps its own copy (`space/params.py`, `calibrated.py`,
 
 Ported so far (the fused tuning step end to end, the GP surrogate, the
 batched multi-instance engine, every technique, the ask/tell driver and
-its surrogate manager):
+its surrogate manager, program mode):
 
 * `space`      — parameter specs, the flat encoding, codecs and hashing;
 * `ops`        — numeric and permutation operators, the dedup merge
@@ -35,7 +35,13 @@ its surrogate manager):
                  config dicts for the `Tuner`;
 * `flagship`   — the mixed-space flagship workload;
 * `convert`    — a JAX engine state (as numpy arrays), GP, MLP ensemble
-                 or surrogate snapshot -> the port's.
+                 or surrogate snapshot -> the port's;
+* `exec`, `api`, `store`, `cli` — program mode: `python -m
+                 uptune_tpu_torch.cli script.py` (or `ut-torch`) tunes a
+                 program through the `UT_*` protocol; the child side
+                 (`ut.tune`, `ut.target`, ...) is the JAX package's, byte
+                 for byte, so a program importing either package is
+                 served.
 
 Entry points take `device=` and default to ``"cuda"``; without a card
 they raise unless the caller passes ``device="cpu"``.  Randomness comes
@@ -43,7 +49,70 @@ from keys carried in the state (`rng`, a counter-based generator), and
 every stochastic op is split into a draw step (consumes a key's stream)
 and a pure function of the draws, so tests can feed the pure part the
 numbers JAX drew.
-"""
 
-from .api.batch import BatchTuneResult, tune_batch  # noqa: F401,E402
-from .driver import StepStats, TuneResult, Tuner  # noqa: F401,E402
+The package is lazy, as the JAX package's is: ``import uptune_tpu_torch
+as ut; ut.tune(...)`` in a tuned child program imports neither torch nor
+the engine, only the protocol modules.
+"""
+__version__ = "0.2.0"
+
+_LAZY = {
+    # public name -> (module, attribute)
+    "tune": ("uptune_tpu_torch.api.tuneapi", "tune"),
+    "target": ("uptune_tpu_torch.api.report", "target"),
+    "interm": ("uptune_tpu_torch.api.report", "interm"),
+    "feature": ("uptune_tpu_torch.api.report", "feature"),
+    "save": ("uptune_tpu_torch.api.report", "save"),
+    "get_global_id": ("uptune_tpu_torch.api.report", "get_global_id"),
+    "get_local_id": ("uptune_tpu_torch.api.report", "get_local_id"),
+    "get_meta_data": ("uptune_tpu_torch.api.report", "get_meta_data"),
+    "config": ("uptune_tpu_torch.api.session", "config"),
+    "init": ("uptune_tpu_torch.api.session", "init"),
+    "get_best": ("uptune_tpu_torch.api.session", "get_best"),
+    "rule": ("uptune_tpu_torch.api.constraint", "rule"),
+    "constraint": ("uptune_tpu_torch.api.constraint", "constraint"),
+    "register": ("uptune_tpu_torch.api.constraint", "register"),
+    "vars": ("uptune_tpu_torch.api.constraint", "vars"),
+    "model": ("uptune_tpu_torch.api.tuner", "model"),
+    "settings": ("uptune_tpu_torch.api.session", "settings"),
+    "tune_batch": ("uptune_tpu_torch.api.batch", "tune_batch"),
+    "BatchTuneResult": ("uptune_tpu_torch.api.batch", "BatchTuneResult"),
+    "vhls": ("uptune_tpu_torch.api.features", "vhls"),
+    "quartus": ("uptune_tpu_torch.api.features", "quartus"),
+    "Tuner": ("uptune_tpu_torch.driver", "Tuner"),
+    "TuneResult": ("uptune_tpu_torch.driver", "TuneResult"),
+    "StepStats": ("uptune_tpu_torch.driver", "StepStats"),
+}
+
+# the JAX package's public names the port does not have yet, with the
+# ROADMAP item (Queue 1) that brings each
+_NOT_YET = {
+    "connect": "item 6 (the serving plane)",
+    "LocalSession": "item 6 (the serving plane)",
+    "preprocess": "item 10 (quickest)",
+    "train": "item 10 (quickest)",
+    "test": "item 10 (quickest)",
+    "predict": "item 10 (quickest)",
+    "analyze": "item 10 (quickest)",
+    "extract": "item 10 (quickest)",
+}
+
+
+def __getattr__(name):
+    """The lazy public API: the module of a name is imported on first
+    use."""
+    if name in _NOT_YET:
+        raise AttributeError(
+            f"uptune_tpu_torch.{name} is not ported yet: ROADMAP Queue 1 "
+            f"{_NOT_YET[name]}")
+    try:
+        modname, attr = _LAZY[name]
+    except KeyError:
+        raise AttributeError(
+            f"module 'uptune_tpu_torch' has no attribute {name!r}")
+    import importlib
+    return getattr(importlib.import_module(modname), attr)
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_LAZY))

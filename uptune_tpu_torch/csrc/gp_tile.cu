@@ -47,7 +47,10 @@
 // rows repeat (the all-categorical case), sum |k alpha| is thousands of
 // times |mu|, and f32 rounding of k alpha alone moves mu by several times
 // its tolerance; in float64 mu stays as close as k's own f32 rounding.  One launch, nothing of size N in
-// shared memory, no scratch, no atomics.  Bound (B = 6040, N = 1024, F =
+// shared memory, no scratch, no atomics.  Past 376 features the query
+// planes of every chunk do not fit a block; then (kStream) the planes hold
+// one chunk, split and swizzled again for each unit from the query rows in
+// L2, so any F is taken.  Bound (B = 6040, N = 1024, F =
 // 31): the cross term, 3 x 2BNF = 1.2 GFLOP of TF32 at 495 TFLOP/s, plus
 // the mean at the f32 rate: about 2.5 us (2BNF at the f32 rate, 67
 // TFLOP/s: about 6 us).  The per-pair epilogue (a sqrtf and an expf,
@@ -62,7 +65,9 @@
 //      wgmma takes TF32 operands K-major only, and K^-1 from cho_solve is
 //      symmetric only to rounding, so it is transposed, not read as K^-T.
 //   2. krows: the kernel rows k [Bp, Np] (zero outside B x N; distances
-//      summed as (a - b)^2 directly, on the CUDA cores) and the
+//      summed as (a - b)^2 directly, on the CUDA cores, over the features
+//      in order, staged all at once up to 361 of them and kKChunk at a
+//      time past that, so any F is taken) and the
 //      mean's partial sums, one per kTileN-column tile, each reduced in
 //      one fixed order (a warp shuffle tree, then the warps in turn).
 //   3. wq: W = k K^-1 on the tensor cores in 3xTF32, wgmma m64n128k8:
@@ -123,6 +128,8 @@ constexpr int kStageWords = kTileM * kLdA + 2 * kTileN * kTileK;
 // the stages, then a "full" and an "empty" mbarrier per stage
 constexpr int kWqShared = kStages * kStageWords * 4 + 2 * kStages * 8;
 constexpr int kKRows = 32;         // query rows of one krows block
+constexpr int kKChunk = 128;       // features of one krows chunk, when all
+                                   // f do not fit one block
 constexpr int kSel = 256;          // rows of one first-level selection
 constexpr int kMergeSlots = 8192;  // candidates one merge block ranks
 constexpr int kMergeShared = kMergeSlots * 8;
@@ -235,20 +242,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
 }
 
-// rows [w] floats of a row-major block, read in flat order (coalesced,
-// four loads in flight a thread), into dst[r * rs + j * cs]; rows from
-// `have` on as zeros.  The row of flat index i is (i + 1/2) / w rounded
-// down in float, exact for the blocks here (i < 2^20).
+// rows x w floats of a row-major block of row stride ld (ld = w: read in
+// flat order, coalesced), four loads in flight a thread, into dst[r * rs +
+// j * cs]; rows from `have` on as zeros.  The row of flat index i is (i +
+// 1/2) / w rounded down in float, exact for the blocks here (i < 2^20).
 __device__ __forceinline__ void stage_rows(float* dst, int rs, int cs,
                                            const float* __restrict__ src,
-                                           int w, int have, int rows) {
+                                           int w, int ld, int have,
+                                           int rows) {
   const float inv = 1.0f / static_cast<float>(w);
   const int total = rows * w, avail = have * w;
 #pragma unroll 4
   for (int i = threadIdx.x; i < total; i += kThreads) {
     const int r = __float2int_rz((static_cast<float>(i) + 0.5f) * inv);
     const int j = i - r * w;
-    dst[r * rs + j * cs] = i < avail ? src[i] : 0.f;
+    dst[r * rs + j * cs] = i < avail ? src[r * ld + j] : 0.f;
   }
 }
 
@@ -256,6 +264,10 @@ __device__ __forceinline__ void stage_rows(float* dst, int rs, int cs,
 // training rows of tile t.  Thread tid takes column tid % kTileN and the
 // kPer rows (tid / kTileN) kPer + i; the query rows sit transposed in
 // shared memory, so one float4 broadcast brings four rows' feature j.
+// The features (the continuous block, then the categorical one) go
+// through shared memory fw at a time: one chunk when all f fit (fw = f),
+// else chunks of kKChunk, each distance summed in feature order across
+// them, so any f is taken and the sums do not depend on fw.
 // Writes k (kStoreK) and the tile's partial mean of each row,
 // mupart[t * bp + row].  The mixed kernel takes one exp:
 // matern52(dc) exp(-dk) = (1 + s5d + 5/3 dc) exp(-(s5d + dk)).
@@ -263,62 +275,70 @@ template <bool kCont, bool kCat, bool kStoreK>
 __global__ void __launch_bounds__(kThreads) krows_kernel(
     const float* __restrict__ qc, const float* __restrict__ qk,
     const float* __restrict__ xc, const float* __restrict__ xk,
-    const float* __restrict__ alpha, int b, int n, int fc, int fk, int np,
-    int bp, float* __restrict__ kscr, float* __restrict__ mupart) {
+    const float* __restrict__ alpha, int b, int n, int fc, int fk, int fw,
+    int np, int bp, float* __restrict__ kscr, float* __restrict__ mupart) {
   constexpr int kPer = kKRows * kTileN / kThreads;  // rows per thread: 16
   constexpr int kHalves = kThreads / kTileN;
   extern __shared__ __align__(16) float smem[];
-  const int f = fc + fk, fs = f | 1;        // odd stride: no bank conflicts
-  float* s_q = smem;                        // [f][kKRows]
-  float* s_x = s_q + f * kKRows;            // [kTileN][fs]
+  const int f = fc + fk, fs = fw | 1;       // odd stride: no bank conflicts
+  float* s_q = smem;                        // [fw][kKRows]
+  float* s_x = s_q + fw * kKRows;           // [kTileN][fs]
   float* s_red = s_x + kTileN * fs;         // [kWarps][kPer]
   const int col0 = blockIdx.x * kTileN, row0 = blockIdx.y * kKRows;
   const int xrows = max(0, min(kTileN, n - col0));
   const int qrows = max(0, min(kKRows, b - row0));
-  if (kCont) {
-    stage_rows(s_x, fs, 1, xc + static_cast<size_t>(col0) * fc, fc, xrows,
-               kTileN);
-    stage_rows(s_q, 1, kKRows, qc + static_cast<size_t>(row0) * fc, fc,
-               qrows, kKRows);
-  }
-  if (kCat) {
-    stage_rows(s_x + fc, fs, 1, xk + static_cast<size_t>(col0) * fk, fk,
-               xrows, kTileN);
-    stage_rows(s_q + fc * kKRows, 1, kKRows,
-               qk + static_cast<size_t>(row0) * fk, fk, qrows, kKRows);
-  }
-  __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-
   const int c = threadIdx.x % kTileN, half = threadIdx.x / kTileN;
   const int col = col0 + c;
   float dc[kPer], dk[kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) dc[i] = dk[i] = 0.f;
-  for (int j = 0; j < f; ++j) {
-    const float xv = s_x[c * fs + j];
-    const float4* qj = reinterpret_cast<const float4*>(s_q + j * kKRows +
-                                                       half * kPer);
-    float qv[kPer];
-#pragma unroll
-    for (int i = 0; i < kPer / 4; ++i) {
-      const float4 v = qj[i];
-      qv[4 * i] = v.x;
-      qv[4 * i + 1] = v.y;
-      qv[4 * i + 2] = v.z;
-      qv[4 * i + 3] = v.w;
+  for (int j0 = 0; j0 < f; j0 += fw) {
+    const int w = min(fw, f - j0);
+    // features [j0, j0 + w): wc of the continuous block from column j0,
+    // then the categorical block's from column max(j0 - fc, 0)
+    const int wc = kCont ? max(0, min(w, fc - j0)) : 0;
+    const int k0 = max(0, j0 - fc);
+    if (j0 > 0) __syncthreads();            // the last chunk has been read
+    if (kCont && wc > 0) {
+      stage_rows(s_x, fs, 1, xc + static_cast<size_t>(col0) * fc + j0, wc, fc,
+                 xrows, kTileN);
+      stage_rows(s_q, 1, kKRows, qc + static_cast<size_t>(row0) * fc + j0, wc,
+                 fc, qrows, kKRows);
     }
-    if (kCont && (!kCat || j < fc)) {
+    if (kCat && w > wc) {
+      stage_rows(s_x + wc, fs, 1, xk + static_cast<size_t>(col0) * fk + k0,
+                 w - wc, fk, xrows, kTileN);
+      stage_rows(s_q + wc * kKRows, 1, kKRows,
+                 qk + static_cast<size_t>(row0) * fk + k0, w - wc, fk, qrows,
+                 kKRows);
+    }
+    __syncthreads();
+    for (int j = 0; j < w; ++j) {
+      const float xv = s_x[c * fs + j];
+      const float4* qj = reinterpret_cast<const float4*>(s_q + j * kKRows +
+                                                         half * kPer);
+      float qv[kPer];
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const float d = qv[i] - xv;
-        dc[i] = fmaf(d, d, dc[i]);
+      for (int i = 0; i < kPer / 4; ++i) {
+        const float4 v = qj[i];
+        qv[4 * i] = v.x;
+        qv[4 * i + 1] = v.y;
+        qv[4 * i + 2] = v.z;
+        qv[4 * i + 3] = v.w;
       }
-    } else {
+      if (kCont && (!kCat || j < wc)) {
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const float d = qv[i] - xv;
-        dk[i] = fmaf(d, d, dk[i]);
+        for (int i = 0; i < kPer; ++i) {
+          const float d = qv[i] - xv;
+          dc[i] = fmaf(d, d, dc[i]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const float d = qv[i] - xv;
+          dk[i] = fmaf(d, d, dk[i]);
+        }
       }
     }
   }
@@ -609,20 +629,23 @@ __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
 // Where A's block keeps its data, in 4-byte words of dynamic shared memory.
 // Each row's features are packed: the continuous block padded with zeros to
 // a multiple of 8 (fcp), then the categorical block padded the same way (d
-// in all), cut into nch chunks of kTileK.
+// in all), cut into nch chunks of kTileK.  The query planes hold every
+// chunk, or with `stream` (features too many for that) one chunk, rebuilt
+// for each unit.
 struct MeanLayout {
   int fcp, d, steps, sc, nch, dp;
   size_t qh, ql, raw, x0, nq, part, words;
-  __host__ __device__ explicit MeanLayout(int fc, int fk) {
+  __host__ __device__ MeanLayout(int fc, int fk, bool stream) {
     fcp = (fc + 7) / 8 * 8;
     d = fcp + (fk + 7) / 8 * 8;
     steps = d / 8;                           // 8-deep wgmma steps
     sc = fcp / 8;                            // of them the continuous block's
     nch = (d + kTileK - 1) / kTileK;
     dp = nch * kTileK;
+    const size_t planes = stream ? 1 : nch;
     qh = 0;                                  // the query rows by chunk, TF32
-    ql = qh + static_cast<size_t>(nch) * kMeanChunk;     // hi and lo,
-    raw = ql + static_cast<size_t>(nch) * kMeanChunk;    // swizzled; the
+    ql = qh + planes * kMeanChunk;           // hi and lo,
+    raw = ql + planes * kMeanChunk;          // swizzled; the
     x0 = raw + kRawStages * kRawWords;       // training chunks' stages; the
     nq = x0 + dp;                            // centre; the query rows' norms
     part = nq + 2 * kMeanRows;               // {c, k}; every warp's sums of
@@ -712,8 +735,11 @@ __device__ __forceinline__ float pair_kernel(float dot_c, float dot_k,
 // training row 16 warp + g + 8 ((i / 2) % 2) and query row 8 (i / 4) +
 // 2 tq + i % 2: after a tile's last chunk the epilogue adds k alpha into
 // the thread's 16 query rows' float64 partials, which end summed over g,
-// then over the warps, then over the cluster.
-template <bool kCont, bool kCat>
+// then over the warps, then over the cluster.  With kStream the planes hold
+// one chunk: the prologue forms the query rows' norms alone, and each unit
+// first splits and swizzles its chunk of the query rows into the planes
+// (read from L2: every chunk of the 64 rows once a tile).
+template <bool kCont, bool kCat, bool kStream>
 __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kGroup, 4)
     gp_mean_kernel(const float* __restrict__ qc, const float* __restrict__ qk,
                    const float* __restrict__ xc, const float* __restrict__ xk,
@@ -726,7 +752,7 @@ __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kGroup, 4)
   const int row0 = static_cast<int>(blockIdx.x / kSplit) * kMeanRows;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3;
-  const MeanLayout L(fc, fk);
+  const MeanLayout L(fc, fk, kStream);
   float* s_x0 = smem + L.x0;
   float* s_nq = smem + L.nq;       // [kMeanRows] {continuous, categorical}
   const int ntiles = (n + kMeanCols - 1) / kMeanCols;
@@ -823,6 +849,7 @@ __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kGroup, 4)
         s_nq[2 * r] += nc;
         s_nq[2 * r + 1] += nk;
       }
+      if (kStream) continue;
       uint4 h, l;
       split4(q, h, l);
       const size_t at =
@@ -833,6 +860,38 @@ __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kGroup, 4)
   }
   // the planes are read by the tensor cores, through the async proxy
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  // kStream: chunk c of the query rows, centred, split and swizzled into
+  // the one plane (row by row, four features a thread); then the block
+  // waits for it
+  auto plane_chunk = [&](int c) {
+    const int p0 = c * kTileK + 4 * c4;
+    const float4 o = *reinterpret_cast<const float4*>(s_x0 + p0);
+    const float* src[4];
+    int stride[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      feature_at<kCont, kCat>(qc, qk, fc, fk, L.fcp, p0 + e, src[e],
+                              stride[e]);
+    }
+#pragma unroll
+    for (int j = 0; j < kQRows; ++j) {
+      const int r = (tid >> 3) + j * (kGroup / 8);
+      const bool in = row0 + r < b;
+      float w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        w[e] = src[e] != nullptr && in
+                   ? src[e][static_cast<size_t>(row0 + r) * stride[e]] - (&o.x)[e]
+                   : 0.f;
+      }
+      uint4 h, l;
+      split4(make_float4(w[0], w[1], w[2], w[3]), h, l);
+      *reinterpret_cast<uint4*>(smem + L.qh + swizzled(r, c4)) = h;
+      *reinterpret_cast<uint4*>(smem + L.ql + swizzled(r, c4)) = l;
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+  };
 
   float accc[32], acck[32], xn[2][2];
   double part[16];
@@ -845,12 +904,13 @@ __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kGroup, 4)
     cp_async_wait<kRawStages - 2>();
     __syncthreads();               // unit u has landed; unit u - 1's stage
     stage();                       // is free for unit u + kRawStages - 1
+    if (kStream) plane_chunk(c);   // unit u - 1's products are done
     const float* raw = smem + L.raw + (u % kRawStages) * kRawWords;
     const float* xr = raw + (16 * warp + g) * kLdX + tq;
     if (c == 0) xn[0][0] = xn[0][1] = xn[1][0] = xn[1][1] = 0.f;
     // the cross terms, two 8-deep steps at a time (the fragments of two
     // steps in flight keep the registers within 4 blocks an SM)
-    const size_t plane = static_cast<size_t>(c) * kMeanChunk;
+    const size_t plane = kStream ? 0 : static_cast<size_t>(c) * kMeanChunk;
     const uint64_t dh = smem_desc(smem + L.qh + plane);
     const uint64_t dl = smem_desc(smem + L.ql + plane);
     float nc[2] = {0.f, 0.f}, nk[2] = {0.f, 0.f};
@@ -1117,10 +1177,18 @@ __global__ void __launch_bounds__(kSel) topk_merge_kernel(
   }
 }
 
-// Dynamic shared memory of one krows block, in floats.
-size_t krows_words(int f) {
-  return static_cast<size_t>(kKRows) * f + static_cast<size_t>(kTileN) * (f | 1) +
+// Dynamic shared memory of one krows block, in floats, for chunks of fw
+// features.
+size_t krows_words(int fw) {
+  return static_cast<size_t>(kKRows) * fw + static_cast<size_t>(kTileN) * (fw | 1) +
          kWarps * (kKRows * kTileN / kThreads);
+}
+
+// The features of one krows chunk: all f where they fit (up to 361), else
+// kKChunk.
+int krows_chunk(int f) {
+  return krows_words(f) * sizeof(float) <= static_cast<size_t>(kMaxShared)
+             ? f : kKChunk;
 }
 
 // Raise the kernel's dynamic shared memory limit to kMaxShared on the
@@ -1148,15 +1216,15 @@ struct Operands {
 };
 
 // Dynamic shared memory of one block of A, in bytes.
-size_t mean_bytes(int fc, int fk) {
-  return MeanLayout(fc, fk).words * sizeof(float);
+size_t mean_bytes(int fc, int fk, bool stream) {
+  return MeanLayout(fc, fk, stream).words * sizeof(float);
 }
 
-template <bool kCont, bool kCat>
+template <bool kCont, bool kCat, bool kStream>
 cudaError_t launch_mean(const Operands& a, float* mu, cudaStream_t stream) {
-  auto kern = gp_mean_kernel<kCont, kCat>;
+  auto kern = gp_mean_kernel<kCont, kCat, kStream>;
   static std::atomic<bool> shared_allowed[kMaxDevices];
-  const size_t smem = mean_bytes(a.fc, a.fk);
+  const size_t smem = mean_bytes(a.fc, a.fk, kStream);
   if (smem > static_cast<size_t>(kMaxShared)) return cudaErrorInvalidValue;
   const cudaError_t attr = allow_shared(kern, shared_allowed);
   if (attr != cudaSuccess) return attr;
@@ -1166,6 +1234,18 @@ cudaError_t launch_mean(const Operands& a, float* mu, cudaStream_t stream) {
   kern<<<static_cast<unsigned>(blocks), kGroup, smem, stream>>>(
       a.qc, a.qk, a.xc, a.xk, a.alpha, mu, a.b, a.n, a.fc, a.fk);
   return cudaGetLastError();
+}
+
+// A's planes hold every chunk of the query rows where they fit one block's
+// shared memory (up to 376 features), else one chunk at a time (kStream).
+// Both stay: streamed at F 31, A takes about a fifth longer on an H100
+// (a rebuild from L2 and a barrier at each unit).
+template <bool kCont, bool kCat>
+cudaError_t launch_mean(const Operands& a, float* mu, cudaStream_t stream) {
+  if (mean_bytes(a.fc, a.fk, false) <= static_cast<size_t>(kMaxShared)) {
+    return launch_mean<kCont, kCat, false>(a, mu, stream);
+  }
+  return launch_mean<kCont, kCat, true>(a, mu, stream);
 }
 
 cudaError_t mean(const Operands& a, float* mu, cudaStream_t stream) {
@@ -1228,9 +1308,8 @@ cudaError_t launch_passes(const Operands& a, const Plan& p, bool var,
   float* kscr = a.scratch + p.kscr;
   float* khi = a.scratch + p.khi;
   float* klo = a.scratch + p.klo;
-  const int f = a.fc + a.fk;
-  const size_t kr_smem = krows_words(f) * sizeof(float);
-  if (kr_smem > static_cast<size_t>(kMaxShared)) return cudaErrorInvalidValue;
+  const int fw = krows_chunk(a.fc + a.fk);
+  const size_t kr_smem = krows_words(fw) * sizeof(float);
   const dim3 kr_grid(p.tn, p.bp / kKRows);
   cudaError_t e;
   if (!var) {
@@ -1239,7 +1318,7 @@ cudaError_t launch_passes(const Operands& a, const Plan& p, bool var,
     if ((e = allow_shared(kr_mean, kr_mean_allowed)) != cudaSuccess) return e;
     kr_mean<<<kr_grid, kThreads, kr_smem, s>>>(a.qc, a.qk, a.xc, a.xk,
                                                a.alpha, a.b, a.n, a.fc, a.fk,
-                                               p.np, p.bp, nullptr, mupart);
+                                               fw, p.np, p.bp, nullptr, mupart);
     return cudaGetLastError();
   }
   kinv_prep_kernel<<<dim3(p.np / 32, p.np / 32), kThreads, 0, s>>>(
@@ -1250,7 +1329,7 @@ cudaError_t launch_passes(const Operands& a, const Plan& p, bool var,
   static std::atomic<bool> kr_allowed[kMaxDevices];
   if ((e = allow_shared(kr, kr_allowed)) != cudaSuccess) return e;
   kr<<<kr_grid, kThreads, kr_smem, s>>>(a.qc, a.qk, a.xc, a.xk, a.alpha, a.b,
-                                        a.n, a.fc, a.fk, p.np, p.bp, kscr,
+                                        a.n, a.fc, a.fk, fw, p.np, p.bp, kscr,
                                         mupart);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
@@ -1344,25 +1423,20 @@ Operands operands(const void* qc, const void* qk, const void* xc,
 
 // The largest number of training rows n that A takes with f = fc + fk
 // features, however they split: its blocks keep nothing of size n in shared
-// memory, so n is not limited (INT_MAX); 0 when f features may not fit.
-// Two padded blocks pack at most 8 deeper than f rounded up to 8, as (f, 1)
-// does; the query rows' TF32 planes take kMeanRows x 8 bytes a packed
-// feature: f <= 376.  `var` is not used: every limit query takes (f, var).
+// memory, so n is not limited (INT_MAX), and any f >= 1 is taken (past 376
+// features the query planes hold one chunk at a time); 0 for f < 1.  `var`
+// is not used: every limit query takes (f, var).
 extern "C" int ut_gp_max_train_rows(int f, int var) {
   (void)var;
-  if (f <= 0 || mean_bytes(f, 1) > static_cast<size_t>(kMaxShared)) return 0;
-  return INT_MAX;
+  return f > 0 ? INT_MAX : 0;
 }
 
 // The same for B, C and D (either kind): their passes keep nothing of size
-// n in shared memory either; 0 when f features do not fit the kernel-row
-// block.
+// n in shared memory either, and krows takes the features in chunks past
+// 361, so any f >= 1 is taken.
 extern "C" int ut_acquire_max_train_rows(int f, int var) {
   (void)var;
-  if (f <= 0 || krows_words(f) * sizeof(float) > static_cast<size_t>(kMaxShared)) {
-    return 0;
-  }
-  return INT_MAX;
+  return f > 0 ? INT_MAX : 0;
 }
 
 // The 4-byte words of scratch B (var != 0, k = 0), C (k = 0) or D (top-k,

@@ -208,6 +208,14 @@ class Space:
         the JAX package's for the same specs."""
         return [repr(s) for s in self.specs]
 
+    def search_space_size(self) -> float:
+        """Product of per-parameter sizes (the JAX package's
+        `Space.search_space_size`)."""
+        out = 1.0
+        for s in self.specs:
+            out *= s.search_space_size()
+        return out
+
     # -- device codecs -----------------------------------------------------
     def decode_scalars(self, u: torch.Tensor) -> torch.Tensor:
         """Unit lanes [..., D] -> decoded values [..., D] float32.

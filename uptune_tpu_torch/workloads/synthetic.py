@@ -95,3 +95,37 @@ def tsp_objective(dist: np.ndarray, device: DeviceLike = "cuda"):
         perm = torch.as_tensor([c["tour"] for c in cfgs], dtype=torch.int64)
         return tsp_device(perm.to(dev), dt).cpu().numpy()
     return objective
+
+
+# gcc's --param ranges come in a few sizes (g++ 12: booleans, small
+# counts, percentages, byte sizes, INT_MAX-wide limits)
+_GCC_PARAM_HI = (1, 2, 8, 16, 100, 255, 1000, 65536, 2147483647)
+
+
+def gcc_like_records(n_flags: int = 232, n_params: int = 95,
+                     seed: int = 0) -> List[Dict]:
+    """The param records (`ut.params.json`, one stage) of a space shaped
+    like `samples/gcc-options/tune_gcc.py`'s over a mined g++ (232 flags
+    and 95 params with g++ 12.2), without mining a compiler: `olevel`
+    over -O0..-O3, each flag an on / off / default tri-state, each
+    param an int range with its default, then `block_size`.  The port's
+    Space over them has n_cat = 1 + n_flags (4 codes at most) and
+    n_params + 1 numeric lanes: a GP feature width of 96 + 233 x 4 = 1028
+    at the defaults."""
+    r = np.random.RandomState(seed)
+    recs: List[Dict] = [{"name": "olevel", "type": "enum",
+                         "default": "-O2",
+                         "options": ["-O0", "-O1", "-O2", "-O3"]}]
+    for i in range(n_flags):
+        recs.append({"name": f"-fflag-{i:03d}", "type": "enum",
+                     "default": "default",
+                     "options": ["default", "on", "off"]})
+    for i in range(n_params):
+        lo = int(r.randint(0, 2))
+        hi = max(lo + 1, int(_GCC_PARAM_HI[r.randint(len(_GCC_PARAM_HI))]))
+        recs.append({"name": f"param-{i:03d}", "type": "int",
+                     "default": int(r.randint(lo, min(hi, 1 << 20) + 1)),
+                     "lo": lo, "hi": hi})
+    recs.append({"name": "block_size", "type": "int", "default": 16,
+                 "lo": 4, "hi": 128})
+    return recs
