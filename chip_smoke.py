@@ -7,8 +7,13 @@ toolkit:
     python3 chip_smoke.py              # the full check (one card)
     python3 chip_smoke.py --profile    # also a torch.profiler window
     python3 chip_smoke.py --gp-times --tree DIR
-                                       # A-D's times at F 31 from the
-                                       # checkout DIR (the A/B mode)
+                                       # A-D's times and passes at F 31
+                                       # and F 1028 from the checkout
+                                       # DIR (the A/B mode)
+    python3 chip_smoke.py --phases gp_wide,obs
+                                       # these phases (and those whose
+                                       # results they take) alone, for
+                                       # an A/B call; no ok line
 
 It imports nothing of JAX or of the JAX package.  TF32 is switched off
 for matrix products (the GP's distances and Cholesky are f32) and the
@@ -61,12 +66,16 @@ setting is printed.  Phases, each printing one JSON line:
              then `gp_wide`: A-D at the gcc-options space's width (96
              continuous lanes + 233 categorical one-hot over 4 codes,
              F = 1028, from configurations of a space shaped like the
-             mined one, `workloads.gcc_like_records`; past the widths
-             one block of krows / A held before they took chunks), a GP
+             mined one, `workloads.gcc_like_records`; past the 361
+             features where krows leaves the CUDA cores for the tensor
+             cores, and the 376 where A streams its query planes), a GP
              fitted on 1024 of them, at the main shapes (B 6040, N 1024,
-             k 128) and the manager's (B 4096, N 32-256, k 32), and a
-             continuous-only and a categorical-only state of 400 lanes
-             at the main shapes (the single-kind instances), with the
+             k 128), at its near-training case (the training rows, each
+             continuous lane moved by +-0.01) and at the manager's (B
+             4096, N 32-256, k 32), and a continuous-only and a
+             categorical-only state of 400 lanes at the main shapes (the
+             single-kind instances); krows' route as the library plans
+             it at F 31, 361, 362, 400 and 1028; with the
              same rules (the nominal tolerance, or within the tolerance
              of float64 or 4x the plain version's distance from it where
              K^-1 is ill-conditioned); kernel, plain and library times
@@ -188,21 +197,33 @@ setting is printed.  Phases, each printing one JSON line:
              t_propose / t_dedup against t_eval_wait; pool utilisation);
              two runs at one worker without prefetch, the child
              importing either package, with equal archives (and the
-             child's import time, without torch); then the gcc-options
+             child's import time, without torch), the port child's run
+             traced with the tuning journal on (the trace valid, the
+             journal's step rows numbering the tickets, the children's
+             sidecar spans on the worker lane); then the gcc-options
              sample (the machine's g++ mined first, timed) through the
              CLI's main with `--learning-models gp -pf 4 --test-limit
              24 --runtime-limit 120`: a finite best beside the default
              -O2's, the width, builds, refits, no launch of D (a
              512-row pool) and the merge's launches;
-17. profile (with --profile) - device time by kernel, the idle share and
+17. obs    - the observability plane on the card: the program phase's
+             traced run; ms a ticket of the driver phase's Tuner with
+             obs off and with trace + journal on, in turns (the ratio
+             beside the JAX package's 0.95x bar); one `record_window`
+             of the surrogate-scored flagship step (through the
+             instrumented engine.run, C's counted work) against the
+             H100 peaks of `obs.device.PEAKS`; and the size of a
+             `--device-trace` capture of three such steps, which must
+             hold CUDA kernels and the host spans' ranges;
+18. profile (with --profile) - device time by kernel, the idle share and
              the host synchronisations over a few plain, surrogate-scored
              (by launcher C, then by `score_flat` through A and through B),
              batched (N = 256 and the N = 4 flagship) and portfolio
              (plain and scored flagship, batched N = 256) engine steps
              and driver tickets (plain, and with the calibrated GP
              manager), and the device time of A's kernel and of each
-             pass of B, C and D;
-18. kernels - one entry per kernel: launches on the main path, error
+             pass of B, C and D at F 31 and at F 1028;
+19. kernels - one entry per kernel: launches on the main path, error
              against the plain version (and, for the GP kernels, its
              largest ratio to the tolerance), times and bound; the merge
              also over its instance axis and at the driver's shape, and
@@ -334,12 +355,17 @@ WIDE_MANAGER_N = (32, 64, 128, 256)
 # lanes of the continuous-only and the categorical-only wide states (400
 # floats; 100 enums one-hot over 4 codes), past both limits too
 WIDE_SINGLE = 400
+# widths at which gp_wide reads krows' route from the library: either side
+# of the 361 features one CUDA-core block holds, and the wide states'
+KROWS_ROUTE_WIDTHS = (31, 361, 362, WIDE_SINGLE, 1028)
 WIDE_KEYS = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
              "max_err_over_tol")
 # program mode: the rosenbrock sample's trials through the CLI and in
 # process, the trials of its resume, of the lockstep runs, and of the
 # gcc-options tune (builds of ~3 s each)
 PROGRAM_LIMIT, PROGRAM_RESUME, PROGRAM_LOCKSTEP, GCC_LIMIT = 200, 250, 60, 24
+# the obs phase: surrogate-scored flagship steps in its record_window
+OBS_STEPS = 20
 
 
 def emit(obj) -> None:
@@ -952,34 +978,10 @@ def gp_kernels_phase(cases) -> tuple:
     out["gp_mean_var_scratch_bytes"] = 4 * ps.scratch_words(
         ps.MEAN_VAR_KERNEL, b, n, True)
 
-    def lib_mean():                  # the materialized [B, N] cross-kernel
-        return ps.tile_moments(ps.kernel_tile(*blocks[:4]), blocks.alpha)[0]
-
-    def lib_mean_var():
-        return ps.tile_moments(ps.kernel_tile(*blocks[:4]), blocks.alpha,
-                               kinv)
-
-    timed = {
-        "gp_mean": (lambda: ps.mean_tile_cuda(*blocks),
-                    lambda: ps.mean_tile_plain(*blocks), lib_mean,
-                    gp_bound(b, n, f, False, 4 * b), shape),
-        "gp_mean_var": (lambda: ps.mean_var_tile_cuda(*blocks, kinv),
-                        lambda: ps.mean_var_tile_plain(*blocks, kinv),
-                        lib_mean_var, gp_bound(b, n, f, True, 8 * b),
-                        shape),
-        "acquire_scores": (
-            lambda: acq.scores_cuda(*blocks, kinv, params, "ei"),
-            lambda: acq.utilities_plain(*blocks, kinv, params, "ei"),
-            lambda: acq.utilities_ref(*blocks, kinv, params, "ei"),
-            gp_bound(b, n, f, True, 4 * b + 20), shape + " kind=ei"),
-        "acquire_topk": (
-            lambda: acq.topk_cuda(*blocks, kinv, params, "ei", TOP_K),
-            lambda: acq.topk_plain(*blocks, kinv, params, "ei", TOP_K),
-            lambda: acq.select_topk(
-                acq.utilities_ref(*blocks, kinv, params, "ei"), TOP_K),
-            gp_bound(b, n, f, True, 8 * TOP_K + 20),
-            shape + f" kind=ei k={TOP_K}"),
-    }
+    bounds = launcher_bounds(b, n, f, shape)
+    plain = plain_calls(blocks, kinv, params)
+    timed = {name: (kern, *plain[name], *bounds[name])
+             for name, kern in launcher_calls(blocks, kinv, params).items()}
     times = {}
     for name, (kern, plain, lib, bound, shp) in timed.items():
         times[name] = dict(bound, shape=shp, max_abs_err=err[name],
@@ -996,33 +998,86 @@ def gp_kernels_phase(cases) -> tuple:
     return out, times
 
 
+def launcher_calls(blocks, kinv, params) -> dict:
+    """A-D on one set of operands (kind EI, D's k = TOP_K), by kernel
+    name: the calls every timing and profile of them makes."""
+    from uptune_tpu_torch.ops import acquire as acq
+    from uptune_tpu_torch.surrogate import pallas_score as ps
+    return {"gp_mean": lambda: ps.mean_tile_cuda(*blocks),
+            "gp_mean_var": lambda: ps.mean_var_tile_cuda(*blocks, kinv),
+            "acquire_scores": lambda: acq.scores_cuda(*blocks, kinv, params,
+                                                      "ei"),
+            "acquire_topk": lambda: acq.topk_cuda(*blocks, kinv, params,
+                                                  "ei", TOP_K)}
+
+
+def launcher_bounds(b: int, n: int, f: int, shape: str) -> dict:
+    """A-D's bounds (`gp_bound`) and shape labels at B query rows, N
+    training rows and F features, by kernel name: (bound, shape)."""
+    return {"gp_mean": (gp_bound(b, n, f, False, 4 * b), shape),
+            "gp_mean_var": (gp_bound(b, n, f, True, 8 * b), shape),
+            "acquire_scores": (gp_bound(b, n, f, True, 4 * b + 20),
+                               shape + " kind=ei"),
+            "acquire_topk": (gp_bound(b, n, f, True, 8 * TOP_K + 20),
+                             shape + f" kind=ei k={TOP_K}")}
+
+
+def plain_calls(blocks, kinv, params) -> dict:
+    """A-D's plain versions and library stagings on the same operands:
+    {kernel name: (plain, library)}."""
+    from uptune_tpu_torch.ops import acquire as acq
+    from uptune_tpu_torch.surrogate import pallas_score as ps
+    return {
+        "gp_mean": (lambda: ps.mean_tile_plain(*blocks),
+                    lambda: ps.tile_moments(ps.kernel_tile(*blocks[:4]),
+                                            blocks.alpha)[0]),
+        "gp_mean_var": (lambda: ps.mean_var_tile_plain(*blocks, kinv),
+                        lambda: ps.tile_moments(ps.kernel_tile(*blocks[:4]),
+                                                blocks.alpha, kinv)),
+        "acquire_scores": (
+            lambda: acq.utilities_plain(*blocks, kinv, params, "ei"),
+            lambda: acq.utilities_ref(*blocks, kinv, params, "ei")),
+        "acquire_topk": (
+            lambda: acq.topk_plain(*blocks, kinv, params, "ei", TOP_K),
+            lambda: acq.select_topk(
+                acq.utilities_ref(*blocks, kinv, params, "ei"), TOP_K))}
+
+
 def gp_times_phase(dev) -> dict:
-    """A-D's kernel times alone at the main state (B 6040, N 1024, F 31,
-    EI, k 128): CUDA events around graph replays, the median of REPS.
+    """A-D's kernel times alone (CUDA events around graph replays, the
+    median of REPS) at the main state (B 6040, N 1024, F 31, EI, k 128)
+    and at gp_wide's (the same shapes at F 1028), with each launcher's
+    passes profiled at both and, at F 1028, the plain and library times.
     The A/B mode (`--gp-times --tree DIR`): run once for each tree in
     turns (parent, change, change, parent), one process each; it calls
     only entry points the parent trees have too."""
     from uptune_tpu_torch.flagship import flagship_surrogate
     from uptune_tpu_torch.ops import acquire as acq
     from uptune_tpu_torch.surrogate import gp
-    from uptune_tpu_torch.surrogate import pallas_score as ps
     x, y, (nc, ncat) = flagship_surrogate(N_TRAIN, SEED + 1, dev)
     xq, _, _ = flagship_surrogate(6040, SEED + 2, dev)
     st = gp.precompute_kinv(gp.fit_auto_bucketed(
         x, y, max_points=N_TRAIN, n_cont=nc, n_cat=ncat))
-    blocks, kinv, params = acq.prep(st, xq, "ei", float(y.min()), BETA,
-                                    nc, ncat)
-    fns = {"gp_mean": lambda: ps.mean_tile_cuda(*blocks),
-           "gp_mean_var": lambda: ps.mean_var_tile_cuda(*blocks, kinv),
-           "acquire_scores": lambda: acq.scores_cuda(*blocks, kinv, params,
-                                                     "ei"),
-           "acquire_topk": lambda: acq.topk_cuda(*blocks, kinv, params,
-                                                 "ei", TOP_K)}
+    states = {"f31": (st, xq, float(y.min()), nc, ncat)}
+    x, y, (nc, ncat) = wide_surrogate("gcc", WIDE_N_TRAIN, SEED + 41, dev)
+    xq, _, _ = wide_surrogate("gcc", 6040, SEED + 42, dev)
+    st = gp.precompute_kinv(gp.fit_auto_bucketed(
+        x, y, max_points=WIDE_N_TRAIN, n_cont=nc, n_cat=ncat))
+    states[f"f{x.shape[1]}"] = (st, xq, float(y.min()), nc, ncat)
     out = {"phase": "gp_times", "tree": str(Path(
-        sys.modules["uptune_tpu_torch"].__file__).parent.parent),
-        "shape": f"B={xq.shape[0]} N={N_TRAIN} F={xq.shape[1]} kind=ei "
-                 f"k={TOP_K}",
-        "ms": {name: median_ms(fn) for name, fn in fns.items()}}
+        sys.modules["uptune_tpu_torch"].__file__).parent.parent)}
+    for key, (st, xq, best, nc, ncat) in states.items():
+        blocks, kinv, params = acq.prep(st, xq, "ei", best, BETA, nc, ncat)
+        fns = launcher_calls(blocks, kinv, params)
+        out[key] = {"shape": f"B={xq.shape[0]} N={st.x.shape[0]} "
+                             f"F={xq.shape[1]} kind=ei k={TOP_K}",
+                    "ms": {name: median_ms(fn) for name, fn in fns.items()}}
+        if key != "f31":
+            out[key]["plain_ms"], out[key]["library_ms"] = (
+                {name: median_ms(c[i], reps=10)
+                 for name, c in plain_calls(blocks, kinv, params).items()}
+                for i in (0, 1))
+        out[key]["passes"] = passes_profile(fns)
     emit(out)
     return out
 
@@ -1168,6 +1223,21 @@ def gp_wide_phase(dev) -> dict:
            "cases": []}
     out["cases"].append(wide_case(f"gcc_f{x.shape[1]}_n{WIDE_N_TRAIN}",
                                   main, xq, float(y.min()), nc, ncat, TOP_K))
+    # the training rows themselves, each continuous lane moved by +-NEAR:
+    # the categorical distances are 0 and the continuous ones tiny, where
+    # |q|^2 + |x|^2 - 2 q.x cancels the most and the sd is smallest
+    gen = torch.Generator().manual_seed(SEED + 45)
+    near = x.clone()
+    near[:, :nc] += NEAR * (torch.randint(0, 2, (WIDE_N_TRAIN, nc),
+                                          generator=gen) * 2.0 - 1.0).to(dev)
+    out["cases"].append(wide_case(
+        f"gcc_f{x.shape[1]}_near_training", main, near.contiguous(),
+        float(y.min()), nc, ncat, TOP_K))
+    nb, nkinv, _ = acq.prep(main, near.contiguous(), "ei", 0.0, BETA, nc,
+                            ncat)
+    out["cases"][-1]["min_sd_over_y_std"] = float(ps.target_moments(
+        *ps.mean_var_tile_plain(*nb, nkinv), main.noise, main.y_mean,
+        main.y_std)[1].min() / main.y_std)
     mq = xq[:WIDE_MANAGER_B].contiguous()
     states = {}
     for n in WIDE_MANAGER_N:
@@ -1188,7 +1258,14 @@ def gp_wide_phase(dev) -> dict:
         singles[kind] = (st, xqs, float(ys.min()), ncs, ncats)
         out["cases"].append(wide_case(
             f"{kind}_f{xs.shape[1]}_n{WIDE_N_TRAIN}", *singles[kind], TOP_K))
+    # krows' route by width, as the library plans it: the CUDA cores up
+    # to 361 features, the tensor cores past that
+    routes = {f: ps.krows_route(f) for f in KROWS_ROUTE_WIDTHS}
+    out["krows_route"] = {str(f): r for f, r in routes.items()}
     bad = [c for c in out["cases"] if not c["ok"]]
+    if routes != {f: "tensor_cores" if f > 361 else "cuda_cores"
+                  for f in KROWS_ROUTE_WIDTHS}:
+        bad.append(f"krows routes {routes}")
     if bad or min(out["limits"].values()) < WIDE_N_TRAIN:
         emit(out)
         raise AssertionError(f"gp kernels at F={x.shape[1]}: {bad}, "
@@ -1199,39 +1276,19 @@ def gp_wide_phase(dev) -> dict:
     b, f = xq.shape
     n = WIDE_N_TRAIN
     shape = f"B={b} N={n} F={f} (Fc={nc} Fk={f - nc})"
-    timed = {
-        "gp_mean": (lambda: ps.mean_tile_cuda(*blocks),
-                    lambda: ps.mean_tile_plain(*blocks),
-                    lambda: ps.tile_moments(ps.kernel_tile(*blocks[:4]),
-                                            blocks.alpha)[0],
-                    gp_bound(b, n, f, False, 4 * b), shape),
-        "gp_mean_var": (lambda: ps.mean_var_tile_cuda(*blocks, kinv),
-                        lambda: ps.mean_var_tile_plain(*blocks, kinv),
-                        lambda: ps.tile_moments(ps.kernel_tile(
-                            *blocks[:4]), blocks.alpha, kinv),
-                        gp_bound(b, n, f, True, 8 * b), shape),
-        "acquire_scores": (
-            lambda: acq.scores_cuda(*blocks, kinv, params, "ei"),
-            lambda: acq.utilities_plain(*blocks, kinv, params, "ei"),
-            lambda: acq.utilities_ref(*blocks, kinv, params, "ei"),
-            gp_bound(b, n, f, True, 4 * b + 20), shape + " kind=ei"),
-        "acquire_topk": (
-            lambda: acq.topk_cuda(*blocks, kinv, params, "ei", TOP_K),
-            lambda: acq.topk_plain(*blocks, kinv, params, "ei", TOP_K),
-            lambda: acq.select_topk(
-                acq.utilities_ref(*blocks, kinv, params, "ei"), TOP_K),
-            gp_bound(b, n, f, True, 8 * TOP_K + 20),
-            shape + f" kind=ei k={TOP_K}"),
-    }
+    bounds = launcher_bounds(b, n, f, shape)
     main_case = out["cases"][0]["checks"]
+    plain = plain_calls(blocks, kinv, params)
     times = {}
-    for name, (kern, plain, lib, bound, shp) in timed.items():
+    for name, kern in launcher_calls(blocks, kinv, params).items():
+        bound, shp = bounds[name]
         times[name] = dict(
             bound, shape=shp,
             max_err_over_tol=max(c["err_over_tol"] for c in main_case
                                  if c["kernel"] == name),
-            ms=median_ms(kern, reps=20), plain_ms=median_ms(plain, reps=10),
-            library_ms=median_ms(lib, reps=10))
+            ms=median_ms(kern, reps=20),
+            plain_ms=median_ms(plain[name][0], reps=10),
+            library_ms=median_ms(plain[name][1], reps=10))
     manager = {}
     for n, st in states.items():
         blocks, kinv, params = acq.prep(st, mq, "ei", float(y[:n].min()),
@@ -1269,6 +1326,7 @@ def gp_wide_phase(dev) -> dict:
     out["timed"], out["topk_manager_timed"] = times, manager
     out["single_kind_timed"] = single_timed
     emit(out)
+    out["main_state"] = (main, xq, float(y.min()), nc, ncat)
     return out
 
 
@@ -2959,6 +3017,47 @@ def program_tuner(d: Path, dev, seed: int, **kw):
     return pt, rec.stats, commits
 
 
+def traced_program_run(pt, stats, commits, d: Path, bad: list) -> dict:
+    """Run a one-worker ProgramTuner traced, with the tuning journal on:
+    the exported trace passes `validate_trace`, the journal's step rows
+    number the tickets (the committing ones are those that evaluated a
+    trial), and the children's sidecar spans land on the worker lane,
+    one child.target a build.  -> its numbers."""
+    from uptune_tpu_torch import obs
+    jpath, tpath = d / "run.journal.jsonl", d / "run.trace.json"
+    obs.reset()
+    obs.enable()
+    mon = obs.start_journal(str(jpath))
+    t0 = time.perf_counter()
+    try:
+        pt.run()
+    finally:
+        obs.stop_journal(mon)
+    wall = time.perf_counter() - t0
+    doc = obs.write_trace(str(tpath))
+    evs = obs.snapshot()["events"]
+    obs.reset()
+    obs.validate_trace(json.load(open(tpath)))
+    _, rows = obs.journal.read(str(jpath), strict=True)
+    steps = [r for r in rows if r["ev"] == "step"]
+    child = [e for e in evs if e["name"].startswith("child.")]
+    out = {"seconds": wall, "trace_events": len(doc["traceEvents"]),
+           "trace_bytes": tpath.stat().st_size,
+           "journal_rows": len(rows), "step_rows": len(steps),
+           "tickets": len(stats), "commits": commits[0],
+           "builds": pt.pool.launched,
+           "child_events": len(child),
+           "child_lanes": sorted({e["track"] for e in child}),
+           "child_targets": sum(e["name"] == "child.target"
+                                for e in child)}
+    if not ([r["step"] for r in steps] == list(range(1, len(stats) + 1))
+            and sum(1 for r in steps if r["evaluated"]) == commits[0]
+            and out["child_lanes"] == ["worker-0"]
+            and out["child_targets"] == pt.pool.launched):
+        bad.append(f"traced program run: {out}")
+    return out
+
+
 def program_phase(dev) -> dict:
     """Program mode on the card (see the module docstring): the unchanged
     rosenbrock sample through the port's CLI, its resume and the same
@@ -3071,9 +3170,14 @@ def program_phase(dev) -> dict:
             src = (d / "rosenbrock.py").read_text()
             (d / "rosenbrock.py").write_text(src.replace(
                 "import uptune_tpu as ut", f"import {pkg} as ut"))
-            p1, _, _ = program_tuner(d, dev, 1, parallel=1, prefetch=0,
-                                     test_limit=PROGRAM_LOCKSTEP)
-            p1.run()
+            p1, st1, c1 = program_tuner(d, dev, 1, parallel=1, prefetch=0,
+                                        test_limit=PROGRAM_LOCKSTEP)
+            if pkg == "uptune_tpu_torch":
+                # the port's child, the run traced with the journal on:
+                # its archive must still equal the untraced run's
+                out["traced"] = traced_program_run(p1, st1, c1, d, bad)
+            else:
+                p1.run()
             arcs[pkg] = [(r["cfg"], r["qor"])
                          for r in read_archive(d / "ut.archive.jsonl")]
         code = ("import sys, time; t = time.perf_counter(); "
@@ -3157,12 +3261,127 @@ def program_phase(dev) -> dict:
     return out
 
 
+def obs_phase(engine, prog: dict, cases, dev) -> dict:
+    """The observability plane on the card (see the module docstring):
+    the program phase's traced run, the driver's Tuner with obs off and
+    with trace + journal on in turns, one `record_window` of the
+    surrogate-scored flagship step against the H100 peaks, and a
+    `--device-trace` capture."""
+    import shutil
+    import tempfile
+
+    from uptune_tpu_torch import obs
+    from uptune_tpu_torch.engine.batched import surrogate_eval_fn
+    out = {"phase": "obs", "program": prog["traced"]}
+    bad = []
+    tmp = Path(tempfile.mkdtemp(prefix="ut_obs_"))
+    try:
+        # (a) the driver phase's Tuner (the same tune each time), obs off
+        # and with trace + journal on, in turns; the bar is the JAX
+        # package's: traced throughput >= 0.95x of untraced
+        warm, _, _ = driver_tuner(dev, DRIVER_CAP, SEED + 30)
+        warm.run(test_limit=DRIVER_WARM)
+        ms = {"off": [], "on": []}
+        for i, mode in enumerate(("off", "on", "on", "off")):
+            t, stats, _ = driver_tuner(dev, DRIVER_CAP, SEED + 31)
+            mon = None
+            if mode == "on":
+                obs.reset()
+                obs.enable()
+                mon = obs.start_journal(str(tmp / f"driver{i}.jsonl"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.run(test_limit=DRIVER_LIMIT)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if mode == "on":
+                obs.stop_journal(mon)
+                doc = obs.chrome_trace()
+                obs.validate_trace(doc)
+                out["driver_trace_events"] = len(doc["traceEvents"])
+                obs.reset()
+            ms[mode].append(dt * 1e3 / len(stats))
+            t.close()
+        out["driver"] = {
+            "tickets": len(stats), "ms_per_ticket_off": ms["off"],
+            "ms_per_ticket_on": ms["on"],
+            "throughput_ratio": statistics.mean(ms["off"])
+            / statistics.mean(ms["on"]),
+            "bar": 0.95}
+
+        # (b) the surrogate-scored flagship step (launcher C a step)
+        # through the instrumented engine.run, one window against the
+        # H100 peaks; its cost is C's counted work
+        eng, st, _ = engine
+        st_gp, xq, best, nc, ncat = cases["mixed_n1024"]
+        ev = surrogate_eval_fn(eng.space, st_gp, kind="ei", best_y=best,
+                               impl="fused", n_cont=nc, n_cat=ncat)
+        eng.run(st, 1, eval_fn=ev)                  # warm
+        cost = gp_bound(xq.shape[0], st_gp.x.shape[0], xq.shape[1], True,
+                        4 * xq.shape[0] + 20)
+        obs.reset()
+        obs.enable()
+        obs.device.set_cost("engine.run", {
+            "flops": cost["flops"] * OBS_STEPS,
+            "bytes_accessed": cost["bytes"] * OBS_STEPS})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(st, OBS_STEPS, eval_fn=ev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        win = obs.device.record_window("engine.run", wall)
+        prog_rec = obs.device.programs()["engine.run"]
+        out["record_window"] = {
+            "program": "engine.run", "steps": OBS_STEPS,
+            "device_kind": torch.cuda.get_device_name(0),
+            "wall_ms_per_step": wall * 1e3 / OBS_STEPS,
+            "device_window_ms_per_step":
+                prog_rec["device_s"] * 1e3 / OBS_STEPS,
+            "cost": "launcher C's counted FLOPs and bytes a step "
+                    "(gp_bound); the step's other ops are not counted",
+            **win}
+        if not (win.get("peak_flops_per_s") and "mxu_util" in win
+                and prog_rec["device_windows"] == 1):
+            bad.append(f"record_window: {out['record_window']}")
+
+        # (c) a --device-trace capture of a few of those steps: CUDA
+        # kernels and the host spans' record_function ranges in one file
+        d = tmp / "device_trace"
+        obs.device.start_trace(str(d))
+        eng.run(st, 3, eval_fn=ev)
+        torch.cuda.synchronize()
+        obs.device.stop_trace()
+        host = obs.chrome_trace()
+        obs.validate_trace(host)
+        f = d / obs.device.TRACE_FILE
+        devdoc = json.load(open(f))
+        evs = devdoc.get("traceEvents", [])
+        out["device_trace"] = {
+            "bytes": f.stat().st_size, "events": len(evs),
+            "kernel_events": sum(e.get("cat") == "kernel" for e in evs),
+            "host_ranges": sum(e.get("name") == "engine.run" for e in evs),
+            "referenced": host["otherData"].get("device_trace") == str(d)}
+        obs.reset()
+        if not (out["device_trace"]["kernel_events"]
+                and out["device_trace"]["host_ranges"]
+                and out["device_trace"]["referenced"]):
+            bad.append(f"device trace: {out['device_trace']}")
+    finally:
+        obs.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(out)
+    if bad:
+        raise AssertionError("obs: " + "; ".join(bad))
+    return out
+
+
 # the short name of every kernel function of csrc/*.cu (with its template
 # arguments) within ptxas's mangled one
 PTXAS_KERNEL = re.compile(
     r"(merge_rows_kernelILi\d+E|launch_floor_kernel|kinv_prep_kernel|"
     r"wq_kernel|moments_kernel|topk_merge_kernel|final_kernelILb\dE|"
-    r"krows_kernelILb\dELb\dELb\dE|gp_mean_kernelILb\dELb\dELb\dE)")
+    r"krows_kernelILb\dELb\dELb\dE|krows_mma_kernelILb\dELb\dELb\dE|"
+    r"gp_mean_kernelILb\dELb\dELb\dE)")
 
 
 def ptxas_summary(log: str) -> list:
@@ -3209,33 +3428,121 @@ def profile_phase(step, st, ms_per_step: float, steps: int = 5,
                   for us, k, n in rows[:20]]})
 
 
-def passes_profile(cases, calls: int = 10) -> None:
-    """Device time by kernel of A's kernel and of B's, C's and D's passes
-    at the main state: a torch.profiler window over `calls` calls of each
-    launcher."""
+def passes_profile(fns: dict, calls: int = 10) -> dict:
+    """Device time by kernel of each launcher's kernels (A's one, B's,
+    C's and D's passes): a torch.profiler window over `calls` calls of
+    each of `fns` ({kernel name: call}, `launcher_calls`)."""
     from torch.autograd import DeviceType
-    from uptune_tpu_torch.ops import acquire as acq
-    from uptune_tpu_torch.surrogate import pallas_score as ps
-    st, xq, best, nc, ncat = cases["mixed_n1024"]
-    blocks, kinv, params = acq.prep(st, xq, "ei", best, BETA, nc, ncat)
-    runs = {"gp_mean": lambda: ps.mean_tile_cuda(*blocks),
-            "gp_mean_var": lambda: ps.mean_var_tile_cuda(*blocks, kinv),
-            "acquire_scores": lambda: acq.scores_cuda(*blocks, kinv, params,
-                                                      "ei"),
-            "acquire_topk": lambda: acq.topk_cuda(*blocks, kinv, params, "ei",
-                                                  TOP_K)}
-    for name, fn in runs.items():
+    out = {}
+    for name, fn in fns.items():
         fn()
         prof = profiled(lambda: [fn() for _ in range(calls)])
         rows = sorted(((e.self_device_time_total, e.key, e.count)
                        for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA
                        and SENTINEL_KERNEL not in e.key), reverse=True)
-        emit({"phase": "profile", "path": f"{name}_passes", "calls": calls,
-              "device_us_per_call": sum(r[0] for r in rows) / calls,
-              "passes": [{"name": k[:90], "device_us_per_call": us / calls,
-                          "count_per_call": c / calls}
-                         for us, k, c in rows]})
+        out[name] = {"device_us_per_call": sum(r[0] for r in rows) / calls,
+                     "passes": [{"name": k[:90],
+                                 "device_us_per_call": us / calls,
+                                 "count_per_call": c / calls}
+                                for us, k, c in rows]}
+    return out
+
+
+def emit_passes(cases, wide_state) -> None:
+    """The passes profile at the main state (F 31) and at gp_wide's main
+    state (F 1028), one profile line each."""
+    from uptune_tpu_torch.ops import acquire as acq
+    for key, (st, xq, best, nc, ncat) in (("mixed_n1024", cases["mixed_n1024"]),
+                                          ("gp_wide", wide_state)):
+        blocks, kinv, params = acq.prep(st, xq, "ei", best, BETA, nc, ncat)
+        for name, v in passes_profile(
+                launcher_calls(blocks, kinv, params)).items():
+            emit({"phase": "profile", "path": f"{name}_passes",
+                  "state": key, "features": int(xq.shape[1]), **v})
+
+
+# the phases of a full run, in order, each with the phases whose results
+# it takes (`--phases` runs those too)
+PHASES = {
+    "merge": (), "surrogate": (), "gp_kernels": ("surrogate",),
+    "gp_wide": (), "engine": (), "reference": ("engine",),
+    "surrogate_engine": ("engine", "surrogate"), "batched": (),
+    "batched_flagship": ("surrogate",), "tf32": ("surrogate",),
+    "portfolio_flagship": ("surrogate",), "portfolio_batched": (),
+    "driver": (), "surrogate_driver": (), "program": (),
+    "obs": ("engine", "surrogate", "program"),
+}
+
+
+def phases_to_run(names) -> list:
+    """The phases `--phases` names (None: all of them) with the phases
+    they take results from, in the full run's order."""
+    if names is None:
+        return list(PHASES)
+    want = set()
+
+    def add(name):
+        if name not in PHASES:
+            raise SystemExit(f"chip_smoke: no phase {name!r} (phases: "
+                             f"{', '.join(PHASES)})")
+        want.add(name)
+        for dep in PHASES[name]:
+            add(dep)
+    for name in names:
+        add(name)
+    return [name for name in PHASES if name in want]
+
+
+def profile_paths(r: dict) -> None:
+    """With --profile: device time by kernel over a few steps or tickets
+    of every path whose phase ran, and the passes of A-D at F 31 and
+    F 1028."""
+    if "engine" in r:
+        eng, st, engine = r["engine"]
+        profile_phase(eng.step, st, engine["ms_per_step"])
+    if "surrogate_engine" in r:
+        eng = r["engine"][0]
+        surr, st_s, ev, ev_mean, ev_ei = r["surrogate_engine"]
+        profile_phase(lambda s: eng.step(s, eval_fn=ev), st_s,
+                      surr["fused_ms_per_step"], name="surrogate_engine")
+        profile_phase(lambda s: eng.step(s, eval_fn=ev_mean), st_s,
+                      surr["score_flat_ms_per_step"],
+                      name="score_flat_mean_engine")
+        profile_phase(lambda s: eng.step(s, eval_fn=ev_ei), st_s,
+                      surr["score_flat_ms_per_step"],
+                      name="score_flat_ei_engine")
+    if "batched" in r:
+        multi, (be_m, st_m) = r["batched"]
+        profile_phase(lambda s: be_m.run(s, 1), st_m,
+                      multi["runs"][0]["ms_per_step"],
+                      name=f"batched_n{MULTI_N}")
+    if "batched_flagship" in r:
+        flag, (be_f, st_f, ev_f) = r["batched_flagship"]
+        profile_phase(lambda s: be_f.run(s, 1, eval_fn=ev_f), st_f,
+                      flag["ms_per_step"], name=f"batched_flagship_n{BF_N}")
+    if "portfolio_flagship" in r:
+        pflag, (eng_pf, st_pf, ev_pf) = r["portfolio_flagship"]
+        profile_phase(eng_pf.step, st_pf, pflag["plain_ms_per_step"],
+                      name="portfolio_flagship")
+        profile_phase(lambda s: eng_pf.step(s, eval_fn=ev_pf), st_pf,
+                      pflag["scored_ms_per_step"],
+                      name="portfolio_flagship_scored")
+    if "portfolio_batched" in r:
+        pbat, (be_pb, st_pb) = r["portfolio_batched"]
+        profile_phase(lambda s: be_pb.run(s, 1), st_pb, pbat["ms_per_step"],
+                      name=f"portfolio_batched_n{PB_N}")
+    if "driver" in r:
+        drv, tuner = r["driver"]
+        profile_phase(lambda s: (tuner.step(), s)[1], None,
+                      drv["ms_per_ticket"], name="driver_ticket")
+    if "surrogate_driver" in r:
+        sdrv, stuner = r["surrogate_driver"]
+        profile_phase(lambda s: (stuner.step(), s)[1], None,
+                      sdrv["calibrated"]["ms_per_ticket"],
+                      name="surrogate_driver_ticket")
+    if "surrogate" in r and "gp_wide" in r:
+        emit_passes(r["surrogate"][0], r["gp_wide"]["main_state"])
 
 
 # -- main --------------------------------------------------------------------------
@@ -3244,12 +3551,19 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile a few engine steps")
     ap.add_argument("--gp-times", action="store_true",
-                    help="time A-D at the main state alone (the A/B mode; "
-                         "no ok line)")
+                    help="time A-D and profile their passes at F 31 and "
+                         "F 1028 alone (the A/B mode; no ok line)")
+    ap.add_argument("--phases", type=lambda v: v.split(","), default=None,
+                    metavar="NAME,...",
+                    help="run these phases (and those whose results they "
+                         "take) for an A/B call; no kernels line and no ok "
+                         "line (phases: " + ", ".join(PHASES) + ")")
     ap.add_argument("--tree", type=Path, default=None,
                     help="with --gp-times: import the port from this "
                          "checkout instead of the script's own")
     args = ap.parse_args()
+    if args.phases is not None:
+        phases_to_run(args.phases)           # an unknown name exits here
     if args.tree is not None:
         if not args.gp_times:
             ap.error("--tree needs --gp-times")
@@ -3288,52 +3602,65 @@ def main() -> int:
           "ptxas": {str(k.library_path().relative_to(ROOT)): ptxas_summary(
               k.build_log) for k in kernels}})
 
-    merge, timed, timed_driver = merge_phase(dev, args.profile)
-    cases, feats = surrogate_phase(dev)
-    _, gp_times = gp_kernels_phase(cases)
-    wide = gp_wide_phase(dev)
-    eng, st, engine = engine_phase(dev)
-    reference_phase(eng, st, dev)
-    surr, st_s, ev, ev_mean, ev_ei = surrogate_engine_phase(eng, cases,
-                                                            feats, dev)
-    multi, (be_m, st_m) = batched_phase(dev)
-    flag, (be_f, st_f, ev_f) = batched_flagship_phase(cases, feats, dev)
-    tf32_phase(cases, feats, dev)
-    pflag, (eng_pf, st_pf, ev_pf) = portfolio_flagship_phase(cases, feats,
-                                                             dev)
-    pbat, (be_pb, st_pb) = portfolio_batched_phase(dev)
-    drv, tuner = driver_phase(dev)
-    sdrv, stuner = surrogate_driver_phase(dev)
-    prog = program_phase(dev)
+    todo = phases_to_run(args.phases)
+    r = {}
+    if "merge" in todo:
+        r["merge"] = merge_phase(dev, args.profile)
+    if "surrogate" in todo:
+        r["surrogate"] = surrogate_phase(dev)
+    if "gp_kernels" in todo:
+        r["gp_kernels"] = gp_kernels_phase(r["surrogate"][0])
+    if "gp_wide" in todo:
+        r["gp_wide"] = gp_wide_phase(dev)
+    if "engine" in todo:
+        r["engine"] = engine_phase(dev)
+    if "reference" in todo:
+        reference_phase(*r["engine"][:2], dev)
+    if "surrogate_engine" in todo:
+        r["surrogate_engine"] = surrogate_engine_phase(
+            r["engine"][0], *r["surrogate"], dev)
+    if "batched" in todo:
+        r["batched"] = batched_phase(dev)
+    if "batched_flagship" in todo:
+        r["batched_flagship"] = batched_flagship_phase(*r["surrogate"], dev)
+    if "tf32" in todo:
+        tf32_phase(*r["surrogate"], dev)
+    if "portfolio_flagship" in todo:
+        r["portfolio_flagship"] = portfolio_flagship_phase(*r["surrogate"],
+                                                           dev)
+    if "portfolio_batched" in todo:
+        r["portfolio_batched"] = portfolio_batched_phase(dev)
+    if "driver" in todo:
+        r["driver"] = driver_phase(dev)
+    if "surrogate_driver" in todo:
+        r["surrogate_driver"] = surrogate_driver_phase(dev)
+    if "program" in todo:
+        r["program"] = program_phase(dev)
+    if "obs" in todo:
+        r["obs"] = obs_phase(r["engine"], r["program"],
+                             r["surrogate"][0], dev)
     if args.profile:
-        profile_phase(eng.step, st, engine["ms_per_step"])
-        profile_phase(lambda s: eng.step(s, eval_fn=ev), st_s,
-                      surr["fused_ms_per_step"], name="surrogate_engine")
-        profile_phase(lambda s: eng.step(s, eval_fn=ev_mean), st_s,
-                      surr["score_flat_ms_per_step"],
-                      name="score_flat_mean_engine")
-        profile_phase(lambda s: eng.step(s, eval_fn=ev_ei), st_s,
-                      surr["score_flat_ms_per_step"],
-                      name="score_flat_ei_engine")
-        profile_phase(lambda s: be_m.run(s, 1), st_m,
-                      multi["runs"][0]["ms_per_step"],
-                      name=f"batched_n{MULTI_N}")
-        profile_phase(lambda s: be_f.run(s, 1, eval_fn=ev_f), st_f,
-                      flag["ms_per_step"], name=f"batched_flagship_n{BF_N}")
-        profile_phase(eng_pf.step, st_pf, pflag["plain_ms_per_step"],
-                      name="portfolio_flagship")
-        profile_phase(lambda s: eng_pf.step(s, eval_fn=ev_pf), st_pf,
-                      pflag["scored_ms_per_step"],
-                      name="portfolio_flagship_scored")
-        profile_phase(lambda s: be_pb.run(s, 1), st_pb, pbat["ms_per_step"],
-                      name=f"portfolio_batched_n{PB_N}")
-        profile_phase(lambda s: (tuner.step(), s)[1], None,
-                      drv["ms_per_ticket"], name="driver_ticket")
-        profile_phase(lambda s: (stuner.step(), s)[1], None,
-                      sdrv["calibrated"]["ms_per_ticket"],
-                      name="surrogate_driver_ticket")
-        passes_profile(cases)
+        profile_paths(r)
+    if args.phases is not None:
+        emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+              "phases": todo})
+        torch.cuda.synchronize()
+        print(smi, flush=True)
+        emit({"phases_ok": todo})
+        return 0
 
+    merge, timed, timed_driver = r["merge"]
+    _, gp_times = r["gp_kernels"]
+    wide = r["gp_wide"]
+    engine = r["engine"][2]
+    surr = r["surrogate_engine"][0]
+    multi = r["batched"][0]
+    flag = r["batched_flagship"][0]
+    pflag = r["portfolio_flagship"][0]
+    pbat = r["portfolio_batched"][0]
+    drv = r["driver"][0]
+    sdrv = r["surrogate_driver"][0]
+    prog = r["program"]
     entries = []
     for k in kernels:
         common = {"name": k.name, "route": "cuda",

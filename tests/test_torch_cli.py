@@ -2,7 +2,8 @@
 on the CPU (`--device cpu`): the unchanged samples tune under it, its
 listings equal the JAX package's `ut`, the switches it does not have yet
 are refused with code 2, it never falls back to the CPU on its own, and
-an archive written by either CLI resumes under the other."""
+an archive written by either CLI resumes under the other.  A traced,
+journaled run through the CLI is tests/test_torch_obs_e2e.py's."""
 import json
 import math
 import os
@@ -132,29 +133,65 @@ def test_print_search_space_size_equals_the_reference(tmp_path, capsys):
     assert got[-len(want):] == want
 
 
-@pytest.mark.parametrize("sub", sorted(cli.SUBCOMMANDS))
+@pytest.mark.parametrize("sub", sorted(cli.REFUSED_SUBCOMMANDS))
 def test_subcommands_are_refused(sub, capsys):
     assert cli.main([sub, "--port", "0"]) == 2
     assert "ROADMAP Queue 1 item" in capsys.readouterr().err
+
+
+def test_top_and_hub_wait_for_the_serving_plane():
+    """`top` and `hub` read and serve the serving plane's wire, so they
+    come with it (item 6), not with the observability plane."""
+    assert set(cli.SUBCOMMANDS) == {"report"}
+    for sub in ("top", "hub"):
+        assert cli.REFUSED_SUBCOMMANDS[sub].startswith("item 6")
+
+
+def test_report_subcommand_renders_a_journal(tmp_path, capsys):
+    """`ut-torch report` is the port's obs/report.py."""
+    from uptune_tpu_torch import obs
+    path = str(tmp_path / "j.jsonl")
+    obs.journal.start(path)
+    obs.journal.emit_row({"ev": "step", "step": 1, "arm": "a",
+                          "evaluated": 1, "withdrawn": False,
+                          "new_best": True, "best": 1.0, "evals": 1,
+                          "gid0": 0, "qors": [1.0]})
+    obs.journal.stop()
+    assert cli.main(["report", path, "--format", "md", "-o", "-"]) == 0
+    assert capsys.readouterr().out.startswith("# ut report")
 
 
 @pytest.mark.parametrize("flag", ["--trace", "--journal",
                                   "--metrics-interval", "--metrics-rotate",
                                   "--telemetry", "--device-trace"])
 def test_observability_flags_are_refused(flag, capsys):
-    assert cli.main(["prog.py", flag, "x"]) == 2
-    assert "item 8" in capsys.readouterr().err
-    # off is not a request
-    assert cli.main(["--list-techniques", flag, "off"]) == 0
+    """None of the JAX package's observability flags is refused any
+    more: each parses, as `off` or as a request, and the run goes on."""
+    numeric = flag in ("--metrics-interval", "--metrics-rotate")
+    for value in ("0" if numeric else "off", "1"):
+        args = cli.build_parser().parse_args(["prog.py", flag, value])
+        assert cli.refused(args) is None
+        assert cli.main(["--list-techniques", flag, value]) == 0
+    assert "refused" not in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("var", cli.OBS_ENV)
 def test_observability_variables_are_refused(var, monkeypatch, capsys):
     monkeypatch.setenv(var, "1")
     assert cli.main(["--list-techniques"]) == 2
-    assert var in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert var in err and "traces nothing" in err
     monkeypatch.setenv(var, "off")
     assert cli.main(["--list-techniques"]) == 0
+
+
+@pytest.mark.parametrize("var", ["UT_TRACE", "UT_JOURNAL", "UT_TELEMETRY",
+                                 "UT_DEVICE_TRACE"])
+def test_observability_variables_are_taken(var, monkeypatch, capsys):
+    monkeypatch.setenv(var, "1")
+    assert var not in cli.OBS_ENV
+    assert cli.main(["--list-techniques"]) == 0
+    assert "refused" not in capsys.readouterr().err
 
 
 def test_store_server_is_refused(tmp_path, capsys):

@@ -63,6 +63,11 @@ def target(val: Any, objective: str = "min") -> Any:
         STATE.cur_stage += 1
         STATE.count = 0
     elif mode == TUNE:
+        # lands in the trial's trace sidecar (when the driver traces):
+        # the moment the user program produced its QoR, visible inside
+        # the slot's build window after the reap-time merge
+        from .. import obs
+        obs.event("child.target", qor=qor, stage=STATE.cur_stage)
         n_stages = (len(STATE.params_meta) if STATE.params_meta
                     else max(1, len(STATE.recorded)))
         if n_stages <= 1:
@@ -113,8 +118,11 @@ def interm(features: Sequence[Any], shape: Optional[int] = None):
     elif mode == TUNE:
         with open(path, "w") as f:
             json.dump([[STATE.index, feats]], f)
-        # the persisted file above is what the reap path reads
-        # (exec/pool.py)
+        # rides the trial's trace sidecar when the driver traces (like
+        # child.target); the persisted file above is what the reap path
+        # reads into the tuning journal (exec/pool.py)
+        from .. import obs
+        obs.event("child.interm", n=len(feats), stage=STATE.cur_stage)
         if os.environ.get("UT_MULTI_STAGE_SAMPLE"):
             sys.exit(0)  # 'pre'-phase breakpoint
     return features
@@ -137,6 +145,11 @@ def feature(val: Any, name: str) -> Any:
     data[name] = val
     with open(path, "w") as f:
         json.dump(data, f)
+    if STATE.mode == TUNE:
+        # sidecar visibility for traced runs; the journal row itself is
+        # emitted by the driver at reap from the file just written
+        from .. import obs
+        obs.event("child.feature", covar=str(name))
     return val
 
 

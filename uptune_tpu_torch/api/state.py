@@ -54,6 +54,14 @@ class _ProtocolState:
 
     def reset(self):
         self.mode = self._detect_mode()
+        if self.mode == TUNE:
+            # trace-context propagation (docs/OBSERVABILITY.md): a
+            # traced driver exports UT_TRACE_SIDECAR into the sandbox
+            # env; this child then records its own spans and dumps
+            # them at exit for the reap-time merge.  Inert (one env
+            # check) for untraced runs.
+            from ..obs import sidecar
+            sidecar.maybe_init_child()
         self.work_dir = os.environ.get("UT_WORK_DIR", os.getcwd())
         self.index = int(os.environ.get("UT_CURR_INDEX", "0"))
         self.stage = int(os.environ.get("UT_CURR_STAGE", "0"))
@@ -115,12 +123,14 @@ class _ProtocolState:
                 self.params_meta = json.load(f)
 
     def _load_proposal(self) -> None:
+        from .. import obs
         cfg_dir = os.path.join(self.work_dir, "configs")
         path = os.path.join(
             cfg_dir, f"ut.dr_stage{self.stage}_index{self.index}.json")
-        with open(path) as f:
-            self.proposal = json.load(f)
-        self._load_params_meta()
+        with obs.span("child.load_proposal", stage=self.stage):
+            with open(path) as f:
+                self.proposal = json.load(f)
+            self._load_params_meta()
         # merge best configs of earlier stages (template/access.py:19-25,
         # types.py:124-129): stage s trials replay stages < s from their
         # published best

@@ -13,12 +13,16 @@ from these:
   proposal side runs on the card, and a host without one must ask for
   the CPU (the JAX package defaults to its CPU platform instead); there
   is no fallback;
-* the subcommands (serve, route, top, report, hub, store), the
-  observability flags (--trace, --journal, --metrics-interval,
-  --metrics-rotate, --telemetry, --device-trace), their UT_TRACE /
-  UT_JOURNAL / UT_TELEMETRY / UT_DEVICE_TRACE / UT_TRACE_GUARD variables
-  when set to anything but off, and a ``tcp://`` store exit with code 2,
-  naming the ROADMAP item that brings them;
+* the observability flags (--trace, --journal, --metrics-interval,
+  --metrics-rotate, --telemetry, --device-trace) and their UT_TRACE /
+  UT_JOURNAL / UT_TELEMETRY / UT_DEVICE_TRACE variables drive the port's
+  `obs` plane as the JAX package's drive its own; ``--device-trace`` /
+  UT_DEVICE_TRACE capture a torch.profiler Chrome trace
+  (DIR/device_trace.json) instead of an XPlane dump; ``ut-torch report``
+  renders a journal (`obs/report.py`);
+* UT_TRACE_GUARD set to anything but off, the subcommands serve, route,
+  top, hub and store, and a ``tcp://`` store exit with code 2, naming
+  the reason or the ROADMAP item that brings them;
 * ``--compile-cache-dir`` is accepted and has no effect.
 
 Mode selection is automatic (async_task_scheduler.py:465-474): template
@@ -189,13 +193,55 @@ def build_parser() -> argparse.ArgumentParser:
                         "i>0 writes ut.archive.hi.jsonl / best.hi.json; "
                         "the launcher promotes the best replica to "
                         "best.json at the end)")
-    # the JAX package's observability flags: parsed so that a JAX
-    # command line reads the same, and refused (`refused`)
-    for flag in ("--trace", "--journal", "--metrics-interval",
-                 "--metrics-rotate", "--telemetry", "--device-trace"):
-        p.add_argument(flag, default=None,
-                       help="not ported yet (ROADMAP Queue 1 item 8): "
-                            "exits with code 2")
+    p.add_argument("--trace", default=None, metavar="OUT.json",
+                   help="observability plane (docs/OBSERVABILITY.md): "
+                        "record cross-plane spans (ticket lifecycle, "
+                        "worker-slot build lanes and their subprocess "
+                        "sidecar spans, background refit, store hits) "
+                        "and write a Perfetto-viewable Chrome trace "
+                        "JSON here, plus OUT.json.metrics.jsonl with "
+                        "the flight recorder's periodic metrics "
+                        "timeline; also flushed on SIGINT/SIGTERM.  "
+                        "Also reachable via UT_TRACE=<path> or "
+                        "ut.config({'trace': ...}); 'off' disables")
+    p.add_argument("--journal", default=None, metavar="OUT.jsonl",
+                   help="tuning journal: an append-only JSONL stream of "
+                        "search decisions (arm pulls with dedup/prune "
+                        "verdicts, every tell joined with the "
+                        "surrogate's mu/sigma, store hits, snapshot "
+                        "publishes) plus live convergence/calibration "
+                        "gauges and alerts.  Render with `ut-torch "
+                        "report OUT.jsonl`.  Also reachable via "
+                        "UT_JOURNAL or ut.config({'journal': ...}); "
+                        "'off' disables")
+    p.add_argument("--metrics-interval", type=float, default=None,
+                   metavar="SECONDS",
+                   help="flight-recorder cadence for the traced run's "
+                        "metrics timeline (default 1.0; 0 disables the "
+                        "background thread and restores the single "
+                        "end-of-run metrics snapshot).  Only "
+                        "meaningful with --trace/UT_TRACE")
+    p.add_argument("--metrics-rotate", type=int, default=None,
+                   metavar="N",
+                   help="flight-recorder rotation depth: generations "
+                        "kept past the row cap (<file>.1 ... <file>.N; "
+                        "default 1)")
+    p.add_argument("--telemetry", default=None, metavar="HOST:PORT",
+                   help="fleet telemetry: ship this process's metrics "
+                        "window snapshots, journal rows and alerts to a "
+                        "running telemetry hub (the JAX package's `ut "
+                        "hub`: the wire is the same) over a bounded "
+                        "never-blocking queue.  Also reachable via "
+                        "UT_TELEMETRY or ut.config({'telemetry': "
+                        "...}); 'off' disables")
+    p.add_argument("--device-trace", default=None, metavar="DIR",
+                   help="torch.profiler capture of the whole run: "
+                        "DIR/device_trace.json (CUDA kernels and the "
+                        "host's record_function ranges, named as the "
+                        "--trace spans), referenced from the --trace "
+                        "export (otherData.device_trace).  Also "
+                        "reachable via UT_DEVICE_TRACE=<dir>; 'off' "
+                        "disables")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the Tuner's proposal side runs (default "
                         "cuda: the card, and a host without one exits "
@@ -204,31 +250,33 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-# The JAX package's `ut <name>` subcommands and observability switches,
-# none of them ported yet: each is refused with the ROADMAP item (Queue
-# 1) that brings it.
+# The JAX package's `ut <name>` subcommands: `report` is the port's
+# (module, entry); the rest are refused with the ROADMAP item (Queue 1)
+# that brings them.
 SUBCOMMANDS = {
+    "report": ("uptune_tpu_torch.obs.report", "main"),
+}
+REFUSED_SUBCOMMANDS = {
     "serve": "item 6 (the serving plane)",
     "route": "item 6 (the serving plane)",
-    "top": "item 8 (the observability plane)",
-    "report": "item 8 (the observability plane)",
-    "hub": "item 8 (the observability plane)",
+    "top": "item 6 (the serving plane: obs/top.py reads a server "
+           "through serve.client)",
+    "hub": "item 6 (the serving plane: obs/hub.py serves serve/wire.py)",
     "store": "item 7 (the store server)",
 }
-OBS_FLAGS = ("trace", "journal", "metrics_interval", "metrics_rotate",
-             "telemetry", "device_trace")
-OBS_ENV = ("UT_TRACE", "UT_JOURNAL", "UT_TELEMETRY", "UT_DEVICE_TRACE",
-           "UT_TRACE_GUARD")
+# observability variables the port refuses when set to anything but off,
+# with the reason
+OBS_ENV = ("UT_TRACE_GUARD",)
+OBS_REFUSED = {
+    "UT_TRACE_GUARD": "the trace guard counts jit retraces, and the port "
+                      "traces nothing (it runs eagerly)",
+}
 _OFF = ("", "off", "none", "0", "false")
 
 
 def refused(args: argparse.Namespace) -> Optional[str]:
-    """The observability switch this run asks for and the port refuses
-    (a flag or variable set to anything but off), or None."""
-    for name in OBS_FLAGS:
-        v = getattr(args, name)
-        if v is not None and str(v).strip().lower() not in _OFF:
-            return "--" + name.replace("_", "-")
+    """The observability variable this run sets and the port refuses
+    (`OBS_ENV`, set to anything but off), or None."""
     for var in OBS_ENV:
         if os.environ.get(var, "").strip().lower() not in _OFF:
             return var
@@ -357,18 +405,161 @@ def _merge_replica_bests(cleaned: List[str], n: int,
           f"(replica h{pid}) -> {dst}")
 
 
+class _ObsSession:
+    """The observability switches of one tune, resolved as the JAX CLI
+    resolves them (flag > UT_* variable > ut.config > default, the .hN
+    suffix for --num-hosts replicas), and their end-of-run settling."""
+
+    def __init__(self, log):
+        self.log = log
+        self.trace_path = None
+        self.journal_path = None
+        self.jmon = None
+        self.dtrace = None
+        self.shipper = None
+
+    def stop_device_trace(self) -> None:
+        """Settle the profiler capture before the trace export, so the
+        referenced device trace is complete (also on a raising run)."""
+        from . import obs
+        if self.dtrace:
+            obs.device.stop_trace()
+            self.log.info("[ut] device trace written to %s",
+                          os.path.join(self.dtrace,
+                                       obs.device.TRACE_FILE))
+
+    def finish(self) -> None:
+        """Settle the journal, then the trace (the journal's final
+        quality gauges land in the flight recorder's last row), then the
+        telemetry shipper's final window."""
+        from . import obs
+        log = self.log
+        if self.journal_path:
+            for alert in (self.jmon.alerts if self.jmon is not None
+                          else []):
+                log.warning("[ut] search alert: %s", json.dumps(alert))
+            obs.stop_journal(self.jmon)
+            log.info("[ut] journal written to %s (render with `ut-torch "
+                     "report %s`)", self.journal_path, self.journal_path)
+        if obs.enabled():
+            if self.trace_path:
+                obs.finish(self.trace_path, extra={"process": "ut-driver"})
+                log.info("[ut] trace written to %s (open in "
+                         "https://ui.perfetto.dev; metrics in %s)",
+                         self.trace_path,
+                         self.trace_path + ".metrics.jsonl")
+            for line in obs.text_summary().splitlines():
+                log.info("[ut] %s", line)
+        if self.shipper is not None:
+            self.shipper.stop()
+            st = self.shipper.stats()
+            log.info("[ut] telemetry shipped to %s:%s (%d rows acked, "
+                     "%d dropped)", self.shipper.addr[0],
+                     self.shipper.addr[1], st["acked"], st["dropped"])
+
+
+def _start_obs(args, settings, script: str, log) -> _ObsSession:
+    """Turn on what the run asks for before the tune: tracing with its
+    exit flush and flight recorder, the telemetry shipper, the profiler
+    capture, the tuning journal."""
+    from . import obs
+    ses = _ObsSession(log)
+    trace_path = args.trace
+    if trace_path is None:
+        trace_path = obs.maybe_enable_from_env()
+        if trace_path is None and not obs.enabled():
+            cfg_trace = settings["trace"]
+            if cfg_trace and str(cfg_trace).lower() not in ("off", "none"):
+                trace_path = str(cfg_trace)
+    elif trace_path.lower() in ("off", "none"):
+        trace_path = None
+    pid_env = os.environ.get("UT_PROCESS_ID")
+    if trace_path and pid_env and pid_env != "0":
+        # --num-hosts replicas each trace their own file
+        root, ext = os.path.splitext(trace_path)
+        trace_path = f"{root}.h{pid_env}{ext}"
+    if trace_path and not obs.enabled():
+        obs.enable()
+    if trace_path:
+        # an interrupted run still flushes a valid truncated trace and
+        # the metrics timeline's tail
+        obs.install_exit_flush(trace_path, extra={"process": "ut-driver"})
+        mi = (args.metrics_interval if args.metrics_interval is not None
+              else 1.0)
+        if mi > 0:
+            obs.start_flight_recorder(
+                trace_path, interval=mi,
+                rotate=(args.metrics_rotate
+                        if args.metrics_rotate is not None
+                        else obs.flight.DEFAULT_ROTATE))
+    ses.trace_path = trace_path
+
+    telemetry = args.telemetry
+    if telemetry is None:
+        # an env value, 'off' included, wins over ut.config
+        telemetry = os.environ.get("UT_TELEMETRY", "").strip() or None
+        if telemetry is None:
+            cfg_t = settings["telemetry"]
+            if not obs.ship.disabled_token(cfg_t):
+                telemetry = str(cfg_t)
+    if obs.ship.disabled_token(telemetry):
+        telemetry = None
+    if telemetry:
+        role = ("ut-driver" if not pid_env or pid_env == "0"
+                else f"ut-driver.h{pid_env}")
+        ses.shipper = obs.ship.start(telemetry, role=role)
+        # the exit flush's ship.stop() ships the final window when a
+        # supervisor kills the run
+        obs.install_exit_flush(None)
+
+    dtrace = args.device_trace
+    if dtrace is None:
+        dtrace = obs.device.maybe_trace_from_env()
+    elif dtrace.lower() in ("off", "none"):
+        dtrace = None
+    else:
+        dtrace = obs.device.start_trace(dtrace)
+    ses.dtrace = dtrace
+
+    journal_path = args.journal
+    if journal_path is None:
+        journal_path = os.environ.get("UT_JOURNAL", "").strip() or None
+        if journal_path is None:
+            cfg_j = settings["journal"]
+            if cfg_j:
+                journal_path = str(cfg_j)
+    if journal_path and obs.journal.disabled_token(journal_path):
+        journal_path = None
+    if journal_path and pid_env and pid_env != "0":
+        root, ext = os.path.splitext(journal_path)
+        journal_path = f"{root}.h{pid_env}{ext}"
+    if journal_path:
+        ses.jmon = obs.start_journal(
+            journal_path, meta={"process": "ut-driver",
+                                "script": os.path.basename(script)})
+        if not trace_path:
+            # the graceful flush must still cover the journal's tail
+            obs.install_exit_flush(None)
+    ses.journal_path = journal_path
+    return ses
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     raw = list(argv if argv is not None else sys.argv[1:])
     if raw and raw[0] in SUBCOMMANDS:
+        import importlib
+        mod_name, attr = SUBCOMMANDS[raw[0]]
+        return getattr(importlib.import_module(mod_name), attr)(raw[1:])
+    if raw and raw[0] in REFUSED_SUBCOMMANDS:
         print(f"ut-torch: the {raw[0]!r} subcommand is not ported yet "
-              f"(ROADMAP Queue 1 {SUBCOMMANDS[raw[0]]})", file=sys.stderr)
+              f"(ROADMAP Queue 1 {REFUSED_SUBCOMMANDS[raw[0]]})",
+              file=sys.stderr)
         return 2
     args = build_parser().parse_args(argv)
     what = refused(args)
     if what is not None:
-        print(f"ut-torch: {what} is not ported yet (ROADMAP Queue 1 item "
-              f"8, the observability plane); unset it or set it to off",
-              file=sys.stderr)
+        print(f"ut-torch: {what} is refused: {OBS_REFUSED[what]}; unset "
+              f"it or set it to off", file=sys.stderr)
         return 2
     _configure_logging(args.verbose)
     log = logging.getLogger("uptune_tpu_torch")
@@ -541,7 +732,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
 
     from .exec.multistage import run_auto
-    res = run_auto(pt)   # single / multi-stage / decouple
+    session = _start_obs(args, settings, script, log)
+    try:
+        res = run_auto(pt)   # single / multi-stage / decouple
+    finally:
+        session.stop_device_trace()
+    session.finish()
     log.info("[ut] done: best qor=%.6g evals=%d", res.best_qor, res.evals)
     print(json.dumps({"best_config": res.best_config,
                       "best_qor": res.best_qor, "evals": res.evals}))

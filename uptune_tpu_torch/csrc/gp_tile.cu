@@ -64,12 +64,17 @@
 //      (Np = N rounded up to kTileN) and split into TF32 hi and lo planes:
 //      wgmma takes TF32 operands K-major only, and K^-1 from cho_solve is
 //      symmetric only to rounding, so it is transposed, not read as K^-T.
-//   2. krows: the kernel rows k [Bp, Np] (zero outside B x N; distances
-//      summed as (a - b)^2 directly, on the CUDA cores, over the features
-//      in order, staged all at once up to 361 of them and kKChunk at a
-//      time past that, so any F is taken) and the
+//   2. krows: the kernel rows k [Bp, Np] (zero outside B x N) and the
 //      mean's partial sums, one per kTileN-column tile, each reduced in
-//      one fixed order (a warp shuffle tree, then the warps in turn).
+//      one fixed order (a warp shuffle tree, then the warps in turn).  Up
+//      to 361 features (all of them in one block's shared memory) the
+//      distances are summed as (a - b)^2 directly on the CUDA cores, over
+//      the features in order.  Past that, where the CUDA cores' 2BNF FMAs
+//      dominate every pass after them, krows_mma takes them as A does:
+//      |q|^2 + |x|^2 - 2 q.x, both blocks centred on training row 0, the
+//      cross term on wgmma in 3xTF32 into a continuous and a categorical
+//      accumulator, 32 features at a time, so any F is taken.  The route
+//      is a function of F alone (gp_plan.h, ut_krows_route).
 //   3. wq: W = k K^-1 on the tensor cores in 3xTF32, wgmma m64n128k8:
 //      k (in registers) and K^-T (in shared memory) each stand as a TF32
 //      high part plus a TF32 residual, and every 8-deep step adds lo*hi
@@ -109,17 +114,15 @@
 #include <cstddef>
 #include <cstdint>
 
+// the tile sizes, the scratch plan, the krows route by width and the
+// host-only queries
+#include "gp_plan.h"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxShared = 232448;  // one block's shared memory on Hopper
 constexpr int kMaxDevices = 64;
 
 // B, C and D
-constexpr int kTileM = 128;        // query rows of one W tile
-constexpr int kTileN = 128;        // K^-1 columns of one W tile
-constexpr int kTileK = 32;         // depth of one pipeline stage
 constexpr int kStages = 4;
 constexpr int kLdA = kTileK + 4;   // k rows' shared stride: conflict-free
                                    // A fragment loads
@@ -127,19 +130,12 @@ constexpr int kLdA = kTileK + 4;   // k rows' shared stride: conflict-free
 constexpr int kStageWords = kTileM * kLdA + 2 * kTileN * kTileK;
 // the stages, then a "full" and an "empty" mbarrier per stage
 constexpr int kWqShared = kStages * kStageWords * 4 + 2 * kStages * 8;
-constexpr int kKRows = 32;         // query rows of one krows block
-constexpr int kKChunk = 128;       // features of one krows chunk, when all
-                                   // f do not fit one block
-constexpr int kSel = 256;          // rows of one first-level selection
-constexpr int kMergeSlots = 8192;  // candidates one merge block ranks
 constexpr int kMergeShared = kMergeSlots * 8;
 
 // A
-constexpr int kMeanRows = 64;      // query rows of a block: wgmma's N
 constexpr int kMeanCols = 64;      // training rows of a tile: wgmma's M
 constexpr int kGroup = 128;        // threads of a block: one warpgroup
 constexpr int kSplit = 4;          // blocks of a cluster, splitting N
-constexpr int kMeanChunk = kMeanRows * kTileK;   // a query chunk's plane
 constexpr int kLdX = kTileK + 4;   // a staged training chunk's row stride:
                                    // conflict-free A fragment loads
 constexpr int kRawWords = kMeanCols * kLdX + kMeanCols;  // + the alpha
@@ -261,13 +257,12 @@ __device__ __forceinline__ void stage_rows(float* dst, int rs, int cs,
 }
 
 // Block (tile t, row block y): kKRows query rows against the kTileN
-// training rows of tile t.  Thread tid takes column tid % kTileN and the
-// kPer rows (tid / kTileN) kPer + i; the query rows sit transposed in
-// shared memory, so one float4 broadcast brings four rows' feature j.
-// The features (the continuous block, then the categorical one) go
-// through shared memory fw at a time: one chunk when all f fit (fw = f),
-// else chunks of kKChunk, each distance summed in feature order across
-// them, so any f is taken and the sums do not depend on fw.
+// training rows of tile t, on the CUDA cores, all f features (up to 361,
+// krows_on_tensor_cores) in shared memory at once.  Thread tid takes
+// column tid % kTileN and the kPer rows (tid / kTileN) kPer + i; the query
+// rows sit transposed in shared memory, so one float4 broadcast brings
+// four rows' feature j.  Each distance is summed in feature order, the
+// continuous block, then the categorical one.
 // Writes k (kStoreK) and the tile's partial mean of each row,
 // mupart[t * bp + row].  The mixed kernel takes one exp:
 // matern52(dc) exp(-dk) = (1 + s5d + 5/3 dc) exp(-(s5d + dk)).
@@ -275,14 +270,14 @@ template <bool kCont, bool kCat, bool kStoreK>
 __global__ void __launch_bounds__(kThreads) krows_kernel(
     const float* __restrict__ qc, const float* __restrict__ qk,
     const float* __restrict__ xc, const float* __restrict__ xk,
-    const float* __restrict__ alpha, int b, int n, int fc, int fk, int fw,
-    int np, int bp, float* __restrict__ kscr, float* __restrict__ mupart) {
+    const float* __restrict__ alpha, int b, int n, int fc, int fk, int np,
+    int bp, float* __restrict__ kscr, float* __restrict__ mupart) {
   constexpr int kPer = kKRows * kTileN / kThreads;  // rows per thread: 16
   constexpr int kHalves = kThreads / kTileN;
   extern __shared__ __align__(16) float smem[];
-  const int f = fc + fk, fs = fw | 1;       // odd stride: no bank conflicts
-  float* s_q = smem;                        // [fw][kKRows]
-  float* s_x = s_q + fw * kKRows;           // [kTileN][fs]
+  const int f = fc + fk, fs = f | 1;        // odd stride: no bank conflicts
+  float* s_q = smem;                        // [f][kKRows]
+  float* s_x = s_q + f * kKRows;            // [kTileN][fs]
   float* s_red = s_x + kTileN * fs;         // [kWarps][kPer]
   const int col0 = blockIdx.x * kTileN, row0 = blockIdx.y * kKRows;
   const int xrows = max(0, min(kTileN, n - col0));
@@ -293,52 +288,44 @@ __global__ void __launch_bounds__(kThreads) krows_kernel(
   float dc[kPer], dk[kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) dc[i] = dk[i] = 0.f;
-  for (int j0 = 0; j0 < f; j0 += fw) {
-    const int w = min(fw, f - j0);
-    // features [j0, j0 + w): wc of the continuous block from column j0,
-    // then the categorical block's from column max(j0 - fc, 0)
-    const int wc = kCont ? max(0, min(w, fc - j0)) : 0;
-    const int k0 = max(0, j0 - fc);
-    if (j0 > 0) __syncthreads();            // the last chunk has been read
-    if (kCont && wc > 0) {
-      stage_rows(s_x, fs, 1, xc + static_cast<size_t>(col0) * fc + j0, wc, fc,
-                 xrows, kTileN);
-      stage_rows(s_q, 1, kKRows, qc + static_cast<size_t>(row0) * fc + j0, wc,
-                 fc, qrows, kKRows);
-    }
-    if (kCat && w > wc) {
-      stage_rows(s_x + wc, fs, 1, xk + static_cast<size_t>(col0) * fk + k0,
-                 w - wc, fk, xrows, kTileN);
-      stage_rows(s_q + wc * kKRows, 1, kKRows,
-                 qk + static_cast<size_t>(row0) * fk + k0, w - wc, fk, qrows,
-                 kKRows);
-    }
-    __syncthreads();
-    for (int j = 0; j < w; ++j) {
-      const float xv = s_x[c * fs + j];
-      const float4* qj = reinterpret_cast<const float4*>(s_q + j * kKRows +
-                                                         half * kPer);
-      float qv[kPer];
+  if (kCont) {
+    stage_rows(s_x, fs, 1, xc + static_cast<size_t>(col0) * fc, fc, fc, xrows,
+               kTileN);
+    stage_rows(s_q, 1, kKRows, qc + static_cast<size_t>(row0) * fc, fc, fc,
+               qrows, kKRows);
+  }
+  if (kCat) {
+    const int wc = kCont ? fc : 0;
+    stage_rows(s_x + wc, fs, 1, xk + static_cast<size_t>(col0) * fk, fk, fk,
+               xrows, kTileN);
+    stage_rows(s_q + wc * kKRows, 1, kKRows,
+               qk + static_cast<size_t>(row0) * fk, fk, fk, qrows, kKRows);
+  }
+  __syncthreads();
+  for (int j = 0; j < f; ++j) {
+    const float xv = s_x[c * fs + j];
+    const float4* qj = reinterpret_cast<const float4*>(s_q + j * kKRows +
+                                                       half * kPer);
+    float qv[kPer];
 #pragma unroll
-      for (int i = 0; i < kPer / 4; ++i) {
-        const float4 v = qj[i];
-        qv[4 * i] = v.x;
-        qv[4 * i + 1] = v.y;
-        qv[4 * i + 2] = v.z;
-        qv[4 * i + 3] = v.w;
+    for (int i = 0; i < kPer / 4; ++i) {
+      const float4 v = qj[i];
+      qv[4 * i] = v.x;
+      qv[4 * i + 1] = v.y;
+      qv[4 * i + 2] = v.z;
+      qv[4 * i + 3] = v.w;
+    }
+    if (kCont && (!kCat || j < fc)) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const float d = qv[i] - xv;
+        dc[i] = fmaf(d, d, dc[i]);
       }
-      if (kCont && (!kCat || j < wc)) {
+    } else {
 #pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          const float d = qv[i] - xv;
-          dc[i] = fmaf(d, d, dc[i]);
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          const float d = qv[i] - xv;
-          dk[i] = fmaf(d, d, dk[i]);
-        }
+      for (int i = 0; i < kPer; ++i) {
+        const float d = qv[i] - xv;
+        dk[i] = fmaf(d, d, dk[i]);
       }
     }
   }
@@ -626,22 +613,29 @@ __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-// Where A's block keeps its data, in 4-byte words of dynamic shared memory.
-// Each row's features are packed: the continuous block padded with zeros to
-// a multiple of 8 (fcp), then the categorical block padded the same way (d
-// in all), cut into nch chunks of kTileK.  The query planes hold every
-// chunk, or with `stream` (features too many for that) one chunk, rebuilt
-// for each unit.
-struct MeanLayout {
+// How A and krows_mma pack a row's features for the tensor cores: the
+// continuous block padded with zeros to a multiple of 8 (fcp), then the
+// categorical block padded the same way (d in all), cut into nch chunks of
+// kTileK (dp words).
+struct Packing {
   int fcp, d, steps, sc, nch, dp;
-  size_t qh, ql, raw, x0, nq, part, words;
-  __host__ __device__ MeanLayout(int fc, int fk, bool stream) {
+  __host__ __device__ Packing(int fc, int fk) {
     fcp = (fc + 7) / 8 * 8;
     d = fcp + (fk + 7) / 8 * 8;
     steps = d / 8;                           // 8-deep wgmma steps
     sc = fcp / 8;                            // of them the continuous block's
     nch = (d + kTileK - 1) / kTileK;
     dp = nch * kTileK;
+  }
+};
+
+// Where A's block keeps its data, in 4-byte words of dynamic shared memory.
+// The query planes hold every chunk, or with `stream` (features too many
+// for that) one chunk, rebuilt for each unit.
+struct MeanLayout : Packing {
+  size_t qh, ql, raw, x0, nq, part, words;
+  __host__ __device__ MeanLayout(int fc, int fk, bool stream)
+      : Packing(fc, fk) {
     const size_t planes = stream ? 1 : nch;
     qh = 0;                                  // the query rows by chunk, TF32
     ql = qh + planes * kMeanChunk;           // hi and lo,
@@ -1037,6 +1031,245 @@ __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kGroup, 4)
   }
 }
 
+// d (+)= a b over one 64 x 64 x 8 step of the warpgroup, both operands
+// TF32, K-major and swizzled in shared memory (scale_d 0 starts d afresh).
+__device__ __forceinline__ void wgmma_tf32_n64_ss(float (&d)[32], uint64_t a,
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// krows past 361 features (krows_on_tensor_cores): block (tile t, row
+// block y) takes the kTileN training rows of tile t, one warpgroup per 64
+// of them, against kMeanRows query rows, with A's distances: both blocks
+// centred on training row 0, |q|^2 + |x|^2 - 2 q.x clamped at 0, the cross
+// term on wgmma m64n64k8 in 3xTF32 into a continuous and a categorical
+// accumulator, k by pair_kernel.  The features go 32 at a time (A's
+// Packing): each thread loads its four features of its rows of chunk c + 1
+// into registers while chunk c's products run, then writes them centred,
+// split into TF32 hi and lo and swizzled (A's planes) into the chunk's
+// buffer (two, in turns), adding their squares to the rows' norms on the
+// way (each row's by the same 8 threads, in chunk order).  Both operands
+// come from shared memory; one barrier a chunk, and each warpgroup waits
+// for a chunk's products before it writes the next.  Two blocks share an
+// SM, so one's products run while the other loads and writes (on an H100
+// keeping one chunk's products in flight within a block measured no
+// faster, and three buffers, which leave one block an SM, slower).
+// Then, as krows: k into kscr (kStoreK, zeros
+// outside B x N) and each query row's partial mean over the tile, summed
+// in one order whatever the row's place: its two training rows in this
+// thread, the 8 g of a warp by shuffles, then the warps in turn.
+template <bool kCont, bool kCat, bool kStoreK>
+__global__ void __launch_bounds__(kThreads, KRowsMmaLayout::kBlocksPerSM)
+    krows_mma_kernel(
+    const float* __restrict__ qc, const float* __restrict__ qk,
+    const float* __restrict__ xc, const float* __restrict__ xk,
+    const float* __restrict__ alpha, int b, int n, int fc, int fk, int np,
+    int bp, float* __restrict__ kscr, float* __restrict__ mupart) {
+  using KL = KRowsMmaLayout;
+  static_assert(kTileN == 2 * kMeanCols && kThreads == 2 * kGroup,
+                "one warpgroup per 64 training rows");
+  extern __shared__ __align__(1024) float smem[];
+  const Packing P(fc, fk);
+  const int col0 = blockIdx.x * kTileN, row0 = blockIdx.y * kMeanRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3, c4 = tid & 7, r8 = tid >> 3;
+  float* s_nq = smem + KL::nq;       // [kMeanRows] {continuous, categorical}
+  float* s_nx = smem + KL::nx;       // [kTileN] {continuous, categorical}
+  float* s_red = smem + KL::red;     // [kWarps][kMeanRows]
+  constexpr int kQR = kMeanRows / (kThreads / 8);   // query rows a thread
+  constexpr int kXR = kTileN / (kThreads / 8);      // training rows a thread
+
+  // chunk c's features p0 .. p0 + 3 (p0 = 32 c + 4 c4) of this thread's
+  // rows r8 + 32 j, and the centre's (training row 0), into registers:
+  // one 16-byte load a row where the quad lies whole in one block and
+  // aligned, else one load a feature (w of them; zeros past the block)
+  float vq[kQR][4], vx[kXR][4], o[4];
+  auto load = [&](int c) {
+    const int p0 = c * kTileK + 4 * c4;
+    const float *qs = nullptr, *xs = nullptr;
+    int stride = 0, w = 0;
+    if (kCont && p0 < fc) {
+      qs = qc + p0;
+      xs = xc + p0;
+      stride = fc;
+      w = min(4, fc - p0);
+    } else if (kCat && p0 >= P.fcp && p0 < P.fcp + fk) {
+      qs = qk + (p0 - P.fcp);
+      xs = xk + (p0 - P.fcp);
+      stride = fk;
+      w = min(4, P.fcp + fk - p0);
+    }
+    const bool vec = w == 4 && stride % 4 == 0 &&
+                     (reinterpret_cast<uintptr_t>(qs) & 15) == 0 &&
+                     (reinterpret_cast<uintptr_t>(xs) & 15) == 0;
+    auto quad = [&](float (&dst)[4], const float* src, int row, bool in) {
+      if (vec && in) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(
+            src + static_cast<size_t>(row) * stride));
+        dst[0] = v.x;
+        dst[1] = v.y;
+        dst[2] = v.z;
+        dst[3] = v.w;
+        return;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dst[e] = in && e < w ? src[static_cast<size_t>(row) * stride + e]
+                             : 0.f;
+      }
+    };
+    quad(o, xs, 0, w > 0);
+#pragma unroll
+    for (int j = 0; j < kQR; ++j) {
+      const int row = row0 + r8 + j * (kThreads / 8);
+      quad(vq[j], qs, row, w > 0 && row < b);
+    }
+#pragma unroll
+    for (int j = 0; j < kXR; ++j) {
+      const int col = col0 + r8 + j * (kThreads / 8);
+      quad(vx[j], xs, col, w > 0 && col < n);
+    }
+  };
+  // one row's quad, centred (zero for a row outside the operands), its
+  // squares summed over the row's 8 threads into the norms, split and
+  // swizzled into the hi / lo planes
+  auto put = [&](const float (&v)[4], bool in, int r, int p0, float* hi,
+                 float* lo, float* norm, bool first) {
+    const float4 q = make_float4(in ? v[0] - o[0] : 0.f,
+                                 in ? v[1] - o[1] : 0.f,
+                                 in ? v[2] - o[2] : 0.f,
+                                 in ? v[3] - o[3] : 0.f);
+    float nc = 0.f, nk = 0.f;
+    quad_norms<kCont, kCat>(q, p0, P.fcp, nc, nk);
+    nc = sum8(nc);
+    nk = sum8(nk);
+    if (c4 == 0) {
+      norm[2 * r] = first ? nc : norm[2 * r] + nc;
+      norm[2 * r + 1] = first ? nk : norm[2 * r + 1] + nk;
+    }
+    uint4 h, l;
+    split4(q, h, l);
+    *reinterpret_cast<uint4*>(hi + swizzled(r, c4)) = h;
+    *reinterpret_cast<uint4*>(lo + swizzled(r, c4)) = l;
+  };
+
+  float accc[32], acck[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) accc[i] = acck[i] = 0.f;
+  const int wg = warp / 4;           // this warpgroup's 64 training rows
+  load(0);
+  for (int c = 0; c < P.nch; ++c) {
+    // buffer c % 2 was last read by chunk c - 2's products, which every
+    // warpgroup waited for before chunk c - 1's barrier
+    float* buf = smem + static_cast<size_t>(c % KL::kMmaBuffers) *
+                            KL::kBufWords;
+    const int p0 = c * kTileK + 4 * c4;
+#pragma unroll
+    for (int j = 0; j < kQR; ++j) {
+      const int r = r8 + j * (kThreads / 8);
+      put(vq[j], row0 + r < b, r, p0, buf + KL::qh, buf + KL::ql, s_nq,
+          c == 0);
+    }
+#pragma unroll
+    for (int j = 0; j < kXR; ++j) {
+      const int r = r8 + j * (kThreads / 8);
+      put(vx[j], col0 + r < n, r, p0, buf + KL::xh, buf + KL::xl, s_nx,
+          c == 0);
+    }
+    // the planes are read by the tensor cores, through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (c + 1 < P.nch) load(c + 1);
+    const uint64_t qh = smem_desc(buf + KL::qh), ql = smem_desc(buf + KL::ql);
+    const size_t xoff = static_cast<size_t>(wg) * kMeanCols * kTileK;
+    const uint64_t xh = smem_desc(buf + KL::xh + xoff);
+    const uint64_t xl = smem_desc(buf + KL::xl + xoff);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (kCont) hold(accc[i]);
+      if (kCat) hold(acck[i]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kTileK / 8; ++ks) {
+      const int s = c * (kTileK / 8) + ks;
+      // 8 deep = 32 bytes into the swizzled rows: 2 descriptor units
+      const uint64_t step = static_cast<uint64_t>(ks * 2);
+      if (s < P.steps) {
+        if (kCont && (!kCat || s < P.sc)) {
+          wgmma_tf32_n64_ss(accc, xl + step, qh + step, s > 0);
+          wgmma_tf32_n64_ss(accc, xh + step, ql + step, 1);
+          wgmma_tf32_n64_ss(accc, xh + step, qh + step, 1);
+        } else {
+          wgmma_tf32_n64_ss(acck, xl + step, qh + step, s > P.sc);
+          wgmma_tf32_n64_ss(acck, xh + step, ql + step, 1);
+          wgmma_tf32_n64_ss(acck, xh + step, qh + step, 1);
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if (kCont) hold(accc[i]);
+    if (kCat) hold(acck[i]);
+  }
+  __syncthreads();                   // every row's norms are in
+
+  // the epilogue: element i is training row 16 warp + g + 8 ((i / 2) % 2)
+  // and query row 8 (i / 4) + 2 tq + i % 2
+  float al[2], xn[2][2];
+  bool xin[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * warp + g + 8 * h;
+    xin[h] = col0 + r < n;
+    al[h] = xin[h] ? alpha[col0 + r] : 0.f;
+    xn[h][0] = s_nx[2 * r];
+    xn[h][1] = s_nx[2 * r + 1];
+  }
+  const float4* nq4 = reinterpret_cast<const float4*>(s_nq);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 q = nq4[4 * j + tq];      // query rows 8 j + 2 tq, + 1
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = 8 * j + 2 * tq + e;
+      const bool in = row0 + r < b;
+      float k[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h + e;
+        k[h] = in && xin[h] ? pair_kernel<kCont, kCat>(
+                                  accc[i], acck[i], e ? q.z : q.x,
+                                  e ? q.w : q.y, xn[h][0], xn[h][1])
+                            : 0.f;
+        if (kStoreK) {
+          kscr[static_cast<size_t>(row0 + r) * np + col0 + 16 * warp + g +
+               8 * h] = k[h];
+        }
+      }
+      float t = fmaf(k[1], al[1], k[0] * al[0]);
+      t += __shfl_xor_sync(0xffffffffu, t, 4);
+      t += __shfl_xor_sync(0xffffffffu, t, 8);
+      t += __shfl_xor_sync(0xffffffffu, t, 16);
+      if (g == 0) s_red[warp * kMeanRows + r] = t;
+    }
+  }
+  __syncthreads();
+  if (tid < kMeanRows) {
+    float tot = 0.f;
+    for (int w = 0; w < kWarps; ++w) tot += s_red[w * kMeanRows + tid];
+    mupart[static_cast<size_t>(blockIdx.x) * bp + row0 + tid] = tot;
+  }
+}
+
 // -- the selection --------------------------------------------------------------
 
 __device__ __forceinline__ bool before(float va, int ia, float vb, int ib) {
@@ -1177,20 +1410,6 @@ __global__ void __launch_bounds__(kSel) topk_merge_kernel(
   }
 }
 
-// Dynamic shared memory of one krows block, in floats, for chunks of fw
-// features.
-size_t krows_words(int fw) {
-  return static_cast<size_t>(kKRows) * fw + static_cast<size_t>(kTileN) * (fw | 1) +
-         kWarps * (kKRows * kTileN / kThreads);
-}
-
-// The features of one krows chunk: all f where they fit (up to 361), else
-// kKChunk.
-int krows_chunk(int f) {
-  return krows_words(f) * sizeof(float) <= static_cast<size_t>(kMaxShared)
-             ? f : kKChunk;
-}
-
 // Raise the kernel's dynamic shared memory limit to kMaxShared on the
 // current device, once per device; a failure is returned and tried again
 // at the next launch.  `done` is the kernel's per-device flag array.
@@ -1256,50 +1475,35 @@ cudaError_t mean(const Operands& a, float* mu, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
-// Where B, C and D keep their passes' data: offsets into the scratch
-// buffer, in 4-byte words (the k and K^-1 blocks 16-byte aligned), and the
-// selection's geometry (k = 0 for B and C).
-struct Plan {
-  int np, bp, tn, n1, k1, group, n2, k2;
-  size_t mupart, qpart, kscr, khi, klo, cand, words;
-};
-
-bool make_plan(int b, int n, int var, int k, Plan* p) {
-  if (b <= 0 || n <= 0 || k < 0 || k > b) return false;
-  const long long np = (static_cast<long long>(n) + kTileN - 1) / kTileN * kTileN;
-  const long long bp = (static_cast<long long>(b) + kTileM - 1) / kTileM * kTileM;
-  if (np > INT_MAX || bp > INT_MAX) return false;
-  p->np = static_cast<int>(np);
-  p->bp = static_cast<int>(bp);
-  p->tn = p->np / kTileN;
-  p->n1 = (b + kSel - 1) / kSel;
-  p->k1 = k < kSel ? k : kSel;
-  p->group = p->k1 > 0 ? kMergeSlots / p->k1 : 1;
-  p->n2 = (p->n1 + p->group - 1) / p->group;
-  p->k2 = k < p->group * p->k1 ? k : p->group * p->k1;
-  const size_t part = static_cast<size_t>(p->tn) * p->bp;
-  size_t off = 0;
-  p->mupart = off;
-  off += part;
-  p->qpart = off;
-  p->kscr = p->khi = p->klo = 0;
-  if (var) {
-    off += part;
-    p->kscr = off;
-    off += static_cast<size_t>(p->bp) * p->np;
-    p->khi = off;
-    off += static_cast<size_t>(p->np) * p->np;
-    p->klo = off;
-    off += static_cast<size_t>(p->np) * p->np;
-  }
-  p->cand = off;
-  off += 2 * static_cast<size_t>(p->n1) * p->k1;
-  p->words = off;
-  return true;
-}
-
 // The passes that leave each row's partial means in mupart and, with var,
 // its partial q in qpart: kinv_prep, krows and wq, or krows alone.
+// krows on its route for f features: the CUDA cores (all f in one
+// block) or, past 361 features, the tensor cores.
+template <bool kCont, bool kCat, bool kStoreK>
+cudaError_t launch_krows(const Operands& a, const Plan& p, float* kscr,
+                         float* mupart, cudaStream_t s) {
+  const int f = a.fc + a.fk;
+  if (krows_on_tensor_cores(f)) {
+    auto kern = krows_mma_kernel<kCont, kCat, kStoreK>;
+    static std::atomic<bool> allowed[kMaxDevices];
+    const cudaError_t e = allow_shared(kern, allowed);
+    if (e != cudaSuccess) return e;
+    kern<<<dim3(p.tn, p.bp / kMeanRows), kThreads,
+           KRowsMmaLayout::words * sizeof(float), s>>>(
+        a.qc, a.qk, a.xc, a.xk, a.alpha, a.b, a.n, a.fc, a.fk, p.np, p.bp,
+        kscr, mupart);
+    return cudaGetLastError();
+  }
+  auto kern = krows_kernel<kCont, kCat, kStoreK>;
+  static std::atomic<bool> allowed[kMaxDevices];
+  const cudaError_t e = allow_shared(kern, allowed);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3(p.tn, p.bp / kKRows), kThreads, krows_words(f) * sizeof(float),
+         s>>>(a.qc, a.qk, a.xc, a.xk, a.alpha, a.b, a.n, a.fc, a.fk, p.np,
+              p.bp, kscr, mupart);
+  return cudaGetLastError();
+}
+
 template <bool kCont, bool kCat>
 cudaError_t launch_passes(const Operands& a, const Plan& p, bool var,
                           cudaStream_t s) {
@@ -1308,30 +1512,18 @@ cudaError_t launch_passes(const Operands& a, const Plan& p, bool var,
   float* kscr = a.scratch + p.kscr;
   float* khi = a.scratch + p.khi;
   float* klo = a.scratch + p.klo;
-  const int fw = krows_chunk(a.fc + a.fk);
-  const size_t kr_smem = krows_words(fw) * sizeof(float);
-  const dim3 kr_grid(p.tn, p.bp / kKRows);
   cudaError_t e;
   if (!var) {
-    auto kr_mean = krows_kernel<kCont, kCat, false>;
-    static std::atomic<bool> kr_mean_allowed[kMaxDevices];
-    if ((e = allow_shared(kr_mean, kr_mean_allowed)) != cudaSuccess) return e;
-    kr_mean<<<kr_grid, kThreads, kr_smem, s>>>(a.qc, a.qk, a.xc, a.xk,
-                                               a.alpha, a.b, a.n, a.fc, a.fk,
-                                               fw, p.np, p.bp, nullptr, mupart);
-    return cudaGetLastError();
+    return launch_krows<kCont, kCat, false>(a, p, nullptr, mupart, s);
   }
   kinv_prep_kernel<<<dim3(p.np / 32, p.np / 32), kThreads, 0, s>>>(
       a.kinv, a.n, p.np, khi, klo);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
-  auto kr = krows_kernel<kCont, kCat, true>;
-  static std::atomic<bool> kr_allowed[kMaxDevices];
-  if ((e = allow_shared(kr, kr_allowed)) != cudaSuccess) return e;
-  kr<<<kr_grid, kThreads, kr_smem, s>>>(a.qc, a.qk, a.xc, a.xk, a.alpha, a.b,
-                                        a.n, a.fc, a.fk, fw, p.np, p.bp, kscr,
-                                        mupart);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if ((e = launch_krows<kCont, kCat, true>(a, p, kscr, mupart, s)) !=
+      cudaSuccess) {
+    return e;
+  }
 
   static std::atomic<bool> wq_allowed[kMaxDevices];
   if ((e = allow_shared(wq_kernel, wq_allowed)) != cudaSuccess) return e;
@@ -1415,49 +1607,11 @@ Operands operands(const void* qc, const void* qk, const void* xc,
 
 }  // namespace
 
-// Plain C interface (loaded with ctypes): host-only queries of the launch
-// geometry, which the wrappers read, then the four launchers.  The
-// geometry lives here alone.  Every launcher enqueues on `stream`,
-// allocates nothing, and returns the cudaError_t of its launches
-// (0 = success).  qc/xc (or qk/xk) are null when fc (or fk) is 0.
-
-// The largest number of training rows n that A takes with f = fc + fk
-// features, however they split: its blocks keep nothing of size n in shared
-// memory, so n is not limited (INT_MAX), and any f >= 1 is taken (past 376
-// features the query planes hold one chunk at a time); 0 for f < 1.  `var`
-// is not used: every limit query takes (f, var).
-extern "C" int ut_gp_max_train_rows(int f, int var) {
-  (void)var;
-  return f > 0 ? INT_MAX : 0;
-}
-
-// The same for B, C and D (either kind): their passes keep nothing of size
-// n in shared memory either, and krows takes the features in chunks past
-// 361, so any f >= 1 is taken.
-extern "C" int ut_acquire_max_train_rows(int f, int var) {
-  (void)var;
-  return f > 0 ? INT_MAX : 0;
-}
-
-// The 4-byte words of scratch B (var != 0, k = 0), C (k = 0) or D (top-k,
-// 1 <= k <= b) needs for b query rows and n training rows; var != 0 for
-// the variance kinds; -1 when the arguments are out of range.
-extern "C" long long ut_acquire_scratch_words(int b, int n, int var, int k) {
-  Plan p;
-  if (!make_plan(b, n, var, k, &p)) return -1;
-  return static_cast<long long>(p.words);
-}
-
-// The candidate slots D writes into vals / idx for b rows and top k: one
-// list of min(k, group k1) entries per group of first-level lists (k1 =
-// min(k, kSel), group = kMergeSlots / k1), each sorted by (value desc,
-// index asc), in index order; -1 out of range.  When this is k, vals /
-// idx are the top k.
-extern "C" int ut_acquire_topk_slots(int b, int k) {
-  Plan p;
-  if (k < 1 || !make_plan(b, 1, 0, k, &p)) return -1;
-  return p.n2 * p.k2;
-}
+// Plain C interface (loaded with ctypes): the four launchers (the
+// host-only queries of their geometry are gp_plan.h's).  Every launcher
+// enqueues on `stream`, allocates nothing, and returns the cudaError_t of
+// its launches (0 = success).  qc/xc (or qk/xk) are null when fc (or fk)
+// is 0.
 
 // A: mu_n [b] = k . alpha
 extern "C" int ut_gp_mean(const void* qc, const void* qk, const void* xc,

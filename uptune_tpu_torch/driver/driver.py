@@ -42,9 +42,12 @@ How the port differs from the JAX driver:
 A surrogate given by name (``surrogate="gp"`` or ``"mlp"``) builds the
 port's `SurrogateManager` (`surrogate/manager.py`) on the tuner's device
 with `surrogate_opts`; a surrogate object is driven through the same
-calls.  Left out, with the work that brings it back: the `obs` spans,
-counters and tuning journal (`StepStats.n_compiles` / `t_compile` stay
-0, as in an untraced JAX run).
+calls.  The `obs` spans, counters, gauges and tuning journal are the JAX
+driver's, at its sites and under its names; the device calls (each arm's
+propose + dedup and observe, the dedup, the commit) ride the
+`obs.instrument_device_fn` seam, which times their windows on the card
+while tracing is on.  The port compiles nothing on these paths, so
+`StepStats.n_compiles` / `t_compile` stay 0 (`obs.device`).
 """
 from __future__ import annotations
 
@@ -61,7 +64,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import rng
+from .. import obs, rng
 from ..device import DeviceLike, resolve_device
 from ..device import to_device as _to_device
 from ..device import to_host as _to_host
@@ -137,7 +140,8 @@ class _Ticket:
     __slots__ = ("arm", "arm_name", "tstate", "cands", "hashes", "known",
                  "src", "novel_np", "injected", "pruned", "trials",
                  "remaining", "u_np", "perms_np", "gen", "credit_virtual",
-                 "packed", "t_propose", "t_dedup", "t_open")
+                 "packed", "t_propose", "t_dedup", "t_open", "pred",
+                 "jpull")
 
     def __init__(self, arm, arm_name, tstate, cands, hashes, known, src,
                  novel_np, injected, pruned, gen=0, credit_virtual=False):
@@ -162,6 +166,14 @@ class _Ticket:
         self.t_propose = 0.0      # s in the propose + dedup dispatch
         self.t_dedup = 0.0        # s in host-side mask + materialization
         self.t_open = 0.0         # perf_counter() when the ticket opened
+        # the tuning journal's calibration join: (mu [B], sd [B],
+        # snapshot version) recorded when the ticket opens, with the
+        # journal on and the surrogate fitted; None otherwise
+        self.pred = None
+        # the journal's pull verdicts captured at open (src, batch,
+        # trials, pruned, filtered, dup), emitted with the step row at
+        # finalize: one journal row per ticket
+        self.jpull = None
         # member-state generation at open time: a restart bumps it, and a
         # ticket opened before the restart must not observe over the
         # re-initialized state
@@ -319,6 +331,21 @@ class Tuner:
         for t in self.members:
             self._tstates[t.name] = t.init_state(
                 space, self._draw_init(t, self._next_key()))
+        # the driver's device calls ride the engine plane's instrument
+        # seam: a traced run times each call's window on the card
+        # (obs.device); an untraced run pays one flag check
+        self._propose_fn = {
+            t.name: obs.instrument_device_fn(
+                lambda st, draws, _t=t: self._propose_dedup(_t, st, draws),
+                f"driver.propose.{t.name}") for t in self.members}
+        self._observe_fn = {
+            t.name: obs.instrument_device_fn(
+                lambda *a, _t=t: _t.observe(*a),
+                f"driver.observe.{t.name}") for t in self.members}
+        self._dedup_fn = obs.instrument_device_fn(
+            lambda cands: self._dedup(cands), "driver.dedup")
+        self._commit_fn = obs.instrument_device_fn(
+            lambda *a: self._commit(*a), "driver.commit")
 
         # surrogate arbitration='bandit': the proposal plane becomes a
         # credit-earning virtual arm of the AUC bandit
@@ -708,7 +735,7 @@ class Tuner:
     def _dedup_masked(self, cands: CandBatch):
         """(hashes, known, src, novel_np, packed): dedup vs history +
         in-batch, then mask hashes already out for evaluation."""
-        hashes, _, known, src, novel = self._dedup(cands)
+        hashes, _, known, src, novel = self._dedup_fn(cands)
         k, s, novel_np, _, packed = self._verdicts(hashes, known, src, novel)
         return hashes, k, s, novel_np, packed
 
@@ -771,8 +798,9 @@ class Tuner:
                 continue
             draws = self._draw_propose(t, self._next_key())
             p0 = time.perf_counter()
-            tstate, cands, hashes, known, src, novel = self._propose_dedup(
-                t, self._tstates[t.name], draws)
+            with obs.device_span("ticket.propose", arm=t.name):
+                tstate, cands, hashes, known, src, novel = \
+                    self._propose_fn[t.name](self._tstates[t.name], draws)
             t_prop += time.perf_counter() - p0
             known_np, src_np, novel_np, n_novel, packed = self._verdicts(
                 hashes, known, src, novel)
@@ -798,8 +826,9 @@ class Tuner:
                 injected = True
                 k = self._next_key()
                 p0 = time.perf_counter()
-                cands = self._draw_random(cands.batch, k)
-                hashes, _, known, src, novel = self._dedup(cands)
+                with obs.device_span("ticket.propose", arm="random"):
+                    cands = self._draw_random(cands.batch, k)
+                    hashes, _, known, src, novel = self._dedup_fn(cands)
                 t_prop += time.perf_counter() - p0
                 known_np, src_np, novel_np, n_novel, packed = \
                     self._verdicts(hashes, known, src, novel)
@@ -832,33 +861,126 @@ class Tuner:
         """Materialize trials for a ticket's novel rows (after the
         optional config filter) and register them pending."""
         tk.t_open = time.perf_counter()
-        if tk.novel_np.any():
-            idx = np.nonzero(tk.novel_np)[0]
-            # one device->host transfer of the whole batch, then plain
-            # numpy row selection
-            u_all, *perms_all = _to_host(tk.cands.u, *tk.cands.perms)
-            cfgs = self.space.to_configs(CandBatch(
-                torch.from_numpy(u_all[idx]),
-                tuple(torch.from_numpy(p[idx]) for p in perms_all)))
-            if self.config_filter is not None:
-                keep = np.asarray([bool(self.config_filter(c))
-                                   for c in cfgs])
-                if not keep.all():
-                    self.filtered_total += int((~keep).sum())
-                    tk.novel_np[idx[~keep]] = False
-                    idx = idx[keep]
-                    cfgs = [c for c, k in zip(cfgs, keep) if k]
-            if len(idx):
-                tk.u_np = u_all[idx]
-                tk.perms_np = [p[idx] for p in perms_all]
-                for j, (row, cfg) in enumerate(zip(idx, cfgs)):
-                    tk.trials.append(Trial(self.gid, cfg, tk, j, int(row)))
-                    self.gid += 1
-                    self._pending.add(int(tk.packed[row]))
-        tk.remaining = len(tk.trials)
+        f0 = self.filtered_total
+        # a raising config filter must not lose the span: the half-open
+        # ticket is what a trace debugger needs to see
+        with obs.span("ticket.dedup", arm=tk.arm_name) as sp_obs:
+            if tk.novel_np.any():
+                idx = np.nonzero(tk.novel_np)[0]
+                # one device->host transfer of the whole batch, then plain
+                # numpy row selection
+                u_all, *perms_all = _to_host(tk.cands.u, *tk.cands.perms)
+                cfgs = self.space.to_configs(CandBatch(
+                    torch.from_numpy(u_all[idx]),
+                    tuple(torch.from_numpy(p[idx]) for p in perms_all)))
+                if self.config_filter is not None:
+                    keep = np.asarray([bool(self.config_filter(c))
+                                       for c in cfgs])
+                    if not keep.all():
+                        self.filtered_total += int((~keep).sum())
+                        tk.novel_np[idx[~keep]] = False
+                        idx = idx[keep]
+                        cfgs = [c for c, k in zip(cfgs, keep) if k]
+                if len(idx):
+                    tk.u_np = u_all[idx]
+                    tk.perms_np = [p[idx] for p in perms_all]
+                    for j, (row, cfg) in enumerate(zip(idx, cfgs)):
+                        tk.trials.append(Trial(self.gid, cfg, tk, j,
+                                               int(row)))
+                        self.gid += 1
+                        self._pending.add(int(tk.packed[row]))
+            tk.remaining = len(tk.trials)
+            sp_obs.set(trials=len(tk.trials),
+                       gid0=(tk.trials[0].gid if tk.trials else None))
+        if tk.trials:
+            obs.count("driver.trials_opened", len(tk.trials))
         st = self.arm_stats.setdefault(tk.arm_name, [0, 0, 0])
         st[0] += 1
         st[1] += len(tk.trials)
+        if obs.journal.enabled():
+            self._journal_open(tk, self.filtered_total - f0)
+
+    def _journal_open(self, tk: _Ticket, filtered: int) -> None:
+        """Capture the pull verdicts (dedup / prune / filter counts) and
+        the surrogate's predictive moments for the proposed batch when the
+        ticket opens: the step row emitted at finalize carries both,
+        joining belief with outcome.  Only reached when the journal is
+        on: the extra scoring and host transfer never tax an unjournaled
+        run."""
+        batch = int(tk.cands.batch)
+        trials = len(tk.trials)
+        src = ("surrogate" if tk.arm_name == "surrogate"
+               else "random" if tk.injected and tk.arm_name == "random"
+               else "injected" if tk.injected else "technique")
+        tk.jpull = (src, batch, trials, int(tk.pruned), int(filtered),
+                    max(0, batch - trials - int(tk.pruned)
+                        - int(filtered)))
+        sm = self.surrogate
+        if trials and sm is not None and hasattr(sm, "predict_cands"):
+            tk.pred = sm.predict_cands(tk.cands)
+
+    def _journal_step(self, tk: _Ticket, live: List[Trial],
+                      evaluated: int, withdrawn: bool,
+                      was_new_best: bool, nb_flags: List[bool],
+                      new: float, dropped: int, t_wait: float,
+                      snap_v: int, lag: int) -> None:
+        """One journal 'step' row per finalized ticket, the JAX driver's:
+        every live trial's outcome as parallel arrays, the measured
+        (user-oriented) QoR joined with the surrogate's moments from when
+        the ticket opened (the calibration stream `ut report` and the
+        online QualityMonitor consume).  One row per ticket, not per
+        trial, to hold the hot-path budget; every value is a plain python
+        scalar."""
+        row: Dict[str, Any] = {
+            "ev": "step", "step": self.steps, "arm": tk.arm_name,
+            "evaluated": evaluated, "withdrawn": withdrawn,
+            "new_best": was_new_best,
+            "best": (round(self.sign * new, 6)
+                     if math.isfinite(new) else None),
+            "evals": self.evals, "pruned": int(tk.pruned),
+            "hist_dropped": int(dropped),
+            "t_wait": round(t_wait, 6), "snap_v": snap_v, "lag": lag}
+        if tk.jpull is not None:
+            (row["src"], row["batch"], row["trials"], _,
+             row["filtered"], row["dup"]) = tk.jpull
+        if self.sense == "max":
+            row["sense"] = "max"
+        if live:
+            # compact encoding (obs/journal.py EVENT_KINDS): arrays at
+            # their documented default are omitted — `ok` absent = all
+            # true, `nb` absent = all false, `durs` absent = all zero,
+            # contiguous gids collapse to `gid0`
+            sign = self.sign
+            g0 = live[0].gid
+            if all(tr.gid == g0 + i for i, tr in enumerate(live)):
+                row["gid0"] = g0
+            else:
+                row["gids"] = [tr.gid for tr in live]
+            qors: List[Any] = []
+            all_ok = True
+            for tr in live:
+                if math.isfinite(tr.qor):
+                    qors.append(round(sign * tr.qor, 6))
+                else:
+                    qors.append(None)
+                    all_ok = False
+            row["qors"] = qors
+            if not all_ok:
+                row["ok"] = [q is not None for q in qors]
+            if any(nb_flags):
+                row["nb"] = nb_flags
+            if any(tr.dur for tr in live):
+                row["durs"] = [round(tr.dur, 6) for tr in live]
+            if tk.pred is not None:
+                mu, sd, ver = tk.pred
+                row["mus"] = [round(float(sign * mu[tr.row]), 6)
+                              for tr in live]
+                row["sigmas"] = [round(float(sd[tr.row]), 6)
+                                 for tr in live]
+                # the prediction's snapshot version, distinct from the
+                # tell-time `snap_v` / `lag` pair above
+                row["pred_v"] = int(ver)
+        obs.journal.emit_row(row)
 
     def inject(self, cfgs: Sequence[Dict[str, Any]],
                source: str = "seed") -> List[Trial]:
@@ -891,6 +1013,7 @@ class Tuner:
         """Propose >= min_trials hash-novel trials for external
         evaluation (fewer only if the space saturates)."""
         trials: List[Trial] = []
+        obs.count("driver.asks")
         for _ in range(max_attempts):
             tk = self._acquire()
             if tk.trials:
@@ -912,6 +1035,7 @@ class Tuner:
         trial.qor = self.sign * v if math.isfinite(v) else float("inf")
         trial.dur = dur
         self.told += 1
+        obs.count("driver.told")
         if self.hooks:
             _fire(self.hooks, "on_result", self, trial,
                   float(qor) if math.isfinite(v) else None)
@@ -927,6 +1051,9 @@ class Tuner:
         if trial.qor is not None or trial.cancelled:
             raise ValueError(f"trial gid={trial.gid} already resolved")
         trial.cancelled = True
+        obs.event("ticket.withdraw", gid=trial.gid,
+                  arm=trial.ticket.arm_name)
+        obs.count("driver.withdrawn")
         tk = trial.ticket
         tk.remaining -= 1
         if tk.remaining == 0:
@@ -969,8 +1096,9 @@ class Tuner:
         if evaluated or tk.novel_np.any():
             # in-batch duplicates copy their source row's result
             qor = _to_device(qor_np[tk.src], torch.float32, dev)
-            self._commit(tk.hashes, tk.cands, qor,
-                         _to_device(tk.novel_np, torch.bool, dev))
+            with obs.device_span("ticket.commit", arm=tk.arm_name):
+                self._commit_fn(tk.hashes, tk.cands, qor,
+                                _to_device(tk.novel_np, torch.bool, dev))
             self._read_commit()
             new = self._best_q
         else:
@@ -979,6 +1107,8 @@ class Tuner:
         was_new_best = new < prev
 
         running = prev
+        jn = obs.journal.enabled()
+        nb_flags: List[bool] = [] if jn else None
         for tr in live:
             is_best = tr.qor < running
             running = min(running, tr.qor)
@@ -987,6 +1117,8 @@ class Tuner:
                             [p[tr.slot] for p in tk.perms_np],
                             self.sign * tr.qor, is_best, tr.dur)
             self.trace.append(self.sign * running)
+            if jn:
+                nb_flags.append(is_best)
         self.evals += evaluated
 
         if not tk.injected and not withdrawn:
@@ -996,9 +1128,10 @@ class Tuner:
                     qor = _to_device(qor_np[tk.src], torch.float32, dev)
                 nb = self._nb[nm]
                 draws = self._draw_observe(tk.arm, self._next_key())
-                self._tstates[nm] = tk.arm.observe(
-                    self.space, tk.tstate, tk.cands[:nb], qor[:nb],
-                    self.best, draws)
+                with obs.device_span("ticket.observe", arm=nm):
+                    self._tstates[nm] = self._observe_fn[nm](
+                        self.space, tk.tstate, tk.cands[:nb], qor[:nb],
+                        self.best, draws)
             # else: the member was restarted while this ticket was in
             # flight — observing would undo the restart
             if isinstance(self.root, MetaTechnique):
@@ -1023,13 +1156,15 @@ class Tuner:
             # surrogate learning is the LAST act of the ticket, after
             # every device dispatch of the driver
             slots = [tr.slot for tr in live]
-            self.surrogate.observe(
-                self._features(tk.u_np[slots],
-                               [p[slots] for p in tk.perms_np]),
-                qor_np[np.asarray([tr.row for tr in live])])
-            r0 = time.perf_counter()
-            self.surrogate.maybe_refit()
-            t_refit = time.perf_counter() - r0
+            with obs.span("surrogate.tick", arm=tk.arm_name) as so:
+                self.surrogate.observe(
+                    self._features(tk.u_np[slots],
+                                   [p[slots] for p in tk.perms_np]),
+                    qor_np[np.asarray([tr.row for tr in live])])
+                r0 = time.perf_counter()
+                self.surrogate.maybe_refit()
+                t_refit = time.perf_counter() - r0
+                so.set(t_refit_ms=round(t_refit * 1e3, 3))
         dropped = self._last_dropped
         if dropped and not self._cap_warned:
             self._cap_warned = True
@@ -1052,6 +1187,22 @@ class Tuner:
                           evaluated, self.sign * new, was_new_best,
                           tk.pruned, dropped, tk.t_propose, tk.t_dedup,
                           t_wait, t_refit, snap_v, lag, 0, 0.0)
+        if jn:
+            self._journal_step(tk, live, evaluated, withdrawn,
+                               was_new_best, nb_flags, new, dropped,
+                               t_wait, snap_v, lag)
+        if obs.enabled():
+            obs.event("ticket.finalize", arm=tk.arm_name,
+                      evaluated=evaluated, withdrawn=withdrawn,
+                      new_best=was_new_best, step=self.steps)
+            obs.observe("driver.eval_wait_s", t_wait)
+            obs.gauge("surrogate.snapshot_version", snap_v)
+            obs.gauge("surrogate.refit_lag_rows", lag)
+            obs.gauge("driver.hist_dropped", dropped)
+            if was_new_best:
+                obs.count("driver.new_bests")
+            if withdrawn:
+                obs.count("driver.tickets_withdrawn")
         if self.hooks:
             if was_new_best:
                 res = self.result()

@@ -43,7 +43,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import rng
+from .. import obs, rng
 from ..ops import acquire
 from ..space.spec import CandBatch
 from ..surrogate import gp
@@ -160,7 +160,12 @@ class BatchedEngine:
     def run(self, state: EngineState, n_steps: int,
             eval_fn: Optional[Callable] = None) -> EngineState:
         """n_steps batched steps; the exchange counts steps from 0 in
-        each call, as the JAX package's scan does."""
+        each call, as the JAX package's scan does.  Each call is one
+        `engine.batched_run` dispatch window of the obs plane."""
+        return _run_obs(self, state, n_steps, eval_fn)
+
+    def _run_steps(self, state: EngineState, n_steps: int,
+                   eval_fn: Optional[Callable]) -> EngineState:
         for t in range(n_steps):
             state = self._step(state, t, eval_fn)
         return state
@@ -207,6 +212,12 @@ def _map(fn, tree):
     if isinstance(tree, tuple):
         return tuple(_map(fn, x) for x in tree)
     return tree
+
+
+# the batched engine's observability seam (one wrapper for every
+# engine; the obs registry keys programs by name)
+_run_obs = obs.instrument_device_fn(
+    lambda eng, *args: eng._run_steps(*args), "engine.batched_run")
 
 
 class StatefulEval:

@@ -39,7 +39,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
-from .. import rng
+from .. import obs, rng
 from ..device import DeviceLike, resolve_device
 from ..driver.history import History, HistState, dup_source
 from ..space.spec import CandBatch, Space, concat_cands
@@ -272,7 +272,14 @@ class FusedEngine:
     # ------------------------------------------------------------------
     def run(self, state: EngineState, n_steps: int, eval_fn=None,
             exchange: Optional[Exchange] = None) -> EngineState:
-        """n_steps fused steps (a Python loop; the JAX package scans)."""
+        """n_steps fused steps (a Python loop; the JAX package scans).
+        Each call is one `engine.run` dispatch window of the obs plane
+        (`obs.instrument_device_fn`): a span on the caller's lane and,
+        while tracing, its window on the card."""
+        return _run_obs(self, state, n_steps, eval_fn, exchange)
+
+    def _run_steps(self, state: EngineState, n_steps: int, eval_fn,
+                   exchange: Optional[Exchange]) -> EngineState:
         for _ in range(n_steps):
             state = self.step(state, eval_fn, exchange)
         return state
@@ -293,3 +300,9 @@ class FusedEngine:
     def best_qor(self, state: EngineState) -> float:
         # a host read: the reporting boundary, never inside a step
         return float(self.sign * state.best.qor)
+
+
+# the engine plane's observability seam: one wrapper for every engine
+# (the obs registry keys programs by name)
+_run_obs = obs.instrument_device_fn(
+    lambda eng, *args: eng._run_steps(*args), "engine.run")

@@ -26,8 +26,9 @@ re-design of the reference's controller stack
 
 The JAX package's controller also keeps a persistent XLA compilation
 cache; the port compiles nothing at tune time, so `compile_cache_dir` is
-accepted and has no effect.  Its spans, counters and journal rows come
-with the port's observability plane (ROADMAP Queue 1 item 8).
+accepted and has no effect.  Its spans, counters and journal rows are
+the JAX controller's: the analyze and warm-start spans, the store-hit
+bypass lane, the exchange and federate rows.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 
+from .. import obs
 from ..api.constraint import REGISTRY
 from ..api.session import settings, write_best
 from ..api.state import DEFAULT_QOR_FILE, PARAMS_FILE
@@ -359,6 +361,9 @@ class ProgramTuner:
             else:
                 kept.append(tr)
         queue.extend(kept)
+        if n:
+            # trials actually withdrawn, not new-best sweeps
+            obs.count("driver.spec_invalidations", n)
         return n
 
     # ------------------------------------------------------------------
@@ -414,8 +419,25 @@ class ProgramTuner:
         immediately — no build, but FULL accounting (told/evals budget,
         archive row, surrogate observation, bandit credit) and the same
         new-best speculative invalidation a pool result triggers."""
+        t0 = time.perf_counter()
         qor = self._verdict(row.get("qor"), trial.config)
         stats = self.tuner.tell(trial, qor, float(row.get("dur", 0.0)))
+        if obs.journal.enabled():
+            # store-hit attribution for the search-quality stream: the
+            # tell row records the outcome, this one that it cost no
+            # build
+            obs.journal.emit(
+                "store_hit", gid=trial.gid,
+                qor=None if qor is None else round(float(qor), 6),
+                dur=round(float(row.get("dur", 0.0)), 6))
+        if obs.enabled():
+            # the bypass lane: a served ticket's gid shows up here and
+            # never on a worker-N build lane
+            obs.complete_span("store.serve_hit", t0=t0,
+                              dur=time.perf_counter() - t0,
+                              track="store", gid=trial.gid)
+            obs.observe("store.serve_ms",
+                        (time.perf_counter() - t0) * 1e3)
         if qor is not None:
             self._host_history.append((trial.config, qor))
         if stats is not None and stats.was_new_best and self.prefetch:
@@ -480,6 +502,11 @@ class ProgramTuner:
             injected = tuner.inject([row["cfg"]], source="exchange")
         if injected:
             self.exchange_injected += len(injected)
+            obs.event("store.exchange", qor=float(row["qor"]))
+            obs.count("store.exchange_injected", len(injected))
+            if obs.journal.enabled():
+                obs.journal.emit("exchange",
+                                 qor=round(float(row["qor"]), 6))
             # serve ahead of speculative technique work
             queue.extendleft(reversed(injected))
         if self.federate:
@@ -504,9 +531,12 @@ class ProgramTuner:
         if not n:
             return
         self.federated_rows += n
+        obs.count("store.federated_rows", n)
         sm = self.tuner.surrogate
         if sm is not None:
             sm.maybe_refit()
+        if obs.journal.enabled():
+            obs.journal.emit("federate", rows=n)
 
     def _host_proposals(self, space) -> List[Trial]:
         """Ask @ut.model proposal sources for one config each."""
@@ -528,7 +558,8 @@ class ProgramTuner:
             time_limit: Optional[float] = None) -> TuneResult:
         """Tune end-to-end; returns the Tuner's TuneResult."""
         if self.params is None:
-            self.analyze()
+            with obs.span("controller.analyze"):
+                self.analyze()
         limit = int(test_limit if test_limit is not None
                     else self.test_limit)
         wall_limit = (time_limit if time_limit is not None
@@ -547,7 +578,8 @@ class ProgramTuner:
                 # was lost) still never re-execute an archived config
                 store.ingest_archive(self.archive)
             if self.warm_start:
-                self._warm_start_from_store()
+                with obs.span("controller.warm_start") as sp:
+                    sp.set(rows=self._warm_start_from_store())
 
         queue: collections.deque = collections.deque()
         # seed trial: the program's declared defaults; its QoR was already
@@ -642,6 +674,7 @@ class ProgramTuner:
                                limit - tuner.told - outstanding)
                     asked = tuner.ask(min_trials=want)
                     queue.extend(asked)
+                    obs.gauge("prefetch.depth", len(queue))
                     dry_asks = 0 if asked else dry_asks + 1
                     if asked and pool.n_free:
                         continue  # launch the fresh trials before polling

@@ -17,9 +17,11 @@ supervision:
   read into the result's info), timed-out runs are process-group-killed
   and their sandbox rebuilt (the dead-worker replacement semantics).
 
-The JAX package's pool also records build spans, trace sidecars and
-journal rows for its observability plane; the port's comes with ROADMAP
-Queue 1 item 8.
+With tracing on, each build is a `pool.build` span on its slot's lane
+(`worker-<prefix><i>`), the child's own spans come back through a
+per-sandbox trace sidecar merged onto that lane at reap
+(`obs.sidecar`), and with the journal on the child's covariates and
+feature vector become `feature` / `interm` rows, as in the JAX pool.
 """
 from __future__ import annotations
 
@@ -30,14 +32,16 @@ import subprocess
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+from .. import obs
 from ..api.report import COVARS_FILE, FEATURES_FILE
+from ..obs import faults, sidecar
 from .measure import kill_process_group, popen_kw
 
 PROTOCOL_FILES = ("ut.params.json",)   # copied (not symlinked) per sandbox
 
 
 class _Slot:
-    __slots__ = ("index", "sandbox", "proc", "trial", "t0",
+    __slots__ = ("index", "sandbox", "proc", "trial", "t0", "t0p",
                  "deadline", "stage", "log_f", "err_f")
 
     def __init__(self, index: int, sandbox: str):
@@ -46,6 +50,7 @@ class _Slot:
         self.proc: Optional[subprocess.Popen] = None
         self.trial = None
         self.t0 = 0.0
+        self.t0p = 0.0       # perf_counter at launch (the build span)
         self.deadline = float("inf")
         self.stage = 0
         self.log_f = None
@@ -186,9 +191,11 @@ class WorkerPool:
             raise RuntimeError("no free worker slot")
         slot = free[0]
         sb = slot.sandbox
-        # clear stale protocol outputs
+        # clear stale protocol outputs (a previous trial's trace sidecar
+        # too: a reused slot must never replay old child spans)
         for name in os.listdir(sb):
-            if name.startswith("ut.qor_stage") or name == FEATURES_FILE:
+            if name.startswith("ut.qor_stage") or name in (
+                    FEATURES_FILE, sidecar.SIDECAR_FILE):
                 os.unlink(os.path.join(sb, name))
         cfg_path = os.path.join(
             sb, "configs", f"ut.dr_stage{stage}_index{slot.index}.json")
@@ -206,6 +213,14 @@ class WorkerPool:
             "UT_WORK_DIR": sb,
         })
         env.pop("UT_BEFORE_RUN_PROFILE", None)
+        # trace-context propagation: when the driver traces, the child
+        # records its own spans and dumps them to a per-sandbox sidecar
+        # merged back at reap.  Popped first, so a stale path from an
+        # enclosing traced run never leaks into an untraced child
+        env.pop(sidecar.SIDECAR_ENV, None)
+        if obs.enabled():
+            env[sidecar.SIDECAR_ENV] = os.path.join(
+                sb, sidecar.SIDECAR_FILE)
         if self.pre_launch is not None:
             self.pre_launch(sb, slot.index, trial)
         slot.log_f = open(os.path.join(sb, "ut.run.log"), "w")
@@ -216,10 +231,13 @@ class WorkerPool:
             **popen_kw(self.memory_limit))
         slot.trial = trial
         slot.t0 = time.time()
+        slot.t0p = time.perf_counter()
         slot.deadline = (slot.t0 + self.runtime_limit
                          if self.runtime_limit else float("inf"))
         slot.stage = stage
         self.launched += 1
+        obs.count("pool.launched")
+        obs.gauge("pool.busy", self.busy_count)
         return slot.index
 
     # ------------------------------------------------------------------
@@ -237,6 +255,7 @@ class WorkerPool:
 
     def _reap(self, slot: _Slot, *, killed: bool) -> Tuple[Any, Optional[
             float], float, Dict[str, Any]]:
+        faults.fire("pool.reap")
         dur = time.time() - slot.t0
         self.busy_s += dur
         rc = slot.proc.returncode
@@ -251,6 +270,32 @@ class WorkerPool:
         info = {"returncode": rc, "timeout": killed, "slot": slot.index,
                 "sandbox": slot.sandbox, **self._child_rows(slot)}
         trial = slot.trial
+        # the build window on this slot's lane, emitted at reap with the
+        # slot's own launch time on the perf_counter timebase: store-hit
+        # trials never reach a slot, so their absence from the worker
+        # lanes is the bypass made visible
+        pdur = time.perf_counter() - slot.t0p
+        lane = f"worker-{self.slot_prefix}{slot.index}"
+        obs.complete_span(
+            "pool.build", t0=slot.t0p, dur=pdur, track=lane,
+            gid=getattr(trial, "gid", None), rc=rc, timeout=killed)
+        # the child's sidecar spans nest inside the build window on the
+        # same lane (clock-offset aligned; a killed child usually left
+        # none)
+        n_child = sidecar.merge_into(
+            os.path.join(slot.sandbox, sidecar.SIDECAR_FILE), lane)
+        if n_child:
+            obs.count("pool.sidecar_events", n_child)
+        obs.observe("pool.build_s", pdur)
+        obs.gauge("pool.utilization", self.utilization())
+        if obs.journal.enabled():
+            gid = getattr(trial, "gid", None)
+            if "covars" in info:
+                obs.journal.emit("feature", gid=gid, covars=info["covars"])
+            if "interm" in info:
+                obs.journal.emit("interm", gid=gid, feats=info["interm"])
+        if killed:
+            obs.count("pool.timeouts")
         slot.proc = slot.trial = slot.log_f = slot.err_f = None
         slot.deadline = float("inf")
         if killed:

@@ -108,9 +108,11 @@ class Kernel:
 
 
 def library_path(source: Path) -> Path:
-    """The library built from `source`: named by a hash of the source and
-    the flags."""
+    """The library built from `source`: named by a hash of the source, the
+    headers beside it (`csrc/*.h`) and the flags."""
     h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.h")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{source.stem}.{h.hexdigest()[:16]}.so"
 
@@ -133,10 +135,11 @@ MERGE = Kernel(
     replaces=("uptune_tpu/ops/dedup.py:99",))           # _merge_kernel
 # The four launchers of csrc/gp_tile.cu; wrappers in
 # surrogate/pallas_score.py (A, B) and ops/acquire.py (C, D).
-# Their launch geometry lives in the .cu file alone; the wrappers read
-# it through `Kernel.query`: the largest N (`limit`, by features and
-# kind), for B, C and D the scratch size (ut_acquire_scratch_words) and
-# D's candidate count (ut_acquire_topk_slots).
+# Their launch geometry lives in csrc/gp_plan.h alone (included by the
+# .cu file); the wrappers read it through `Kernel.query`: the largest N
+# (`limit`, by features and kind), for B, C and D the scratch size
+# (ut_acquire_scratch_words), D's candidate count (ut_acquire_topk_slots)
+# and krows' route at a width (ut_krows_route).
 # A: ut_gp_mean(qc, qk, xc, xk, alpha, mu, b, n, fc, fk, stream); one
 #    kernel, gp_mean_kernel: the distances' cross term on the tensor cores
 #    in 3xTF32, the Matérn epilogue in registers, N split over a cluster

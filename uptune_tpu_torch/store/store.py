@@ -39,6 +39,8 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
+from .. import obs
+from ..obs import faults
 from .keys import eval_signature, scope_id, trial_key
 
 
@@ -214,7 +216,10 @@ class ResultStore:
         truthy refresh really means siblings produced something."""
         with self._lock:
             self._last_refresh = time.monotonic()
-            return self._load_all()
+            with obs.span("store.refresh") as sp:
+                n = self._load_all()
+                sp.set(rows=n)
+            return n
 
     def maybe_refresh(self) -> int:
         """Time-gated refresh() for call sites inside hot loops."""
@@ -240,8 +245,10 @@ class ResultStore:
             row = self._rows.get(trial_key(self.scope, cfg))
             if row is not None and _finite(row.get("qor")):
                 self.hits += 1
+                obs.count("store.hits")
                 return row
             self.misses += 1
+            obs.count("store.misses")
             return None
 
     def scope_rows(self) -> List[Dict[str, Any]]:
@@ -309,6 +316,7 @@ class ResultStore:
         failure).  Returns the stored row, or None when an equal-or-
         better row for the key already exists (idempotent re-records,
         e.g. archive ingestion over a live store, append nothing)."""
+        faults.fire("store.record")
         with self._lock:
             k = trial_key(self.scope, cfg)
             cur = self._rows.get(k)
@@ -327,6 +335,7 @@ class ResultStore:
                 row["perms"] = [[int(i) for i in p] for p in perms]
             self._rows[k] = row
             self.recorded += 1
+            obs.count("store.recorded")
         # the disk append runs outside _lock (lookups on the serving
         # path must not queue behind it); _io_lock serializes fd use.
         # Same-key dedup already resolved above, and segment line

@@ -45,8 +45,11 @@ How the port differs from the JAX manager:
   allocator cannot hand their blocks to the worker's stream while the
   driver still reads them.
 
-Left out, each with the work that brings it back: the `obs` events,
-spans, gauges and tuning-journal lines (the observability slice), and
+The `obs` events, spans, gauges and tuning-journal rows are the
+reference's, at its sites (`surrogate.submit`, `surrogate.fit` on the
+calling thread's lane, `surrogate.publish`, `surrogate.extend`, the
+journal's `snapshot` row), and `predict_cands` gives the journal's
+calibration join.  Left out, with the work that brings it back:
 `parallel/surrogate_shard.py` (the multi-card slice).
 """
 from __future__ import annotations
@@ -59,7 +62,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import rng
+from .. import obs, rng
 from ..calibrated import CALIBRATED_OPTS  # noqa: F401  (re-exported)
 from ..device import DeviceLike, resolve_device, to_device, to_host
 from ..space.spec import CandBatch, Space
@@ -551,6 +554,7 @@ class SurrogateManager:
                         # the worker's stream waits for the split keys
                         ready = torch.cuda.Event()
                         ready.record(torch.cuda.current_stream(self.device))
+                    obs.event("surrogate.submit", n_rows=self.n_points)
                     self._refit_future = self._refit_exec.submit(
                         self._refit_full, *args, background=True,
                         ready=ready)
@@ -612,21 +616,26 @@ class SurrogateManager:
         stream, after `ready` (recorded where the keys were split)."""
         t0 = time.perf_counter()
         dev = self._refit_device
-        if dev.type != "cuda":
-            self._refit_full_body(xs_np, ys_np, ks, kf, background, t0,
-                                  None)
-            return
-        with torch.cuda.device(dev):
-            stream = (self._side_stream(dev) if background
-                      else torch.cuda.current_stream(dev))
-            with torch.cuda.stream(stream):
-                if ready is not None:
-                    stream.wait_event(ready)
+        # the fit span lands on the calling thread's lane: the refit
+        # worker's under async_refit, the driver's for a sync fit; a
+        # failed fit still closes it
+        with obs.span("surrogate.fit", background=background,
+                      n_rows=len(ys_np)) as sp_obs:
+            if dev.type != "cuda":
                 self._refit_full_body(xs_np, ys_np, ks, kf, background,
-                                      t0, stream)
+                                      t0, None, sp_obs)
+                return
+            with torch.cuda.device(dev):
+                stream = (self._side_stream(dev) if background
+                          else torch.cuda.current_stream(dev))
+                with torch.cuda.stream(stream):
+                    if ready is not None:
+                        stream.wait_event(ready)
+                    self._refit_full_body(xs_np, ys_np, ks, kf, background,
+                                          t0, stream, sp_obs)
 
     def _refit_full_body(self, xs_np, ys_np, ks, kf, background, t0,
-                         stream) -> None:
+                         stream, sp_obs) -> None:
         draws = self._draw_refit(ks, kf)
         n_total = len(ys_np)
         xs_sub, ys_sub = self._host_subsample(xs_np, ys_np,
@@ -689,6 +698,13 @@ class SurrogateManager:
                 state, self._version, n_total, thr, besty,
                 exact=n_total <= self.max_points, in_bucket=n)
             self.refits += 1
+        obs.event("surrogate.publish", version=self._version,
+                  n_rows=n_total, bucket=bucket)
+        obs.gauge("surrogate.refits_published", self.refits)
+        if obs.journal.enabled():
+            obs.journal.emit("snapshot", version=self._version,
+                             n_rows=int(n_total), bucket=int(bucket))
+        sp_obs.set(bucket=bucket)
         dt = time.perf_counter() - t0
         if background:
             self.t_refit_bg_total += dt
@@ -765,6 +781,7 @@ class SurrogateManager:
             [v if np.isfinite(v) else worst for v in ys[first:first + rows]],
             np.float32), torch.float32, self.device)
         st = snap.state
+        t0_obs = time.perf_counter()
         for j in range(rows):
             st = gp_mod.extend(st, xr[j], yr[j], snap.in_bucket + j,
                                n_cont=self._n_cont, n_cat=self._n_cat)
@@ -785,6 +802,10 @@ class SurrogateManager:
                 threshold=thr, best_y=besty,
                 in_bucket=snap.in_bucket + rows)
         self.incr_updates += rows
+        if rows:
+            obs.complete_span("surrogate.extend", t0=t0_obs,
+                              dur=time.perf_counter() - t0_obs,
+                              rows=rows, version=self._version)
         return rows
 
     def force_refit(self) -> bool:
@@ -844,6 +865,27 @@ class SurrogateManager:
         return mu, sd, snap.version
 
     # ------------------------------------------------------------------
+    def predict_cands(self, cands: CandBatch):
+        """Predictive moments for a candidate batch against the current
+        published snapshot: ``(mu [B], sd [B], version)`` as host numpy
+        arrays (engine-oriented targets), or None when not fitted.  The
+        tuning journal's calibration join: the driver records these when
+        a ticket opens and joins them with the measured QoR at tell; its
+        call site is gated on the journal, so an unjournaled run never
+        pays the extra scoring and transfer."""
+        snap = self._snap   # one snapshot read (see keep_mask)
+        if snap is None:
+            return None
+        feats = self._sx(self.space.features(cands))
+        if self.kind == "gp":
+            mu, sd = gp_mod.predict(snap.state, feats, n_cont=self._n_cont,
+                                    n_cat=self._n_cat)
+        else:
+            preds = mlp_mod.predict_members(snap.state, feats)
+            mu, sd = preds.mean(dim=0), preds.std(dim=0, correction=0)
+        mu, sd = to_host(mu, sd)
+        return mu, sd, snap.version
+
     def keep_mask(self, cands: CandBatch,
                   candidate_mask: Optional[np.ndarray] = None
                   ) -> Optional[np.ndarray]:

@@ -188,6 +188,17 @@ def check_train_rows(kernel: native.Kernel, n: int, f: int, var: bool):
             f"launcher (at most {limit})")
 
 
+def krows_route(f: int) -> str:
+    """The route of B's, C's and D's kernel-rows pass at F features, as
+    the library plans it (`csrc/gp_plan.h`): "cuda_cores" (up to 361
+    features, all in one block) or "tensor_cores" (the distances' cross
+    term on wgmma in 3xTF32, 32 features at a time)."""
+    route = MEAN_VAR_KERNEL.query("ut_krows_route", f)
+    if route < 0:
+        raise ValueError(f"no krows route for F={f}")
+    return ("cuda_cores", "tensor_cores")[route]
+
+
 def scratch_words(kernel: native.Kernel, b: int, n: int, var: bool,
                   k: int = 0) -> int:
     """The float32 words of scratch launcher B (var, k = 0), C (k = 0) or
