@@ -27,7 +27,8 @@ setting is printed.  Phases, each printing one JSON line:
              cap 2^15 / b 6040 (half-full and full history), at the
              driver's cap 2^16 / b 32 (the Tuner's default history and
              its dedup bucket on the flagship's space; half-full and
-             full), cap 2048 / b 2048, and at the edges: b = 70,000 into cap 2^15 (most rows
+             full), cap 2048 / b 2048, the serve phase's one-slot commit
+             (cap 256 / b 102, half-full and full), and at the edges: b = 70,000 into cap 2^15 (most rows
              land past cap), b = 1, b = cap with every new row before
              every history row, and cap 5000 / b 777 (cap not a multiple
              of a block's rows); all four columns bitwise; kernel, plain
@@ -184,6 +185,35 @@ setting is printed.  Phases, each printing one JSON line:
              N beside its bound and `acquire_topk_ref`); the MLP ensemble
              (1000 evaluations; one fit on the card against the CPU's);
              and one GP refit on the card against the CPU's;
+15a. topk_batched - launcher D over an instance axis (N segments of B
+             rows against one GP in one launch, each with its own top
+             k): the batched flagship's N 4 x 6040 rows at k 128 and the
+             manager's pool N 64 x 4096 at k 32, each segment bitwise
+             against its own single launch and within D's tolerances
+             against `topk_plain`, timed against N single launches, the
+             plain version and the library staging (two rounds in
+             turns); then `BatchedEngine.propose_topk` on the flagship at
+             N 4, 20 epochs with the counts reset (one D launch an epoch,
+             each instance's top k bitwise its own launch's,
+             `global_topk`'s rows equal and its best the pool's);
+15b. serve - the serving plane: the JAX package's serving protocol
+             (`bench.py --serve`) against the port's SessionServer on
+             the card: rosenbrock-4d over [-3, 3], the default arms (102
+             rows an epoch), 1024 tenants in one 1024-slot group, 3
+             epoch waves, the memo store on, 8 closes and 8 opens of
+             churn between epochs, T = min(16, 2 cpus, 1024 / 8) client
+             threads over localhost TCP, a probe session's epoch alone
+             first; aggregate asks/s, ask p50 / p95, time to the first
+             trial, proposes, commits, batch fill, the stacked state's
+             bytes, and the merge's launches (equal to the commits: one
+             a committed tenant epoch); where the waves' wall goes (the
+             server's commit and propose spans, each group's lock timed,
+             the process's CPU seconds over the wall); 8 sampled
+             tenants' offered configs bitwise equal to LocalSessions at
+             matched seeds on the card; the same drive with the groups on the CPU at 256
+             tenants (cut from 1024 for the time limit); then
+             `python -m uptune_tpu_torch.cli serve --port 0` as a
+             process: one ask / tell over TCP, SIGTERM, exit code 0;
 16. program - program mode: `python -m uptune_tpu_torch.cli
              rosenbrock.py -pf 4 --test-limit 200 --seed 0` on a copy of
              the unchanged sample (its child imports the JAX package):
@@ -228,8 +258,9 @@ setting is printed.  Phases, each printing one JSON line:
              largest ratio to the tolerance), times and bound; the merge
              also over its instance axis and at the driver's shape, and
              the launches of the batched, portfolio, driver, surrogate
-             driver and program paths (D also timed at the manager's
-             shapes), and A-D's times at F = 1028.
+             driver, program, propose_topk and serve paths (D also timed
+             at the manager's shapes and over its instance axis), and
+             A-D's times at F = 1028.
 
 """
 from __future__ import annotations
@@ -240,6 +271,7 @@ import json
 import re
 import statistics
 import subprocess
+import threading
 import sys
 import time
 from pathlib import Path
@@ -264,6 +296,10 @@ SIZES = (  # (name, cap, b, live history rows)
     ("cap65536_b32_half", 1 << 16, 32, 1 << 15),
     ("cap65536_b32_full", 1 << 16, 32, 1 << 16),
     ("cap2048_b2048", 2048, 2048, 2000),
+    # the serve phase's one-slot commit: the default arms' 102 rows into
+    # a tenant's 256-row history, before and after it fills (eviction)
+    ("cap256_b102_half", 256, 102, 128),
+    ("cap256_b102_full", 256, 102, 256),
 )
 TIMED, DRIVER_TIMED = "cap32768_b6040_full", "cap65536_b32_full"
 # rows a block of the merge kernel may take (csrc/merge.cu instantiates
@@ -366,6 +402,13 @@ WIDE_KEYS = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
 PROGRAM_LIMIT, PROGRAM_RESUME, PROGRAM_LOCKSTEP, GCC_LIMIT = 200, 250, 60, 24
 # the obs phase: surrogate-scored flagship steps in its record_window
 OBS_STEPS = 20
+# D over an instance axis: (segments, rows a segment, k)
+TOPK_SEGMENTS = ((BF_N, 6040, TOP_K), (64, 4096, 32))
+TOPK_EPOCHS = 20
+# the serving protocol: tenants on the card and on the CPU, epochs, and
+# the closes (and opens) between epochs
+SERVE_SESSIONS, SERVE_CPU_SESSIONS, SERVE_EPOCHS, SERVE_CHURN = (
+    1024, 256, 3, 8)
 
 
 def emit(obj) -> None:
@@ -1047,7 +1090,8 @@ def gp_times_phase(dev) -> dict:
     """A-D's kernel times alone (CUDA events around graph replays, the
     median of REPS) at the main state (B 6040, N 1024, F 31, EI, k 128)
     and at gp_wide's (the same shapes at F 1028), with each launcher's
-    passes profiled at both and, at F 1028, the plain and library times.
+    passes profiled at both and, at F 1028, the plain and library times;
+    and D's single list timed as a call at both.
     The A/B mode (`--gp-times --tree DIR`): run once for each tree in
     turns (parent, change, change, parent), one process each; it calls
     only entry points the parent trees have too."""
@@ -1071,7 +1115,14 @@ def gp_times_phase(dev) -> dict:
         fns = launcher_calls(blocks, kinv, params)
         out[key] = {"shape": f"B={xq.shape[0]} N={st.x.shape[0]} "
                              f"F={xq.shape[1]} kind=ei k={TOP_K}",
-                    "ms": {name: median_ms(fn) for name, fn in fns.items()}}
+                    "ms": {name: median_ms(fn) for name, fn in fns.items()},
+                    # D's single list as the engine calls it (host launch
+                    # included): the wrapper, and `topk_tile`, which goes
+                    # through the custom op where a tree has one
+                    "topk_call_ms": {
+                        "topk_cuda": call_ms(fns["acquire_topk"]),
+                        "topk_tile": call_ms(lambda: acq.topk_tile(
+                            *blocks, kinv, params, "ei", TOP_K))}}
         if key != "f31":
             out[key]["plain_ms"], out[key]["library_ms"] = (
                 {name: median_ms(c[i], reps=10)
@@ -3375,6 +3426,475 @@ def obs_phase(engine, prog: dict, cases, dev) -> dict:
     return out
 
 
+# -- D over an instance axis -------------------------------------------------------
+def topk_batched_phase(cases, feats: tuple, dev) -> dict:
+    """Launcher D over an instance axis (see the module docstring): the
+    batched flagship's N 4 x 6040 rows at k 128 and the manager's pool
+    N 64 x 4096 at k 32, each segment's top k bitwise against its own
+    single launch and within D's tolerances against `topk_plain`; the
+    batched launch timed against N single launches, the plain version
+    and the library staging, in turns; then `BatchedEngine.propose_topk`
+    on the flagship at N 4 (the main path: one D launch an epoch)."""
+    from uptune_tpu_torch import native
+    from uptune_tpu_torch.engine import BatchedEngine, surrogate_eval_fn
+    from uptune_tpu_torch.flagship import flagship, flagship_surrogate
+    from uptune_tpu_torch.ops import acquire as acq
+    from uptune_tpu_torch.space.spec import CandBatch
+    from uptune_tpu_torch.surrogate import pallas_score as ps
+    nc, ncat = feats
+    st, _, best, _, _ = cases["mixed_n1024"]
+    n_train = int(st.x.shape[0])
+    ys = float(st.y_std)
+    out = {"phase": "topk_batched", "shapes": []}
+    bad = []
+    for segs, rows, k in TOPK_SEGMENTS:
+        xq, _, _ = flagship_surrogate(segs * rows, SEED + 30 + segs, dev)
+        blocks, kinv, params = acq.prep(st, xq, "ei", best, BETA, nc, ncat)
+        seg_blocks = [type(blocks)(*(None if t is None else
+                                     t[s * rows:(s + 1) * rows].contiguous()
+                                     for t in blocks[:2]), *blocks[2:])
+                      for s in range(segs)]
+        vg, ig = acq.topk_segments_cuda(*blocks, kinv, params, "ei", k, segs)
+        single = [acq.topk_cuda(*sb, kinv, params, "ei", k)
+                  for sb in seg_blocks]
+        plain = [acq.topk_plain(*sb, kinv, params, "ei", k)
+                 for sb in seg_blocks]
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(vg[s], single[s][0])
+                      and torch.equal(ig[s], single[s][1])
+                      for s in range(segs))
+        errs, miss = [], 0
+        for s, (vw, iw) in enumerate(plain):
+            errs.append(tol_excess(vg[s], vw, SD_TOL, ys))
+            miss += topk_index_mismatches(iw, vw / ys, ig[s], SD_TOL)
+        f = int(xq.shape[1])
+        shape = (f"N={segs} x B={rows} N_train={n_train} F={f} kind=ei "
+                 f"k={k}")
+        bound = gp_bound(segs * rows, n_train, f, True, 8 * k * segs + 20)
+        ms = median_ms(lambda: acq.topk_segments_cuda(
+            *blocks, kinv, params, "ei", k, segs))
+        singles_ms = median_ms(lambda: [acq.topk_cuda(
+            *sb, kinv, params, "ei", k) for sb in seg_blocks])
+        plain_ms = median_ms(lambda: [acq.topk_plain(
+            *sb, kinv, params, "ei", k) for sb in seg_blocks])
+        library_ms = median_ms(lambda: acq.select_topk(acq.utilities_ref(
+            *blocks, kinv, params, "ei").reshape(segs, rows), k))
+        # a second round in turns: the first numbers stand unless both
+        # rounds are recorded
+        ms2 = median_ms(lambda: acq.topk_segments_cuda(
+            *blocks, kinv, params, "ei", k, segs))
+        singles2 = median_ms(lambda: [acq.topk_cuda(
+            *sb, kinv, params, "ei", k) for sb in seg_blocks])
+        rec = dict(bound, shape=shape, segments=segs, rows=rows, k=k,
+                   bitwise_against_single_launches=bitwise,
+                   max_abs_err=max(e[0] for e in errs),
+                   max_err_over_tol=max(e[1] for e in errs),
+                   index_mismatches=miss,
+                   descending=bool((vg[:, 1:] <= vg[:, :-1]).all()),
+                   ms=ms, ms_second_round=ms2, single_launches_ms=singles_ms,
+                   single_launches_ms_second_round=singles2,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   scratch_bytes=4 * ps.scratch_words(
+                       acq.TOPK_KERNEL, rows, n_train, True, k, segs))
+        out["shapes"].append(rec)
+        if not (bitwise and rec["max_err_over_tol"] <= 1.0 and not miss
+                and rec["descending"]):
+            bad.append(f"{shape}: {rec}")
+
+    # the main path: propose_topk on the flagship at N 4, counted
+    eng = flagship(SCALE, history_capacity=CAPACITY, device=dev)
+    ev = surrogate_eval_fn(eng.space, st, kind="ei", best_y=best,
+                           impl="fused", n_cont=nc, n_cat=ncat)
+    be = BatchedEngine(eng, BF_N)
+    st0 = be.init(SEED + 31)
+    be.propose_topk(st0, TOP_K, ev)              # warm epoch
+    torch.cuda.synchronize()
+    native.reset_launches()                      # the main path starts here
+    t0 = time.perf_counter()
+    for _ in range(TOPK_EPOCHS):
+        ts, cands, keys, vals, idx = be.propose_topk(st0, TOP_K, ev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {kk.name: kk.launches for kk in native.KERNELS}
+    want = {kk.name: 0 for kk in native.KERNELS}
+    want["acquire_topk"] = TOPK_EPOCHS
+    # each instance's top k is that instance's own D launch
+    own = [ev.topk(CandBatch(cands.u[i], tuple(p[i] for p in cands.perms)),
+                   ev.aux, TOP_K) for i in range(BF_N)]
+    gv, gown, gidx = be.global_topk(st0, TOP_K, ev)
+    pool = torch.cat([v for v, _ in own])
+    out["propose_topk"] = {
+        "instances": BF_N, "rows_per_instance": eng.total_batch,
+        "k": TOP_K, "epochs": TOPK_EPOCHS, "seconds": wall,
+        "ms_per_epoch": wall / TOPK_EPOCHS * 1e3, "launches": launches,
+        "own_launch_bitwise": all(
+            torch.equal(vals[i], own[i][0]) and torch.equal(idx[i], own[i][1])
+            for i in range(BF_N)),
+        "global_rows_equal": bool((gv == gv[0]).all()
+                                  and (gown == gown[0]).all()),
+        "global_best": float(gv[0, 0]),
+        "global_is_pool_max": float(gv[0, 0]) == float(pool.max())}
+    p = out["propose_topk"]
+    if launches != want:
+        bad.append(f"propose_topk launches {launches}, expected {want}")
+    if not (p["own_launch_bitwise"] and p["global_rows_equal"]
+            and p["global_is_pool_max"]):
+        bad.append(f"propose_topk: {p}")
+    emit(out)
+    if bad:
+        raise AssertionError("D over an instance axis: " + "; ".join(bad))
+    return out
+
+
+# -- the serving plane ------------------------------------------------------------
+class TimedLock:
+    """A stand-in for a serve group's `threading.RLock` that times each
+    outermost hold: the wait from asking to holding, and the seconds
+    held (the serve phase's lock attribution; reentrant holds add
+    nothing)."""
+
+    def __init__(self):
+        self.lock = threading.RLock()
+        self.owner, self.depth, self.since = None, 0, 0.0
+        self.waits, self.held = [], 0.0
+
+    def acquire(self, blocking=True, timeout=-1):
+        me = threading.get_ident()
+        if self.owner == me:
+            self.lock.acquire()
+            self.depth += 1
+            return True
+        t0 = time.perf_counter()
+        if not self.lock.acquire(blocking, timeout):
+            return False
+        self.since = time.perf_counter()
+        self.waits.append(self.since - t0)
+        self.owner, self.depth = me, 1
+        return True
+
+    def release(self):
+        self.depth -= 1
+        if not self.depth:
+            self.held += time.perf_counter() - self.since
+            self.owner = None
+        self.lock.release()
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+
+
+def span_stats(events, name: str, since: float) -> dict:
+    """count, sum, p50, p95 and max (ms) of the `name` spans recorded at
+    or after `since` (seconds on the obs plane's clock)."""
+    import numpy as np
+    ms = np.sort(np.array([e["dur"] for e in events
+                           if e["name"] == name and e["dur"] is not None
+                           and e["ts"] >= since])) * 1e3
+    if not len(ms):
+        return {"count": 0}
+    return {"count": len(ms), "sum_s": float(ms.sum()) / 1e3,
+            "p50_ms": float(ms[len(ms) // 2]),
+            "p95_ms": float(ms[int(len(ms) * 0.95)]),
+            "max_ms": float(ms[-1])}
+
+
+def serve_drive(dev, n_sessions: int, bad: list) -> dict:
+    """The JAX package's serving protocol (`bench.py --serve`) against the
+    port's SessionServer on `dev`: rosenbrock-4d, the default arms, one
+    n_sessions-slot group, the memo store on, SERVE_EPOCHS barrier-
+    separated epoch waves of chunked ask / tell_many over localhost TCP
+    from T client threads, SERVE_CHURN closes and opens between epochs;
+    one probe session drives an epoch alone first.  The merge's launches
+    are read around the drive and must equal the server's commits.  Where
+    the epoch waves' wall goes: the server's own `serve.commit` and
+    `serve.propose` spans, each group's lock (`TimedLock`: waits and the
+    share of the wall it is held) and the process's CPU seconds over the
+    wall (the client threads and the server share one interpreter)."""
+    import os
+    import tempfile
+    import numpy as np
+    from uptune_tpu_torch import native, obs
+    from uptune_tpu_torch.exec.space_io import records_from_space
+    from uptune_tpu_torch.serve import SessionServer, connect
+    from uptune_tpu_torch.workloads import rosenbrock_space
+    dims, ask_n, hist = 4, 8, 256
+    n_threads = max(4, min(16, 2 * (os.cpu_count() or 4)))
+    n_threads = min(n_threads, n_sessions // 8)
+    records = records_from_space(rosenbrock_space(dims, -3.0, 3.0))
+
+    def measure_all(cfgs):
+        x = np.array([[c[f"x{i}"] for i in range(dims)] for c in cfgs])
+        return (100.0 * (x[:, 1:] - x[:, :-1] ** 2) ** 2
+                + (1 - x[:, :-1]) ** 2).sum(axis=1).tolist()
+
+    store = tempfile.TemporaryDirectory(prefix="ut_serve_store_")
+    srv = SessionServer(port=0, slots=n_sessions,
+                        max_sessions=n_sessions + 64, store_dir=store.name,
+                        device=dev).start()
+    obs.metrics.reset()
+    native.reset_launches()                 # the main path starts here
+    lat_lock = threading.Lock()
+    clients = [None] * n_threads
+    handles = [None] * n_threads
+    offered = {}                            # seed -> offered configs
+    base, rem = divmod(n_sessions, n_threads)
+    sampled = {}                            # session id -> seed
+
+    def open_all(ti):
+        # tenant 1 of the first 8 threads is a parity probe: it opens
+        # without the memo, so every row of its epochs is offered to it
+        c = connect(("127.0.0.1", srv.port))
+        hs = [c.open_session(records, seed=ti * 10000 + j,
+                             program="chip-serve", history_capacity=hist,
+                             store=not (j == 1 and ti < 8))
+              for j in range(base + (1 if ti < rem else 0))]
+        clients[ti], handles[ti] = c, hs
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=open_all, args=(ti,))
+          for ti in range(n_threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    open_s = time.perf_counter() - t0
+    group_rows = handles[0][0].info["batch"]
+    locks = []
+    for g in (g for gs in srv._groups.values() for g in gs):
+        g.lock = TimedLock()                # idle: every open has returned
+        locks.append(g.lock)
+    for ti in range(min(8, n_threads)):     # never the probe or churned
+        sampled[handles[ti][1].id] = ti * 10000 + 1
+
+    def drive(hs, lats):
+        n_asks = 0
+        for h in hs:
+            done = False
+            while not done:
+                a = time.perf_counter()
+                trials = h.ask(ask_n)
+                lats.append(time.perf_counter() - a)
+                if not trials:
+                    done = True
+                    continue
+                if h.id in sampled:
+                    offered.setdefault(sampled[h.id], []).extend(
+                        t.config for t in trials)
+                n_asks += len(trials)
+                r = h.tell_many(zip((t.ticket for t in trials),
+                                    measure_all([t.config for t in trials])))
+                done = bool(r.get("committed"))
+        return n_asks
+
+    # the probe: one session's epoch alone, at full width
+    probe = handles[0][0]
+    probe_lat = []
+    drive([probe], probe_lat)
+    epochs = SERVE_EPOCHS
+    totals = [[0] * n_threads for _ in range(epochs)]
+    epoch_lat = [[] for _ in range(epochs)]
+    walls = [0.0] * epochs
+    barrier = threading.Barrier(n_threads)
+    errors = []
+
+    def run_epochs(ti):
+        try:
+            c, hs = clients[ti], handles[ti]
+            for e in range(epochs):
+                barrier.wait()
+                a = time.perf_counter()
+                lats = []
+                totals[e][ti] = drive(hs, lats)
+                with lat_lock:
+                    epoch_lat[e].extend(lats)
+                barrier.wait()
+                if ti == 0:
+                    walls[e] = time.perf_counter() - a
+                if e + 1 < epochs and ti < SERVE_CHURN:
+                    hs[-1].close()
+                    hs[-1] = c.open_session(
+                        records, seed=ti * 10000 + 9000 + e,
+                        program="chip-serve", history_capacity=hist)
+        except BaseException as exc:
+            errors.append(repr(exc))
+            barrier.abort()
+            raise
+
+    for lk in locks:                        # the waves alone
+        lk.waits, lk.held = [], 0.0
+    obs_t0, cpu0 = obs.now(), time.process_time()
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=run_epochs, args=(ti,))
+          for ti in range(n_threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    drive_s = time.perf_counter() - t0
+    cpu_s = time.process_time() - cpu0
+    trace = obs.snapshot()
+    waits = np.sort(np.array([w for lk in locks for w in lk.waits])) * 1e3
+    lock = {"acquisitions": len(waits),
+            "wait_sum_s": float(waits.sum()) / 1e3,
+            "wait_p50_ms": float(waits[len(waits) // 2]),
+            "wait_p95_ms": float(waits[int(len(waits) * 0.95)]),
+            "wait_max_ms": float(waits[-1]),
+            "held_s": sum(lk.held for lk in locks)}
+    lock["held_share_of_wall"] = lock["held_s"] / drive_s
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in native.KERNELS}
+    scrape = clients[0].metrics()
+    counters = scrape["metrics"]["counters"]
+    gauges = scrape["metrics"]["gauges"]
+    groups = [g for gs in srv._groups.values() for g in gs]
+    state_bytes = 0
+    for g in groups:
+        leaves = []
+        from uptune_tpu_torch.engine.batched import _map
+        _map(leaves.append, g.state)
+        state_bytes += sum(t.numel() * t.element_size() for t in leaves)
+    for ti in range(n_threads):
+        c, hs = clients[ti], handles[ti]
+        for i in range(0, len(hs), 128):
+            c.batch([{"op": "close", "session": h.id}
+                     for h in hs[i:i + 128]])
+        c.close()
+    srv.stop()
+    store.cleanup()
+
+    def pcts(lats):
+        ms = np.sort(np.array(lats)) * 1e3
+        return {"requests": len(ms), "p50_ms": float(ms[len(ms) // 2]),
+                "p95_ms": float(ms[int(len(ms) * 0.95)]),
+                "max_ms": float(ms[-1])}
+    total = sum(sum(t) for t in totals)
+    out = {"device": str(dev), "sessions": n_sessions, "threads": n_threads,
+           "epochs": epochs, "churn_between_epochs": SERVE_CHURN,
+           "rows_per_epoch": group_rows, "history_capacity": hist,
+           "groups": len(groups), "open_s": open_s,
+           "first_trial_ms": probe_lat[0] * 1e3,
+           "probe": pcts(probe_lat), "drive_s": drive_s, "asks": total,
+           "agg_asks_per_s": total / drive_s,
+           "ask": pcts([v for lat in epoch_lat for v in lat]),
+           "per_epoch": [dict(pcts(epoch_lat[e]), wall_s=walls[e],
+                              agg_asks_per_s=sum(totals[e]) / walls[e])
+                         for e in range(epochs)],
+           "proposes": counters.get("serve.proposes", 0),
+           "commits": counters.get("serve.commits", 0),
+           "joins": counters.get("serve.joins", 0),
+           "store_served": counters.get("serve.store_served", 0),
+           "batch_fill_last": gauges.get("serve.batch_fill"),
+           "server_ask_ms": scrape["metrics"]["hists"].get("serve.ask_ms"),
+           # the epoch waves alone (after the probe)
+           "commit_spans": span_stats(trace["events"], "serve.commit",
+                                      obs_t0),
+           "propose_spans": span_stats(trace["events"], "serve.propose",
+                                       obs_t0),
+           "spans_dropped": sum(trace["dropped"].values()),
+           "group_lock": lock, "process_cpu_s": cpu_s,
+           "process_cpu_over_wall": cpu_s / drive_s,
+           "state_bytes": state_bytes, "launches": launches,
+           "errors": errors, "sampled_seeds": sorted(offered)}
+    want = {k.name: 0 for k in native.KERNELS}
+    if dev.type == "cuda":                  # the CPU merges in plain torch
+        want["merge_rows"] = out["commits"]
+    if errors or launches != want or not out["commits"]:
+        bad.append(f"serve on {dev}: errors {errors}, launches {launches} "
+                   f"against {want}")
+    out["_offered"] = offered
+    return out
+
+
+def serve_phase(dev) -> dict:
+    """The serving plane on the card and on the CPU (see the module
+    docstring): the drive, sampled tenants bitwise against matched-seed
+    LocalSessions on the card, and `ut-torch serve` as a subprocess."""
+    import os
+    import signal
+    from uptune_tpu_torch.serve import LocalSession
+    from uptune_tpu_torch.serve import connect
+    from uptune_tpu_torch.workloads import rosenbrock_space
+    bad = []
+    out = {"phase": "serve"}
+    card = serve_drive(dev, SERVE_SESSIONS, bad)
+    offered = card.pop("_offered")
+    # the sampled tenants against LocalSessions at matched seeds, on the
+    # card: the same offered configs, in order, over the same epochs
+    match = {}
+    for seed, got in sorted(offered.items()):
+        ls = LocalSession(rosenbrock_space(4, -3.0, 3.0), seed=seed,
+                          history_capacity=256, device=dev)
+        want = []
+        while ls.version < SERVE_EPOCHS:
+            trials = ls.ask(8)
+            want.extend(t.config for t in trials)
+            for t in trials:
+                c = t.config
+                x = [c[f"x{i}"] for i in range(4)]
+                ls.tell(t.ticket, sum(100.0 * (x[i + 1] - x[i] ** 2) ** 2
+                                      + (1 - x[i]) ** 2 for i in range(3)))
+        ls.close()
+        match[seed] = {"offered": len(got), "equal": got == want}
+    card["sampled_equal_local_sessions"] = match
+    if len(match) != 8 or not all(m["equal"] for m in match.values()):
+        bad.append(f"sampled tenants differ from LocalSessions: {match}")
+    out["card"] = card
+    cpu = serve_drive(torch.device("cpu"), SERVE_CPU_SESSIONS, bad)
+    cpu.pop("_offered")
+    out["cpu"] = cpu
+    out["card_over_cpu_asks_per_s"] = (card["agg_asks_per_s"]
+                                       / cpu["agg_asks_per_s"])
+
+    # `ut-torch serve` as a process: its port from the log, one ask /
+    # tell over TCP, SIGTERM, exit code 0
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "uptune_tpu_torch.cli", "serve", "--port",
+         "0", "--store-dir", "off"], cwd=str(ROOT), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    cli = {"rc": None}
+    try:
+        port, log = None, []
+        while port is None:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            log.append(line)
+            if "listening on" in line:
+                port = int(line.rsplit(":", 1)[1].split()[0])
+        cli["start_s"] = time.perf_counter() - t0
+        if port is None:
+            bad.append("ut-torch serve did not listen: " + "".join(log))
+        else:
+            with connect(("127.0.0.1", port)) as c:
+                with c.open_session(rosenbrock_space(4, -3.0, 3.0),
+                                    seed=1, store=False) as h:
+                    trials = h.ask(4)
+                    r = h.tell_many([(t.ticket, 1.0 + i)
+                                     for i, t in enumerate(trials)])
+                    cli["told"] = r["told"]
+                    cli["best_qor"] = h.best()["qor"]
+            proc.send_signal(signal.SIGTERM)
+            cli["rc"] = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out["cli"] = cli
+    if cli["rc"] != 0 or cli.get("told") != 4 or cli.get("best_qor") != 1.0:
+        bad.append(f"ut-torch serve subprocess: {cli}")
+    emit(out)
+    if bad:
+        raise AssertionError("serve: " + "; ".join(bad))
+    return out
+
+
 # the short name of every kernel function of csrc/*.cu (with its template
 # arguments) within ptxas's mangled one
 PTXAS_KERNEL = re.compile(
@@ -3468,9 +3988,10 @@ PHASES = {
     "merge": (), "surrogate": (), "gp_kernels": ("surrogate",),
     "gp_wide": (), "engine": (), "reference": ("engine",),
     "surrogate_engine": ("engine", "surrogate"), "batched": (),
-    "batched_flagship": ("surrogate",), "tf32": ("surrogate",),
+    "batched_flagship": ("surrogate",),
+    "topk_batched": ("surrogate",), "tf32": ("surrogate",),
     "portfolio_flagship": ("surrogate",), "portfolio_batched": (),
-    "driver": (), "surrogate_driver": (), "program": (),
+    "driver": (), "surrogate_driver": (), "serve": (), "program": (),
     "obs": ("engine", "surrogate", "program"),
 }
 
@@ -3623,6 +4144,8 @@ def main() -> int:
         r["batched"] = batched_phase(dev)
     if "batched_flagship" in todo:
         r["batched_flagship"] = batched_flagship_phase(*r["surrogate"], dev)
+    if "topk_batched" in todo:
+        r["topk_batched"] = topk_batched_phase(*r["surrogate"], dev)
     if "tf32" in todo:
         tf32_phase(*r["surrogate"], dev)
     if "portfolio_flagship" in todo:
@@ -3634,6 +4157,8 @@ def main() -> int:
         r["driver"] = driver_phase(dev)
     if "surrogate_driver" in todo:
         r["surrogate_driver"] = surrogate_driver_phase(dev)
+    if "serve" in todo:
+        r["serve"] = serve_phase(dev)
     if "program" in todo:
         r["program"] = program_phase(dev)
     if "obs" in todo:
@@ -3661,6 +4186,8 @@ def main() -> int:
     drv = r["driver"][0]
     sdrv = r["surrogate_driver"][0]
     prog = r["program"]
+    topkb = r["topk_batched"]
+    serve = r["serve"]["card"]
     entries = []
     for k in kernels:
         common = {"name": k.name, "route": "cuda",
@@ -3676,7 +4203,10 @@ def main() -> int:
                            "calibrated", "large_pool", "mlp")),
                    "launches_program": prog["in_process"]["launches"][
                        k.name],
-                   "launches_program_gcc": prog["gcc"]["launches"][k.name]}
+                   "launches_program_gcc": prog["gcc"]["launches"][k.name],
+                   "launches_propose_topk": topkb["propose_topk"][
+                       "launches"][k.name],
+                   "launches_serve": serve["launches"][k.name]}
         if k.name == "merge_rows":
             entries.append(dict(
                 common, **batched, launches=engine["launches"][k.name],
@@ -3710,7 +4240,12 @@ def main() -> int:
             **({"manager_shapes": {str(n): {key: v[key] for key in (
                 "shape", "ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by")} for n, v in sdrv["large_pool"][
-                    "topk_timed"].items()}}
+                    "topk_timed"].items()},
+                "instance_axis": [{key: c[key] for key in (
+                    "shape", "ms", "ms_second_round", "single_launches_ms",
+                    "single_launches_ms_second_round", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by", "max_abs_err",
+                    "max_err_over_tol")} for c in topkb["shapes"]]}
                if k.name == "acquire_topk" else {}),
             **{f"f{wide['features']}": {key: wide["timed"][k.name][key]
                                         for key in WIDE_KEYS}},

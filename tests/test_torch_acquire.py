@@ -430,9 +430,9 @@ def test_acquire_wrappers_refuse_a_wrong_scratch(mixed, monkeypatch):
         with pytest.raises(ValueError, match="needs CUDA tensors"):
             run(torch.empty(1000))
     b, n = xq.shape[0], kinv.shape[0]
-    assert ("ut_acquire_scratch_words", (b, n, 1, 0)) in asked
-    assert ("ut_acquire_scratch_words", (b, n, 1, 9)) in asked
-    assert ("ut_acquire_scratch_words", (b, n, 0, 0)) in asked
+    assert ("ut_acquire_scratch_words", (b, n, 1, 0, 1)) in asked
+    assert ("ut_acquire_scratch_words", (b, n, 1, 9, 1)) in asked
+    assert ("ut_acquire_scratch_words", (b, n, 0, 0, 1)) in asked
 
 
 def test_acquire_launchers_take_n_above_the_tile_limit(monkeypatch):
@@ -457,7 +457,7 @@ def test_acquire_launchers_take_n_above_the_tile_limit(monkeypatch):
                                  None, torch.device("cpu"))
     assert scratch.shape == (77,) and scratch.dtype == torch.float32
     assert asked == [("ut_acquire_max_train_rows", (31, 1)),
-                     ("ut_acquire_scratch_words", (b, n, 1, 0))]
+                     ("ut_acquire_scratch_words", (b, n, 1, 0, 1))]
 
 
 # -- launcher B's wrapper, on any device -----------------------------------------------
@@ -480,7 +480,7 @@ def test_mean_var_wrapper_sizes_and_checks_its_scratch(mixed, monkeypatch):
                            "contiguous 1-D float32 tensor of at least 1000"):
             tps.mean_var_tile_cuda(*blocks, kinv, scratch=scratch)
     b, n = xq.shape[0], kinv.shape[0]
-    assert asked == [("ut_acquire_scratch_words", (b, n, 1, 0))] * len(bad)
+    assert asked == [("ut_acquire_scratch_words", (b, n, 1, 0, 1))] * len(bad)
     with pytest.raises(ValueError, match="gp_mean_var needs CUDA tensors"):
         tps.mean_var_tile_cuda(*blocks, kinv, scratch=torch.empty(1000))
     with pytest.raises(ValueError, match="kinv has shape"):
@@ -518,7 +518,7 @@ def test_mean_var_wrapper_takes_n_above_its_former_limit(n, monkeypatch):
     native.GP_MEAN_VAR.launches = before
     (args,) = launched
     assert args[-5:-1] == (b, n, fc, fk) and len(args) == 14
-    assert ("ut_acquire_scratch_words", (b, n, 1, 0)) in asked
+    assert ("ut_acquire_scratch_words", (b, n, 1, 0, 1)) in asked
     assert ("ut_acquire_max_train_rows", (31, 1)) in asked
     geometry(monkeypatch, words=55, limit=3584)
     with pytest.raises(ValueError, match=rf"N={n} .*\(at most 3584\)"):

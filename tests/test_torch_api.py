@@ -216,8 +216,11 @@ def test_child_import_pulls_in_neither_torch_nor_jax(use):
 
 def test_names_not_ported_yet_name_their_item():
     import uptune_tpu_torch as ut
-    with pytest.raises(AttributeError, match="Queue 1 item 6"):
-        ut.connect
+    from uptune_tpu_torch.serve import client, session
+    assert ut.connect is client.connect
+    assert ut.LocalSession is session.LocalSession
+    with pytest.raises(AttributeError, match="Queue 1 item 10"):
+        ut.preprocess
     with pytest.raises(AttributeError, match="has no attribute"):
         ut.no_such_name
     assert {"tune", "target", "Tuner", "tune_batch"} <= set(dir(ut))

@@ -140,11 +140,13 @@ def test_subcommands_are_refused(sub, capsys):
 
 
 def test_top_and_hub_wait_for_the_serving_plane():
-    """`top` and `hub` read and serve the serving plane's wire, so they
-    come with it (item 6), not with the observability plane."""
-    assert set(cli.SUBCOMMANDS) == {"report"}
-    for sub in ("top", "hub"):
-        assert cli.REFUSED_SUBCOMMANDS[sub].startswith("item 6")
+    """`serve` is the port's serve/cli.py; `top` and `hub` read and serve
+    the serving plane's wire, and `route` is its router: they come with
+    the rest of it (item 6b), not with the observability plane."""
+    assert set(cli.SUBCOMMANDS) == {"report", "serve"}
+    assert cli.SUBCOMMANDS["serve"] == ("uptune_tpu_torch.serve.cli", "main")
+    for sub in ("top", "hub", "route"):
+        assert cli.REFUSED_SUBCOMMANDS[sub].startswith("item 6b")
 
 
 def test_report_subcommand_renders_a_journal(tmp_path, capsys):

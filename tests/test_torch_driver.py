@@ -15,10 +15,16 @@ timings, the history state (h0, h1, qor, age and the counters) bitwise
 after each ticket; and at the end the archive rows but their `time`, the
 trace, the best and every arm's state (the JAX PRNG keys left out).
 
+Both tuners run untraced (`untraced_planes`): a traced JAX `Tuner` counts
+its compiles in `StepStats.n_compiles` and the port compiles nothing, so
+a test that runs one beside the other turns neither package's `obs`
+plane on, whatever an earlier test of the process left on.
+
 The JAX tuner runs its own jitted programs, but for the proposals XLA
 would contract into fused multiply-adds (`EAGER`).  Both packages'
 archives resume under the other with equal state.
 """
+import contextlib
 import json
 import math
 import random
@@ -30,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+import uptune_tpu.obs as jobs
 from uptune_tpu.driver import Tuner as JTuner
 from uptune_tpu.driver.plugins import SearchHook as JHook
 from uptune_tpu.space import params as JP
@@ -39,6 +46,7 @@ from uptune_tpu.space.spec import Space as JSpace
 from uptune_tpu.techniques import base as jbase
 from uptune_tpu.techniques.bandit import RecyclingMeta as JRecycling
 
+import uptune_tpu_torch.obs as tobs
 from uptune_tpu_torch import convert
 from uptune_tpu_torch.driver import Tuner as TTuner
 from uptune_tpu_torch.driver.plugins import SearchHook as THook
@@ -56,6 +64,55 @@ CPU = torch.device("cpu")
 CAP = 1024
 STEPS = 32
 ENUM = {"a": 0.0, "b": 0.2, "c": 0.4}
+
+
+# -- the obs planes, untraced around a test ----------------------------------------
+_JOURNAL_STATE = ("_ENABLED", "_T0", "_PATH", "_F")
+
+
+@contextlib.contextmanager
+def untraced():
+    """Both packages' `obs` planes reset for the block: the span flag off
+    and the rings and metrics dropped, no journal and no device trace;
+    afterwards each plane is as it was (the flag on again if it was, a
+    journal left open by an earlier test put back untouched, a device
+    trace that was running restarted into its directory)."""
+    saved = []
+    for plane in (jobs, tobs):
+        jrn = tuple(getattr(plane.journal, f) for f in _JOURNAL_STATE)
+        trace = dict(plane.device._TRACE)
+        buf = list(plane.journal._BUF)
+        saved.append((plane, plane.enabled(), jrn, buf, trace))
+        if trace["active"]:
+            plane.device.stop_trace()
+        plane.journal._ENABLED, plane.journal._PATH = False, None
+        plane.journal._F = None
+        plane.reset()
+    try:
+        yield
+    finally:
+        for plane, on, jrn, buf, trace in saved:
+            plane.journal.stop()
+            plane.device.stop_trace()
+            plane.reset()
+            if on:
+                plane.enable()
+            for f, v in zip(_JOURNAL_STATE, jrn):
+                setattr(plane.journal, f, v)
+            plane.journal._BUF[:] = buf
+            plane.device._TRACE.update(dir=trace["dir"])
+            if trace["active"]:
+                plane.device.start_trace(trace["dir"])
+
+
+@pytest.fixture(autouse=True)
+def untraced_planes():
+    """Every test of a file that runs a JAX tuner beside the port's runs
+    with both `obs` planes untraced (`untraced`); a case meant to be
+    traced turns tracing on itself, on both sides.  The lockstep files
+    import this fixture."""
+    with untraced():
+        yield
 
 
 def _spaces(specs=_mixed_specs):
@@ -284,6 +341,25 @@ def test_step_lockstep(tmp_path, sense):
     assert any(r[3] is None for r in rt.results), "no failure was told"
     assert len({s.technique for s, _ in rt.steps}) >= 3
     assert_tuners_equal(jt, tt, rj, rt, rep, min_tickets=steps)
+
+
+def test_lockstep_holds_after_a_traced_reference_test(tmp_path):
+    """A reference test that turns the JAX plane on and leaves it on
+    (tests/test_serve.py's TestDistributedObs does) does not reach the
+    lockstep: traced, the JAX tuner would count its compiles in
+    `StepStats.n_compiles`.  Run through `untraced`, the lockstep holds,
+    and the plane reads as the earlier test left it."""
+    if not jobs.enabled():
+        jobs.enable()
+    with untraced():
+        assert not jobs.enabled() and not tobs.enabled()
+        jt, tt, rj, rt, rep = make_pair(tmp_path, seed=3)
+        for _ in range(4):
+            jt.step()
+            tt.step()
+        assert_tuners_equal(jt, tt, rj, rt, rep, min_tickets=4)
+        assert all(s.n_compiles == 0 for s, _ in rj.steps)
+    assert jobs.enabled() and not tobs.enabled()
 
 
 def _ask_tell_script(tuner):

@@ -15,6 +15,8 @@ import types
 import numpy as np
 import pytest
 
+from test_torch_driver import untraced_planes  # noqa: F401 (autouse)
+
 HOST_ULPS = 4
 
 

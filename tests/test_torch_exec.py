@@ -43,6 +43,7 @@ from uptune_tpu_torch.exec import multistage as tms
 from uptune_tpu_torch.workloads import gcc_like_records
 
 from test_torch_driver import Replay, _recorder, archive_rows
+from test_torch_driver import untraced_planes  # noqa: F401 (autouse)
 from test_torch_ops import N, assert_bitwise
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(

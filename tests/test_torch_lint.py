@@ -115,8 +115,8 @@ def test_scratch_words_do_not_depend_on_the_route(plan, b, n, var, k):
     if var:
         words += bp * np_ + 2 * np_ * np_
     words += 2 * n1 * k1
-    assert plan.ut_acquire_scratch_words(b, n, var, k) == words
-    assert plan.ut_acquire_scratch_words(b, n, var, b + 1) == -1
+    assert plan.ut_acquire_scratch_words(b, n, var, k, 1) == words
+    assert plan.ut_acquire_scratch_words(b, n, var, b + 1, 1) == -1
 
 
 def test_the_wrapper_reads_the_route_from_the_library(monkeypatch):

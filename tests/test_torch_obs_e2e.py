@@ -26,6 +26,7 @@ from uptune_tpu_torch.exec import space_io as tio
 from uptune_tpu_torch.obs import journal, quality, report, sidecar
 
 from test_torch_driver import Replay, _recorder
+from test_torch_driver import untraced_planes  # noqa: F401 (autouse)
 from test_torch_exec import MIXED_PROG, _write
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(

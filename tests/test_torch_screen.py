@@ -25,6 +25,7 @@ from uptune_tpu_torch.surrogate import screen as tscreen
 from uptune_tpu_torch.surrogate.manager import SurrogateManager as TManager
 
 from test_torch_driver import _spaces, objective
+from test_torch_driver import untraced_planes  # noqa: F401 (autouse)
 
 SCORE_ATOL = 1e-12
 

@@ -56,6 +56,7 @@ from uptune_tpu_torch.surrogate.manager import SurrogateManager as TManager
 
 from test_torch_acquire import assert_topk
 from test_torch_driver import _spaces
+from test_torch_driver import untraced_planes  # noqa: F401 (autouse)
 from test_torch_gp import MEAN_TOL, SD_TOL, close
 from test_torch_mlp import FIT_TOL_Y_STD, jax_init
 from test_torch_ops import N, T, assert_bitwise, jax_perm_rows, jcands_to_t

@@ -82,13 +82,13 @@ _LAZY = {
     "Tuner": ("uptune_tpu_torch.driver", "Tuner"),
     "TuneResult": ("uptune_tpu_torch.driver", "TuneResult"),
     "StepStats": ("uptune_tpu_torch.driver", "StepStats"),
+    "connect": ("uptune_tpu_torch.serve.client", "connect"),
+    "LocalSession": ("uptune_tpu_torch.serve.session", "LocalSession"),
 }
 
 # the JAX package's public names the port does not have yet, with the
 # ROADMAP item (Queue 1) that brings each
 _NOT_YET = {
-    "connect": "item 6 (the serving plane)",
-    "LocalSession": "item 6 (the serving plane)",
     "preprocess": "item 10 (quickest)",
     "train": "item 10 (quickest)",
     "test": "item 10 (quickest)",

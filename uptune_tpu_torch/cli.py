@@ -255,13 +255,14 @@ def build_parser() -> argparse.ArgumentParser:
 # that brings them.
 SUBCOMMANDS = {
     "report": ("uptune_tpu_torch.obs.report", "main"),
+    "serve": ("uptune_tpu_torch.serve.cli", "main"),
 }
 REFUSED_SUBCOMMANDS = {
-    "serve": "item 6 (the serving plane)",
-    "route": "item 6 (the serving plane)",
-    "top": "item 6 (the serving plane: obs/top.py reads a server "
+    "route": "item 6b (the serving plane's router, serve/router.py)",
+    "top": "item 6b (the serving plane: obs/top.py reads a server "
            "through serve.client)",
-    "hub": "item 6 (the serving plane: obs/hub.py serves serve/wire.py)",
+    "hub": "item 6b (the serving plane: obs/hub.py serves "
+           "serve/wire.py)",
     "store": "item 7 (the store server)",
 }
 # observability variables the port refuses when set to anything but off,

@@ -65,16 +65,22 @@ struct KRowsMmaLayout {
 // buffer, in 4-byte words (the k and K^-1 blocks 16-byte aligned), and the
 // selection's geometry (k = 0 for B and C).  Neither krows route needs a
 // word of its own: both write k and the partial means to the same places.
+// D ranks `segs` lists of b rows each in one launch (an instance axis):
+// the passes run over the segs * b rows as one batch, and the selection
+// (n1 first-level lists of k1, groups of them, n2 lists of k2) is each
+// segment's own, so the candidates take segs times a segment's words.
 struct Plan {
-  int np, bp, tn, n1, k1, group, n2, k2;
+  int np, bp, tn, n1, k1, group, n2, k2, segs;
   size_t mupart, qpart, kscr, khi, klo, cand, words;
 };
 
-inline bool make_plan(int b, int n, int var, int k, Plan* p) {
-  if (b <= 0 || n <= 0 || k < 0 || k > b) return false;
+inline bool make_plan(int b, int n, int var, int k, Plan* p, int segs = 1) {
+  if (b <= 0 || n <= 0 || k < 0 || k > b || segs < 1) return false;
+  const long long rows = static_cast<long long>(b) * segs;
   const long long np = (static_cast<long long>(n) + kTileN - 1) / kTileN * kTileN;
-  const long long bp = (static_cast<long long>(b) + kTileM - 1) / kTileM * kTileM;
+  const long long bp = (rows + kTileM - 1) / kTileM * kTileM;
   if (np > INT_MAX || bp > INT_MAX) return false;
+  p->segs = segs;
   p->np = static_cast<int>(np);
   p->bp = static_cast<int>(bp);
   p->tn = p->np / kTileN;
@@ -99,7 +105,7 @@ inline bool make_plan(int b, int n, int var, int k, Plan* p) {
     off += static_cast<size_t>(p->np) * p->np;
   }
   p->cand = off;
-  off += 2 * static_cast<size_t>(p->n1) * p->k1;
+  off += 2 * static_cast<size_t>(segs) * p->n1 * p->k1;
   p->words = off;
   return true;
 }
@@ -143,12 +149,14 @@ extern "C" long long ut_krows_shared_bytes(int f) {
   return static_cast<long long>(words * sizeof(float));
 }
 
-// The 4-byte words of scratch B (var != 0, k = 0), C (k = 0) or D (top-k,
-// 1 <= k <= b) needs for b query rows and n training rows; var != 0 for
-// the variance kinds; -1 when the arguments are out of range.
-extern "C" long long ut_acquire_scratch_words(int b, int n, int var, int k) {
+// The 4-byte words of scratch B (var != 0, k = 0, segs = 1), C (k = 0,
+// segs = 1) or D (top-k, 1 <= k <= b, over segs segments of b rows each)
+// needs for b query rows and n training rows; var != 0 for the variance
+// kinds; -1 when the arguments are out of range.
+extern "C" long long ut_acquire_scratch_words(int b, int n, int var, int k,
+                                              int segs) {
   Plan p;
-  if (!make_plan(b, n, var, k, &p)) return -1;
+  if (!make_plan(b, n, var, k, &p, segs)) return -1;
   return static_cast<long long>(p.words);
 }
 
@@ -156,7 +164,8 @@ extern "C" long long ut_acquire_scratch_words(int b, int n, int var, int k) {
 // list of min(k, group k1) entries per group of first-level lists (k1 =
 // min(k, kSel), group = kMergeSlots / k1), each sorted by (value desc,
 // index asc), in index order; -1 out of range.  When this is k, vals /
-// idx are the top k.
+// idx are the top k.  Over segments each segment writes this many, its
+// own, one segment after another.
 extern "C" int ut_acquire_topk_slots(int b, int k) {
   Plan p;
   if (k < 1 || !make_plan(b, 1, 0, k, &p)) return -1;

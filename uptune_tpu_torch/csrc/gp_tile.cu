@@ -97,7 +97,11 @@
 //      kept entry within its group of lists (binary searches in the other
 //      lists) and writes the group's best min(k, ...) in order.  At B =
 //      6040, k = 128 that is one group: D's output is the top k, and the
-//      wrapper sorts nothing.
+//      wrapper sorts nothing.  Over an instance axis D ranks segs lists of
+//      b rows in one launch: kinv_prep runs once, krows and wq over the
+//      segs * b rows as one batch, and final and topk_merge take the
+//      segment as their grid's second dimension, so each segment's top k
+//      is the one a launch of that segment alone gives.
 // Every row's k, partial sums and utility follow one order whatever its
 // place in a tile, with no atomics, so duplicated query rows tie bitwise.
 // Bound of B, C and D (B = 6040, N = 1024, F = 31): 3 x 2BN^2 = 38 GFLOP
@@ -1298,7 +1302,10 @@ __global__ void __launch_bounds__(kSel) moments_kernel(
 // One thread per row: the moments from the tn partials (in tile order),
 // the utility into u; with kSelect, block x then sorts its kSel rows by
 // (value desc, index asc) with a bitonic network (rows past b enter as
-// (-inf, index)) and keeps the first k1 in cand_v / cand_i.
+// (-inf, index)) and keeps the first k1 in cand_v / cand_i.  Block row y
+// is segment y, the rows [y b, (y + 1) b) of the batch: its lists hold
+// indices within the segment, and its n1 = gridDim.x lists follow the
+// earlier segments' (one segment, y = 0, is the whole batch).
 template <bool kSelect>
 __global__ void __launch_bounds__(kSel) final_kernel(
     const float* __restrict__ mupart, const float* __restrict__ qpart,
@@ -1306,12 +1313,13 @@ __global__ void __launch_bounds__(kSel) final_kernel(
     float* __restrict__ u, int k1, float* __restrict__ cand_v,
     int32_t* __restrict__ cand_i) {
   const int r = blockIdx.x * kSel + threadIdx.x;
+  const int row = blockIdx.y * b + r;
   float val = __int_as_float(0xff800000);
   if (r < b) {
-    const float mu_n = tile_sum(mupart, bp, tn, r);
-    const float q = kind != kKindMean ? tile_sum(qpart, bp, tn, r) : 0.f;
+    const float mu_n = tile_sum(mupart, bp, tn, row);
+    const float q = kind != kKindMean ? tile_sum(qpart, bp, tn, row) : 0.f;
     val = utility(mu_n, q, params, kind);
-    u[r] = val;
+    u[row] = val;
   }
   if (!kSelect) return;
   __shared__ float sv[kSel];
@@ -1338,8 +1346,10 @@ __global__ void __launch_bounds__(kSel) final_kernel(
     }
   }
   if (i < k1) {
-    cand_v[static_cast<size_t>(blockIdx.x) * k1 + i] = sv[i];
-    cand_i[static_cast<size_t>(blockIdx.x) * k1 + i] = si[i];
+    const size_t list =
+        static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+    cand_v[list * k1 + i] = sv[i];
+    cand_i[list * k1 + i] = si[i];
   }
 }
 
@@ -1350,7 +1360,8 @@ __global__ void __launch_bounds__(kSel) final_kernel(
 // in its own list plus, for every other list of the group, how many
 // entries come before it there (a binary search in shared memory), so no
 // entry waits on another.  The group's slots past its entries get
-// (-inf, INT_MAX).
+// (-inf, INT_MAX).  Block row y merges segment y's n1 lists into its own
+// n2 = ceil(n1 / group) lists, after the earlier segments'.
 __global__ void __launch_bounds__(kSel) topk_merge_kernel(
     const float* __restrict__ cand_v, const int32_t* __restrict__ cand_i,
     int n1, int k1, int group, int k2, float* __restrict__ vals,
@@ -1363,14 +1374,16 @@ __global__ void __launch_bounds__(kSel) topk_merge_kernel(
   const int first = gid * group;
   const int lists = min(group, n1 - first);
   const int m = lists * k1;
-  const size_t base = static_cast<size_t>(first) * k1;
+  const int n2 = (n1 + group - 1) / group;
+  const size_t seg = blockIdx.y;
+  const size_t base = (seg * n1 + first) * k1;
   for (int e = threadIdx.x; e < m; e += kSel) {
     cp_async4(sv + e, cand_v + base + e, true);
     cp_async4(reinterpret_cast<float*>(si + e),
               reinterpret_cast<const float*>(cand_i + base + e), true);
   }
   cp_async_commit();
-  const size_t out = static_cast<size_t>(gid) * k2;
+  const size_t out = (seg * n2 + gid) * k2;
   if (own == 0) {
     for (int e = m + threadIdx.x; e < k2; e += kSel) {
       vals[out + e] = __int_as_float(0xff800000);
@@ -1563,34 +1576,42 @@ struct Acquire {
   int kind, k;
 };
 
-// C and D: the passes, then the utility and, for D, the selection
-cudaError_t acquire(const Operands& a, const Acquire& q, cudaStream_t s) {
+// C and D: the passes, then the utility and, for D, the selection.  D
+// ranks `segs` segments of a.b rows each (C takes one): the passes run
+// over all segs * a.b rows as one batch, so a row's utility is the one a
+// launch of its segment alone gives, and the selection is per segment.
+cudaError_t acquire(const Operands& a, const Acquire& q, int segs,
+                    cudaStream_t s) {
   if (q.kind < kKindMean || q.kind > kKindLCB) return cudaErrorInvalidValue;
+  if (segs > 65535 || (segs > 1 && q.k == 0)) return cudaErrorInvalidValue;
   Plan p;
-  if (!make_plan(a.b, a.n, q.kind != kKindMean, q.k, &p)) {
+  if (!make_plan(a.b, a.n, q.kind != kKindMean, q.k, &p, segs)) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t e = passes(a, p, q.kind != kKindMean, s);
+  Operands all = a;
+  all.b = a.b * segs;               // make_plan held it under INT_MAX
+  cudaError_t e = passes(all, p, q.kind != kKindMean, s);
   if (e != cudaSuccess) return e;
   const float* mupart = a.scratch + p.mupart;
   const float* qpart = a.scratch + p.qpart;
   float* cand_v = a.scratch + p.cand;
-  int32_t* cand_i = reinterpret_cast<int32_t*>(cand_v + static_cast<size_t>(p.n1) * p.k1);
+  int32_t* cand_i = reinterpret_cast<int32_t*>(
+      cand_v + static_cast<size_t>(segs) * p.n1 * p.k1);
   if (q.k == 0) {
     final_kernel<false><<<p.n1, kSel, 0, s>>>(mupart, qpart, q.params, a.b,
                                               p.bp, p.tn, q.kind, q.u, 0,
                                               nullptr, nullptr);
     return cudaGetLastError();
   }
-  final_kernel<true><<<p.n1, kSel, 0, s>>>(mupart, qpart, q.params, a.b, p.bp,
-                                           p.tn, q.kind, q.u, p.k1, cand_v,
-                                           cand_i);
+  final_kernel<true><<<dim3(p.n1, segs), kSel, 0, s>>>(
+      mupart, qpart, q.params, a.b, p.bp, p.tn, q.kind, q.u, p.k1, cand_v,
+      cand_i);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   static std::atomic<bool> merge_allowed[kMaxDevices];
   if ((e = allow_shared(topk_merge_kernel, merge_allowed)) != cudaSuccess) {
     return e;
   }
-  topk_merge_kernel<<<p.n1, kSel, kMergeShared, s>>>(
+  topk_merge_kernel<<<dim3(p.n1, segs), kSel, kMergeShared, s>>>(
       cand_v, cand_i, p.n1, p.k1, p.group, p.k2, q.vals, q.idx);
   return cudaGetLastError();
 }
@@ -1623,7 +1644,7 @@ extern "C" int ut_gp_mean(const void* qc, const void* qk, const void* xc,
 }
 
 // B: mu_n [b] and q [b] = rowsum((k K^-1) * k); scratch of
-// ut_acquire_scratch_words(b, n, 1, 0) words
+// ut_acquire_scratch_words(b, n, 1, 0, 1) words
 extern "C" int ut_gp_mean_var(const void* qc, const void* qk, const void* xc,
                               const void* xk, const void* alpha,
                               const void* kinv, void* mu, void* q,
@@ -1637,7 +1658,7 @@ extern "C" int ut_gp_mean_var(const void* qc, const void* qk, const void* xc,
 
 // C: utilities [b] (kind 0 -mean, 1 EI, 2 -LCB; kinv null for kind 0);
 // params [5] on the device; scratch of ut_acquire_scratch_words(b, n,
-// kind != 0, 0) words
+// kind != 0, 0, 1) words
 extern "C" int ut_acquire_scores(const void* qc, const void* qk,
                                  const void* xc, const void* xk,
                                  const void* alpha, const void* kinv,
@@ -1648,23 +1669,27 @@ extern "C" int ut_acquire_scores(const void* qc, const void* qk,
                   nullptr, nullptr, kind, 0};
   return static_cast<int>(
       acquire(operands(qc, qk, xc, xk, alpha, kinv, scratch, b, n, fc, fk), a,
-              static_cast<cudaStream_t>(stream)));
+              1, static_cast<cudaStream_t>(stream)));
 }
 
-// D: the utilities into u [b], then the top k (1 <= k <= b) as the
-// ut_acquire_topk_slots(b, k) candidates in vals / idx; scratch of
-// ut_acquire_scratch_words(b, n, kind != 0, k) words
+// D over segs segments (an instance axis; segs = 1 is one list): the query
+// blocks qc / qk hold segs * b rows, segment y its rows [y b, (y + 1) b),
+// all scored against the one GP; the utilities into u [segs b], then each
+// segment's top k (1 <= k <= b) as its ut_acquire_topk_slots(b, k)
+// candidates, indices within the segment, at vals / idx [y slots, +slots);
+// scratch of ut_acquire_scratch_words(b, n, kind != 0, k, segs) words
+// (1 <= segs <= 65535)
 extern "C" int ut_acquire_topk(const void* qc, const void* qk, const void* xc,
                                const void* xk, const void* alpha,
                                const void* kinv, const void* params, void* u,
                                void* vals, void* idx, void* scratch, int b,
                                int n, int fc, int fk, int kind, int k,
-                               void* stream) {
+                               int segs, void* stream) {
   if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Acquire a{static_cast<const float*>(params), static_cast<float*>(u),
                   static_cast<float*>(vals), static_cast<int32_t*>(idx), kind,
                   k};
   return static_cast<int>(
       acquire(operands(qc, qk, xc, xk, alpha, kinv, scratch, b, n, fc, fk), a,
-              static_cast<cudaStream_t>(stream)));
+              segs, static_cast<cudaStream_t>(stream)));
 }

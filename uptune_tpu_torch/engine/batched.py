@@ -24,9 +24,19 @@ The JAX package gates eviction at the batch level (`evict_pred`, one
 unbatched predicate, so that the evict branch of its `lax.cond` does not
 run for every instance).  The port's history evicts on every insert,
 which is the identity at zero overflow (`History._evict`), so there is
-nothing to gate.  The mesh route (`mesh=`, `make_instance_mesh`) and the
-top-k exchange (`exchange_topk`, `jit_global_topk`, `jit_propose_topk`)
-and the serving plane's slot primitives are not ported yet.
+nothing to gate.  The mesh route (`mesh=`, `make_instance_mesh`) is not
+ported yet (ROADMAP Queue 1 item 9).
+
+The slot primitives are the serving plane's seam (`serve/group.py`): a
+session server multiplexes ask/tell tenants onto ONE stacked state, one
+slot each.  `propose_all` proposes for every slot in one vmapped call,
+`init_slot` (join, and slot reuse after a leave) and `commit_slot` (a
+tenant's measured epoch) touch one slot's row, and `propose_topk` /
+`global_topk` rank every slot's proposal with launcher D over the
+instance axis (one launch), the second merging the per-slot tops into
+one portfolio-wide top k (`exchange_topk`).  They are eager methods, the
+counterparts of the JAX package's `jit_*` slot programs: there is no
+program to compile or memoize.
 
 A surrogate eval_fn scores a flat candidate batch against a fitted GP so
 that the engine prefers low posterior mean ('mean'), high expected
@@ -38,7 +48,7 @@ card); impl='score_flat' keeps the staging through `gp.score_flat`
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -181,6 +191,94 @@ class BatchedEngine:
             trace.append(sign * state.best.qor)
         return state, torch.stack(trace)
 
+    # -- slot primitives (the serving plane's join/ask/tell seam) ------------
+    # The JAX programs donate the stacked state (`donate_argnums=(0,)`):
+    # no caller reads a state again once it has passed it to init_slot or
+    # commit_slot.  So the port writes slot i's row in place, outside
+    # vmap, and returns the same state; a `ProposalEpoch` (serve/group.py)
+    # holds `propose_all`'s outputs, never the state.  Those outputs may
+    # share storage with the state where an arm's propose hands a state
+    # leaf back unchanged; a later in-place write to slot j's row then
+    # shows in the epoch's row j only, which is stale for slot j from
+    # that write on (its generation moved), and no other row moves.
+
+    def propose_all(self, state: EngineState
+                    ) -> Tuple[tuple, CandBatch, torch.Tensor]:
+        """vmap(propose) over the stacked state -> (stacked new tstates,
+        stacked CandBatch [n, B, ...], stacked keys).  A pure read of the
+        state: one epoch can be re-derived, identically, for any slot
+        that has not moved since."""
+        return _propose_all_obs(self, state)
+
+    def _propose_all(self, state):
+        with _no_vmap_fallback():
+            return torch.func.vmap(self.engine.propose)(state)
+
+    def init_slot(self, state: EngineState, i: int,
+                  seed: Union[int, torch.Tensor],
+                  draws: Optional[tuple] = None) -> EngineState:
+        """Slot i re-initialised from `seed` (an integer seed or an
+        `rng.key`), written in place: session join, and slot reuse after
+        a leave (the departed tenant's rows are overwritten).  The row is
+        `FusedEngine.init(seed)`, so it depends on the seed alone, never
+        on the slot's position; `draws` (per arm) as for `init`."""
+        return _init_slot_obs(self, state, i, seed, draws)
+
+    def _init_slot(self, state, i, seed, draws):
+        _write_row(state, int(i), self.engine.init(seed, draws))
+        return state
+
+    def commit_slot(self, state: EngineState, tstates, cands: CandBatch,
+                    keys: torch.Tensor, raw: torch.Tensor, i: int,
+                    draws: Optional[tuple] = None) -> EngineState:
+        """Slot i's proposal epoch committed, written in place: `tstates`
+        / `cands` / `keys` are `propose_all` outputs (stacked), `raw` the
+        [B] un-oriented measured QoR of slot i's rows.  One
+        `FusedEngine.commit` on slot i's row (one merge launch); only row
+        i changes.  No exchange: server sessions are independent tenants,
+        coupled only through the shared results store.  `draws` (per arm,
+        for observe) default to those of slot i's key."""
+        return _commit_slot_obs(self, state, tstates, cands, keys, raw, i,
+                                draws)
+
+    def _commit_slot(self, state, tstates, cands, keys, raw, i, draws):
+        i = int(i)
+        at = lambda t: _map(lambda x: x[i], t)  # noqa: E731
+        new_i = self.engine.commit(at(state), at(tstates), at(cands), raw,
+                                   keys[i], draws=draws)
+        _write_row(state, i, new_i)
+        return state
+
+    def propose_topk(self, state: EngineState, k: int, acq, aux=None):
+        """One proposal epoch and each slot's fused top k by acquisition
+        -> (tstates, cands, keys, vals [n, k], idx [n, k]).  `acq` is a
+        `StatefulEval` with a `.topk` (`surrogate_eval_fn(...,
+        impl="fused")`); `aux` defaults to its published snapshot.  On
+        the card the n slots rank in one launch of D."""
+        if acq.topk is None:
+            raise ValueError("acq has no topk (need impl='fused')")
+        return _propose_topk_obs(self, state, k, acq,
+                                 acq.aux if aux is None else aux)
+
+    def _propose_topk(self, state, k, acq, aux):
+        with _no_vmap_fallback():
+            tstates, cands, keys = torch.func.vmap(self.engine.propose)(
+                state)
+            vals, idx = torch.func.vmap(lambda c: acq.topk(c, aux, k))(cands)
+        return tstates, cands, keys, vals, idx
+
+    def global_topk(self, state: EngineState, k: int, acq, aux=None):
+        """One proposal epoch, each slot's fused top k, then the
+        portfolio-wide top k of the [n * B] pool (`exchange_topk`) ->
+        (vals, owner, idx), each [n, k] with identical rows: `owner` is
+        the instance that proposed each winner, `idx` its row there."""
+        if acq.topk is None:
+            raise ValueError("acq has no topk (need impl='fused')")
+        _, _, _, vals, idx = self.propose_topk(state, k, acq, aux)
+        n = self.n_instances
+        return tuple(x.expand(n, k)
+                     for x in _global_topk_obs(vals, idx, k))
+
     # -- host-side results --------------------------------------------------
     def best_qors(self, state: EngineState) -> np.ndarray:
         """[n_instances] per-instance best QoR in the user's orientation
@@ -203,6 +301,34 @@ class BatchedEngine:
         return self.best_config(state, i), float(qors[i])
 
 
+def exchange_topk(vals: torch.Tensor, idx: torch.Tensor, k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The portfolio-wide top k of the instances' own top-k lists: `vals`
+    / `idx` [n, k] (each row descending, `idx` a row's place in its
+    instance's batch), pooled in (instance, local rank) order, the k
+    largest kept, ties to the lowest flat index (the JAX package's
+    `lax.top_k` over the flattened pool) -> (vals [k], owner [k] int32,
+    idx [k] int32).  One process holds every instance, so this is plain
+    torch with no collective (the mesh route, like `BatchedEngine`'s, is
+    ROADMAP Queue 1 item 9)."""
+    v, pos = acquire.select_topk(vals.reshape(-1), k)
+    pos = pos.long()
+    return (v, torch.div(pos, k, rounding_mode="floor").to(torch.int32),
+            idx.to(torch.int32).reshape(-1)[pos])
+
+
+def _write_row(state, i: int, row) -> None:
+    """Every leaf of `row` into row i of the stacked `state`'s leaf, in
+    place (the slot primitives' donated write)."""
+    leaves_s, leaves_r = [], []
+    _map(leaves_s.append, state)
+    _map(leaves_r.append, row)
+    if len(leaves_s) != len(leaves_r):
+        raise ValueError("the slot's row does not match the stacked state")
+    for a, b in zip(leaves_s, leaves_r):
+        a[i].copy_(b)
+
+
 def _map(fn, tree):
     """fn over every tensor of a tree of NamedTuples and tuples."""
     if isinstance(tree, torch.Tensor):
@@ -218,6 +344,16 @@ def _map(fn, tree):
 # engine; the obs registry keys programs by name)
 _run_obs = obs.instrument_device_fn(
     lambda eng, *args: eng._run_steps(*args), "engine.batched_run")
+_propose_all_obs = obs.instrument_device_fn(
+    lambda eng, *args: eng._propose_all(*args), "engine.propose_all")
+_propose_topk_obs = obs.instrument_device_fn(
+    lambda eng, *args: eng._propose_topk(*args), "engine.propose_topk")
+_global_topk_obs = obs.instrument_device_fn(exchange_topk,
+                                            "engine.global_topk")
+_init_slot_obs = obs.instrument_device_fn(
+    lambda eng, *args: eng._init_slot(*args), "engine.init_slot")
+_commit_slot_obs = obs.instrument_device_fn(
+    lambda eng, *args: eng._commit_slot(*args), "engine.commit_slot")
 
 
 class StatefulEval:

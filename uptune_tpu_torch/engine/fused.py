@@ -121,15 +121,20 @@ class FusedEngine:
         self._hints = {}
 
     # ------------------------------------------------------------------
-    def init(self, seed: Union[int, torch.Tensor] = 0) -> EngineState:
+    def init(self, seed: Union[int, torch.Tensor] = 0,
+             draws: Optional[tuple] = None) -> EngineState:
         """A fresh state from an integer seed or a key (`rng.key`, or a
         row of `BatchedEngine.instance_seeds`).  The arms' initial draws
-        come from the key's stream; the key becomes the state's."""
+        (`draws`, per arm) default to those of the key's stream; the key
+        becomes the state's."""
         key = (seed if isinstance(seed, torch.Tensor)
                else rng.key(seed, self.device))
         space = self.space
-        tstates = self._draw(key, "init", lambda gen: tuple(
-            t.init_state(space, t.draw_init(space, gen)) for t in self.arms))
+        if draws is None:
+            draws = self._draw(key, "init", lambda gen: tuple(
+                t.draw_init(space, gen) for t in self.arms))
+        tstates = tuple(t.init_state(space, d)
+                        for t, d in zip(self.arms, draws))
         i32 = dict(dtype=torch.int32, device=self.device)
         n = len(self.arms)
         return EngineState(

@@ -169,11 +169,13 @@ ACQ_SCORES = Kernel(
     replaces=("uptune_tpu/ops/acquire.py:151",),        # _scores_kernel
     limit="ut_acquire_max_train_rows")
 # D: ut_acquire_topk(qc, qk, xc, xk, alpha, kinv, params, u, vals, idx,
-#    scratch, b, n, fc, fk, kind, k, stream); C's passes with a per-chunk
-#    sort in the final pass, then topk_merge (ranks across chunks)
+#    scratch, b, n, fc, fk, kind, k, segs, stream); C's passes with a
+#    per-chunk sort in the final pass, then topk_merge (ranks across
+#    chunks); segs lists of b rows (an instance axis) in one launch, each
+#    with its own top k
 ACQ_TOPK = Kernel(
     name="acquire_topk", source="gp_tile.cu", symbol="ut_acquire_topk",
-    argtypes=[_P] * 11 + [_I] * 6 + [_P],
+    argtypes=[_P] * 11 + [_I] * 7 + [_P],
     replaces=("uptune_tpu/ops/acquire.py:157",),        # _topk_kernel
     limit="ut_acquire_max_train_rows")
 KERNELS = (MERGE, GP_MEAN, GP_MEAN_VAR, ACQ_SCORES, ACQ_TOPK)

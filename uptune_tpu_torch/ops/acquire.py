@@ -23,8 +23,16 @@ rows, values descending, ties broken to the lowest flat index (the
   path's sizes one list, the top k itself; otherwise one stable
   `torch.sort` over them (they concatenate in index order, so a
   positional tie-break is the global one) gives the top k.
+* `topk_segments_cuda` — D over an instance axis: S lists of B rows
+  scored against one GP in one launch, each with its own top k.
 * `scores_tile` / `topk_tile` — route by the tensors' device: CPU
-  tensors take the plain version, CUDA tensors launch or raise.
+  tensors take the plain version, CUDA tensors launch or raise.  D goes
+  through the custom op `uptune_tpu_torch::acquire_topk`, whose vmap
+  rule ranks N instances' candidates (the GP shared) in one launch of
+  `topk_segments_cuda` (on the CPU, `topk_plain` per instance), so
+  `torch.func.vmap` over `acquire_topk` is one launch, as the merge's op
+  is.  (A `ctypes` launch on `data_ptr()` cannot see vmap's batched
+  tensors itself.)
 * `acquire_scores` / `acquire_topk` — the entries (a GPState and a
   [B, F] query batch).
 * `acquire_scores_ref` / `acquire_topk_ref` — the unfused staging that
@@ -44,7 +52,7 @@ from .. import native
 from ..surrogate import gp
 from ..surrogate.pallas_score import (Blocks, kernel_tile, launch_scratch,
                                       mean_tile_plain, mean_var_tile_plain,
-                                      operand_dims, prep_blocks, ptr,
+                                      n_rows, operand_dims, prep_blocks, ptr,
                                       state_kinv, stream_of, target_moments,
                                       tile_moments)
 
@@ -81,10 +89,11 @@ def utilities_plain(qc, qk, xc, xk, alpha, kinv, params, kind: str
 
 def select_topk(u: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The k largest of `u`, values descending, ties to the lowest index
-    (a stable sort; `torch.topk` does not promise that order)."""
-    order = torch.sort(u, descending=True, stable=True).indices[:k]
-    return u[order], order.to(torch.int32)
+    """The k largest of `u` along its last dim, values descending, ties
+    to the lowest index (a stable sort; `torch.topk` does not promise
+    that order)."""
+    order = torch.sort(u, descending=True, stable=True).indices[..., :k]
+    return u.gather(-1, order), order.to(torch.int32)
 
 
 def topk_plain(qc, qk, xc, xk, alpha, kinv, params, kind: str, k: int):
@@ -103,13 +112,15 @@ def _check(kind: str, best_y=0.0) -> None:
 
 
 def _check_launch(kernel: native.Kernel, kind: str, qc, qk, xc, xk, alpha,
-                  kinv, params, scratch, k: Optional[int] = None
+                  kinv, params, scratch, k: Optional[int] = None,
+                  segments: int = 1
                   ) -> Tuple[int, int, int, int, torch.Tensor]:
     """Operands (`operand_dims`), the kind, K^-1 given for exactly the
     variance kinds and the [5] scalar pack, on any device; then
     `launch_scratch`: a given scratch buffer, a CUDA device and N against
-    the library's limit.  `k` is D's top k (None for C).  -> (B, N, Fc,
-    Fk, scratch), the scratch allocated when None."""
+    the library's limit.  `k` is D's top k (None for C); D's query rows
+    are `segments` lists of equal length.  -> (B, N, Fc, Fk, scratch), B
+    a segment's rows, the scratch allocated when None."""
     _check(kind)
     if (kind == "mean") != (kinv is None):
         raise ValueError(f"kind {kind!r} takes kinv "
@@ -120,10 +131,14 @@ def _check_launch(kernel: native.Kernel, kind: str, qc, qk, xc, xk, alpha,
             or tuple(params.shape) != (5,) or not params.is_contiguous()):
         raise ValueError(f"{kernel.name}: params must be a contiguous [5] "
                          f"float32 tensor on {dev}")
+    if segments < 1 or b % segments:   # the library bounds the segments
+        raise ValueError(f"{kernel.name}: {b} query rows do not split into "
+                         f"{segments} segments")
+    b //= segments
     if k is not None and not 1 <= k <= b:
         raise ValueError(f"k must be in [1, {b}]: {k}")
     scratch = launch_scratch(kernel, b, n, fc + fk, kinv is not None, k or 0,
-                             scratch, dev)
+                             scratch, dev, segments)
     return b, n, fc, fk, scratch
 
 
@@ -146,31 +161,48 @@ def scores_cuda(qc, qk, xc, xk, alpha, kinv, params, kind: str,
     return u
 
 
-def topk_cuda(qc, qk, xc, xk, alpha, kinv, params, kind: str, k: int,
-              scratch: Optional[torch.Tensor] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch D (`ut_acquire_topk`): candidate lists of the k best, each
-    sorted, then one stable sort over them unless the card wrote a single
-    list -> (values [k] descending, flat indices [k] int32)."""
+def topk_segments_cuda(qc, qk, xc, xk, alpha, kinv, params, kind: str,
+                       k: int, segments: int,
+                       scratch: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch D (`ut_acquire_topk`) once over `segments` lists: the query
+    blocks hold S x B rows, segment s its rows [s B, (s + 1) B), all
+    scored against the one GP; each segment's candidate lists of its k
+    best, each sorted, then one stable sort per segment over them unless
+    the card wrote a single list -> (values [S, k] descending, indices
+    [S, k] int32 within each segment)."""
     b, n, fc, fk, scratch = _check_launch(TOPK_KERNEL, kind, qc, qk, xc, xk,
-                                          alpha, kinv, params, scratch, k)
+                                          alpha, kinv, params, scratch, k,
+                                          segments)
     dev = alpha.device
     fn = TOPK_KERNEL.function()
     slots = TOPK_KERNEL.query("ut_acquire_topk_slots", b, k)
-    u = torch.empty(b, dtype=torch.float32, device=dev)
-    vals = torch.empty(slots, dtype=torch.float32, device=dev)
-    idx = torch.empty(slots, dtype=torch.int32, device=dev)
+    u = torch.empty(segments * b, dtype=torch.float32, device=dev)
+    vals = torch.empty(segments, slots, dtype=torch.float32, device=dev)
+    idx = torch.empty(segments, slots, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = fn(ptr(qc), ptr(qk), ptr(xc), ptr(xk), ptr(alpha), ptr(kinv),
                  ptr(params), ptr(u), ptr(vals), ptr(idx), ptr(scratch), b, n,
-                 fc, fk, KIND_CODE[kind], k, stream_of(dev))
+                 fc, fk, KIND_CODE[kind], k, segments, stream_of(dev))
     native.check(err, TOPK_KERNEL)
     TOPK_KERNEL.launches += 1
     if slots != k:                  # several lists: merge them here
         vals, pos = select_topk(vals, k)
-        idx = idx[pos.long()]
+        idx = idx.gather(-1, pos.long())
     # the JAX clamp of unfilled lanes (acquire.py:275)
     return vals, torch.clamp_max(idx, b - 1)
+
+
+def topk_cuda(qc, qk, xc, xk, alpha, kinv, params, kind: str, k: int,
+              scratch: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch D (`ut_acquire_topk`) on one list: candidate lists of the k
+    best, each sorted, then one stable sort over them unless the card
+    wrote a single list -> (values [k] descending, flat indices [k]
+    int32)."""
+    vals, idx = topk_segments_cuda(qc, qk, xc, xk, alpha, kinv, params, kind,
+                                   k, 1, scratch)
+    return vals[0], idx[0]
 
 
 def scores_tile(qc, qk, xc, xk, alpha, kinv, params, kind: str):
@@ -180,11 +212,70 @@ def scores_tile(qc, qk, xc, xk, alpha, kinv, params, kind: str):
     return scores_cuda(qc, qk, xc, xk, alpha, kinv, params, kind)
 
 
-def topk_tile(qc, qk, xc, xk, alpha, kinv, params, kind: str, k: int):
-    """CPU tensors take the plain version; CUDA tensors launch D."""
+def _topk_impl(qc, qk, xc, xk, alpha, kinv, params, kind: str, k: int):
     if alpha.device.type == "cpu":
         return topk_plain(qc, qk, xc, xk, alpha, kinv, params, kind, k)
     return topk_cuda(qc, qk, xc, xk, alpha, kinv, params, kind, k)
+
+
+_topk_op = torch.library.custom_op(
+    "uptune_tpu_torch::acquire_topk", _topk_impl, mutates_args=(),
+    schema="(Tensor? qc, Tensor? qk, Tensor? xc, Tensor? xk, Tensor alpha, "
+           "Tensor? kinv, Tensor params, str kind, int k) "
+           "-> (Tensor, Tensor)")
+
+
+def topk_segments_tile(qc, qk, xc, xk, alpha, kinv, params, kind: str,
+                       k: int, segments: int):
+    """D over `segments` equal lists of the query rows, against one GP:
+    CPU tensors take `topk_plain` per segment, CUDA tensors launch D once
+    (`topk_segments_cuda`).  -> (values [S, k], indices [S, k] within
+    each segment)."""
+    if alpha.device.type != "cpu":
+        return topk_segments_cuda(qc, qk, xc, xk, alpha, kinv, params, kind,
+                                  k, segments)
+    b = n_rows(qc, qk) // segments
+    out = [topk_plain(None if qc is None else qc[s * b:(s + 1) * b],
+                      None if qk is None else qk[s * b:(s + 1) * b],
+                      xc, xk, alpha, kinv, params, kind, k)
+           for s in range(segments)]
+    return (torch.stack([v for v, _ in out]),
+            torch.stack([i for _, i in out]))
+
+
+def _topk_vmap(info, in_dims, qc, qk, xc, xk, alpha, kinv, params, kind, k):
+    """vmap over D: the query rows carry the instance axis and the GP
+    operands are shared (the engine's programs score every instance
+    against one snapshot), so the instances' lists stack into segments
+    of one launch.  A batched GP operand is not a path of those programs
+    and raises."""
+    n = info.batch_size
+    if any(d is not None for d in in_dims[2:7]):
+        raise ValueError(
+            "acquire_topk under vmap takes the instance axis on the query "
+            "rows only: the GP operands (xc, xk, alpha, kinv, params) are "
+            "shared by every instance")
+
+    def stack(t, d):
+        if t is None:
+            return None
+        t = t.movedim(d, 0) if d is not None else t.expand(
+            (n,) + tuple(t.shape))
+        return t.reshape(n * t.shape[1], t.shape[2]).contiguous()
+    vals, idx = topk_segments_tile(stack(qc, in_dims[0]),
+                                   stack(qk, in_dims[1]), xc, xk, alpha,
+                                   kinv, params, kind, k, n)
+    return (vals, idx), (0, 0)
+
+
+_topk_op.register_vmap(_topk_vmap)
+
+
+def topk_tile(qc, qk, xc, xk, alpha, kinv, params, kind: str, k: int):
+    """CPU tensors take the plain version; CUDA tensors launch D (through
+    the custom op, so that under `torch.func.vmap` all instances rank in
+    one launch)."""
+    return tuple(_topk_op(qc, qk, xc, xk, alpha, kinv, params, kind, k))
 
 
 # -- entries ----------------------------------------------------------------------------

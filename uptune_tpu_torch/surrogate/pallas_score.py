@@ -200,14 +200,16 @@ def krows_route(f: int) -> str:
 
 
 def scratch_words(kernel: native.Kernel, b: int, n: int, var: bool,
-                  k: int = 0) -> int:
+                  k: int = 0, segments: int = 1) -> int:
     """The float32 words of scratch launcher B (var, k = 0), C (k = 0) or
-    D (top k) needs for B query and N training rows, as the library
-    computes it; `var` for the kinds that take K^-1."""
+    D (top k; over `segments` lists of B rows) needs for B query and N
+    training rows, as the library computes it; `var` for the kinds that
+    take K^-1."""
     words = kernel.query("ut_acquire_scratch_words", b, n, int(var), k,
-                         restype=ctypes.c_longlong)
+                         segments, restype=ctypes.c_longlong)
     if words < 0:
-        raise ValueError(f"{kernel.name}: no launch for B={b}, N={n}, k={k}")
+        raise ValueError(f"{kernel.name}: no launch for B={b}, N={n}, k={k}"
+                         f", segments={segments}")
     return words
 
 
@@ -224,18 +226,18 @@ def check_scratch(kernel: native.Kernel, scratch: torch.Tensor, words: int,
 
 def launch_scratch(kernel: native.Kernel, b: int, n: int, f: int, var: bool,
                    k: int, scratch: Optional[torch.Tensor],
-                   dev: torch.device) -> torch.Tensor:
+                   dev: torch.device, segments: int = 1) -> torch.Tensor:
     """The last checks before a launch of B, C or D, after the operands'
     own: a given scratch against the library's size (on any device), then
     a CUDA device, then N against the library's limit.  -> the scratch,
     allocated from the caching allocator when None."""
     if scratch is not None:
-        check_scratch(kernel, scratch, scratch_words(kernel, b, n, var, k),
-                      dev)
+        check_scratch(kernel, scratch,
+                      scratch_words(kernel, b, n, var, k, segments), dev)
     require_cuda(kernel, dev)
     check_train_rows(kernel, n, f, var)
     if scratch is None:
-        scratch = torch.empty(scratch_words(kernel, b, n, var, k),
+        scratch = torch.empty(scratch_words(kernel, b, n, var, k, segments),
                               dtype=torch.float32, device=dev)
     return scratch
 
