@@ -210,18 +210,55 @@ setting is printed.  Phases, each printing one JSON line:
              server's commit and propose spans, each group's lock timed,
              the process's CPU seconds over the wall); 8 sampled
              tenants' offered configs bitwise equal to LocalSessions at
-             matched seeds on the card; the same drive with the groups on the CPU at 256
+             matched seeds on the card; the same drive with the groups on the CPU at 128
              tenants (cut from 1024 for the time limit); then
              `python -m uptune_tpu_torch.cli serve --port 0` as a
              process: one ask / tell over TCP, SIGTERM, exit code 0;
+15c. route - the sharded front tier: a port `Router` (serve/router.py)
+             over K `python -m uptune_tpu_torch.cli serve --durable
+             --device cuda` shard processes on the card, each its own
+             CUDA context.  (a) The JAX package's sharded protocol
+             (`bench.py --serve-sharded`, not --quick): rosenbrock-2d
+             over six space signatures walked until s0..s2 all own
+             sessions and s0 some but not all, one session a signature,
+             chunk 8; K walked 1 -> 2 -> 3 by the scale op, 4 epochs a
+             round (asks/s and the scale op's seconds a K), the shards
+             traced (UT_DEVICE_TRACE, one directory a shard); then a
+             short round at K 3 held after its first epoch while the
+             router's metrics and sources ops and `python -m
+             uptune_tpu_torch.cli top --addr <router> --once --fleet
+             --json` are read (3 sources); `Router.stop()` ends the
+             shards with SIGTERM (final windows shipped): in each shard's
+             trace the merge kernel's launches equal its serve.commits
+             (its final window in the router's fleet timeline) and no
+             other kernel of the port appears; then
+             a fresh tier of 3, untraced, 6 epochs of auto-resume clients
+             while `route.kill` SIGKILLs s0 once on a supervisor tick
+             (kills 1, s0 restarted once, no other restart), zero acked
+             committed loss, versions that never go back, every session
+             finished and equal (best config bit for bit, qor, version)
+             to a matched-seed LocalSession on the card; (b) the serve
+             phase's protocol routed: rosenbrock-4d, 16 signatures of 64
+             tenants (1024) over 3 shards of 64-slot groups, one thread a
+             signature, the memo on, a probe epoch alone, then
+             ROUTE_WAVES epoch waves: Router.start() (serial cold
+             starts, from the router's shards op) and the first trial
+             after it, asks/s, client ask p50 / p95, each shard's commits
+             and proposes (its own scrape and its final window in the
+             fleet timeline), the fleet serve.commits of a hub replaying
+             that timeline equal to their sum, every tenant's epoch
+             committed, the shards' and the load generator's CPU seconds
+             over the wall, and routed asks/s over the serve phase's;
 16. program - program mode: `python -m uptune_tpu_torch.cli
-             rosenbrock.py -pf 4 --test-limit 200 --seed 0` on a copy of
+             rosenbrock.py -pf 4 --test-limit 100 --seed 0` on a copy of
              the unchanged sample (its child imports the JAX package):
-             exit 0, a finite best no worse than the default, 200 told
+             exit 0, a finite best no worse than the default, 100 told
              trials of distinct configurations, best.json equal to the
-             printed line; `--resume --test-limit 250` builds no archived
-             configuration again; the same tune with `--device cpu`;
-             the ProgramTuner in process at -pf 4 (counts set to 0 just
+             printed line; `--resume --test-limit 125` builds no archived
+             configuration again; the same tune with `--device cpu` (the
+             three CLI runs cut from 200 and 250 trials for the time
+             limit); the ProgramTuner in process at -pf 4, 200 trials
+             (counts set to 0 just
              before and read just after: one merge launch a committing
              ticket, nothing else; host syncs a ticket by line; median
              t_propose / t_dedup against t_eval_wait; pool utilisation);
@@ -258,7 +295,8 @@ setting is printed.  Phases, each printing one JSON line:
              largest ratio to the tolerance), times and bound; the merge
              also over its instance axis and at the driver's shape, and
              the launches of the batched, portfolio, driver, surrogate
-             driver, program, propose_topk and serve paths (D also timed
+             driver, program, propose_topk, serve and route paths (the
+             route path's from the traced shards' device traces; D also timed
              at the manager's shapes and over its instance axis), and
              A-D's times at F = 1028.
 
@@ -353,7 +391,9 @@ ASK_TRIALS, COUNT_TICKETS = 256, 20
 # (propose_batch 32 x pool_mult 128 = 4096 rows) with sync refits, and
 # the MLP ensemble; the MLP's card-against-CPU tolerance in units of the
 # targets' std (tests/test_torch_mlp.py FIT_TOL_Y_STD)
-SD_LIMIT, SD_POOL_LIMIT, SD_MLP_LIMIT = 2000, 1000, 1000
+# (the calibrated runs' 2000 cut to 1000 for the time limit when the route
+# phase came in)
+SD_LIMIT, SD_POOL_LIMIT, SD_MLP_LIMIT = 1000, 1000, 1000
 SD_POOL = {"propose_batch": 32, "pool_mult": 128}
 MLP_TOL_Y_STD = 1e-4
 # 3xTF32 (hi hi + hi lo + lo hi) drops the lo lo product: a relative
@@ -399,7 +439,10 @@ WIDE_KEYS = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
 # program mode: the rosenbrock sample's trials through the CLI and in
 # process, the trials of its resume, of the lockstep runs, and of the
 # gcc-options tune (builds of ~3 s each)
-PROGRAM_LIMIT, PROGRAM_RESUME, PROGRAM_LOCKSTEP, GCC_LIMIT = 200, 250, 60, 24
+PROGRAM_LIMIT, PROGRAM_LOCKSTEP, GCC_LIMIT = 200, 60, 24
+# the CLI runs (on the card, resumed, on the CPU), cut from 200 and 250
+# trials for the time limit when the route phase came in
+CLI_LIMIT, CLI_RESUME = 100, 125
 # the obs phase: surrogate-scored flagship steps in its record_window
 OBS_STEPS = 20
 # D over an instance axis: (segments, rows a segment, k)
@@ -407,8 +450,17 @@ TOPK_SEGMENTS = ((BF_N, 6040, TOP_K), (64, 4096, 32))
 TOPK_EPOCHS = 20
 # the serving protocol: tenants on the card and on the CPU, epochs, and
 # the closes (and opens) between epochs
+# (the CPU's cut from 1024 to 256 for the time limit)
 SERVE_SESSIONS, SERVE_CPU_SESSIONS, SERVE_EPOCHS, SERVE_CHURN = (
     1024, 256, 3, 8)
+# the sharded front tier (bench.py --serve-sharded, not --quick): six
+# space signatures of rosenbrock-2d, one session each, chunk 8; K walked
+# 1 -> 2 -> 3 by the scale op, 4 epochs a round (the scaling run, its
+# shards traced), then 6 epochs across one route.kill of s0 on a fresh
+# tier of 3; and the serve phase's protocol over 16 signatures of 64
+# tenants on 3 shards, in ROUTE_WAVES epoch waves
+ROUTE_SPACES, ROUTE_EPOCHS, ROUTE_CHUNK, ROUTE_K = 6, 4, 8, (1, 2, 3)
+ROUTE_SIGS, ROUTE_TENANTS, ROUTE_SHARDS, ROUTE_WAVES = 16, 1024, 3, 1
 
 
 def emit(obj) -> None:
@@ -3141,7 +3193,7 @@ def program_phase(dev) -> dict:
         # (the default), then resumed; the same tune on the CPU beside it
         d = copy_sample("rosenbrock", "cli_card")
         first = cli_run(["rosenbrock.py", "-pf", "4", "--test-limit",
-                         str(PROGRAM_LIMIT), "--seed", "0"], d, bad, "cli")
+                         str(CLI_LIMIT), "--seed", "0"], d, bad, "cli")
         if first["returncode"] == 0:
             rows = read_archive(d / "ut.archive.jsonl")
             dq = json.load(open(d / "ut.default_qor.json"))["qor"]
@@ -3150,30 +3202,30 @@ def program_phase(dev) -> dict:
                          distinct_configs=distinct_cfgs(rows))
             if not (np.isfinite(first["best_qor"])
                     and first["best_qor"] <= dq
-                    and len(rows) == PROGRAM_LIMIT == first["evals"]
-                    and first["distinct_configs"] == PROGRAM_LIMIT
+                    and len(rows) == CLI_LIMIT == first["evals"]
+                    and first["distinct_configs"] == CLI_LIMIT
                     and best == {"config": first["best_config"],
                                  "qor": first["best_qor"]}):
                 bad.append(f"cli tune: {first}, best.json {best}")
             resumed = cli_run(["rosenbrock.py", "-pf", "4", "--test-limit",
-                               str(PROGRAM_RESUME), "--seed", "0",
+                               str(CLI_RESUME), "--seed", "0",
                                "--resume"], d, bad, "cli resume")
             if resumed["returncode"] == 0:
                 rows2 = read_archive(d / "ut.archive.jsonl")
                 resumed.update(archive_rows=len(rows2),
                                distinct_configs=distinct_cfgs(rows2))
-                if not (rows2[:PROGRAM_LIMIT] == rows
-                        and len(rows2) == PROGRAM_RESUME
-                        and resumed["distinct_configs"] == PROGRAM_RESUME
+                if not (rows2[:CLI_LIMIT] == rows
+                        and len(rows2) == CLI_RESUME
+                        and resumed["distinct_configs"] == CLI_RESUME
                         and resumed.get("builds_launched", 1 << 30)
-                        <= PROGRAM_RESUME - PROGRAM_LIMIT
+                        <= CLI_RESUME - CLI_LIMIT
                         and resumed["best_qor"] <= first["best_qor"]):
                     bad.append(f"cli resume: {resumed}")
             out["cli_resume"] = resumed
         out["cli"] = first
         dc = copy_sample("rosenbrock", "cli_cpu")
         out["cli_cpu"] = cli_run(["rosenbrock.py", "-pf", "4", "--test-limit",
-                                  str(PROGRAM_LIMIT), "--seed", "0",
+                                  str(CLI_LIMIT), "--seed", "0",
                                   "--device", "cpu"], dc, bad, "cli cpu")
 
         # (b) in process on the card: launches, host syncs a ticket, the
@@ -3547,6 +3599,58 @@ def topk_batched_phase(cases, feats: tuple, dev) -> dict:
 
 
 # -- the serving plane ------------------------------------------------------------
+class GpuBusy:
+    """nvidia-smi's utilization.gpu (the share of its sample period in
+    which a kernel of any process ran on the card) read every `every`
+    seconds in a thread while a drive runs; no samples without
+    nvidia-smi."""
+
+    def __init__(self, every: float = 0.5):
+        self.every, self.samples = every, []
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self.stop.wait(self.every):
+            try:
+                r = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=utilization.gpu",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True, timeout=10)
+                self.samples.append(float(r.stdout.split()[0]))
+            except (OSError, ValueError, IndexError,
+                    subprocess.SubprocessError):
+                return
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(15)
+
+    def summary(self) -> dict:
+        v = sorted(self.samples)
+        if not v:
+            return {"samples": 0}
+        return {"samples": len(v), "mean_pct": sum(v) / len(v),
+                "p50_pct": v[len(v) // 2], "max_pct": v[-1]}
+
+
+# the histograms a serving process keeps of where a request's time goes:
+# the whole request, and the host dispatch and the device window of each
+# instrumented engine call (obs.device.instrument)
+SERVE_HISTS = ("serve.ask_ms", "serve.tell_ms", "device.dispatch_ms",
+               "device.window_ms")
+
+
+def serve_hists(hists: dict) -> dict:
+    return {k: {f: hists[k].get(f) for f in ("count", "sum", "p50", "p95",
+                                             "max")}
+            for k in SERVE_HISTS if isinstance(hists.get(k), dict)}
+
+
 class TimedLock:
     """A stand-in for a serve group's `threading.RLock` that times each
     outermost hold: the wait from asking to holding, and the seconds
@@ -3730,10 +3834,11 @@ def serve_drive(dev, n_sessions: int, bad: list) -> dict:
     t0 = time.perf_counter()
     ts = [threading.Thread(target=run_epochs, args=(ti,))
           for ti in range(n_threads)]
-    for t in ts:
-        t.start()
-    for t in ts:
-        t.join()
+    with GpuBusy() as busy:
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
     drive_s = time.perf_counter() - t0
     cpu_s = time.process_time() - cpu0
     trace = obs.snapshot()
@@ -3790,6 +3895,8 @@ def serve_drive(dev, n_sessions: int, bad: list) -> dict:
            "store_served": counters.get("serve.store_served", 0),
            "batch_fill_last": gauges.get("serve.batch_fill"),
            "server_ask_ms": scrape["metrics"]["hists"].get("serve.ask_ms"),
+           "server_hists": serve_hists(scrape["metrics"]["hists"]),
+           "gpu_busy": busy.summary(),
            # the epoch waves alone (after the probe)
            "commit_spans": span_stats(trace["events"], "serve.commit",
                                       obs_t0),
@@ -3895,6 +4002,568 @@ def serve_phase(dev) -> dict:
     return out
 
 
+# -- the sharded front tier -------------------------------------------------------
+# the port's kernel functions as a CUDA trace names them
+PORT_KERNEL_FN = re.compile(
+    r"\b(merge_rows_kernel|kinv_prep_kernel|krows_kernel|krows_mma_kernel|"
+    r"wq_kernel|moments_kernel|final_kernel|topk_merge_kernel|"
+    r"gp_mean_kernel)\b")
+
+
+def trace_kernels(path) -> dict:
+    """The CUDA kernel events of one torch.profiler Chrome trace
+    (`all`) and, by function, those of the port's kernels; None when the
+    trace is missing or unreadable."""
+    try:
+        doc = json.loads(Path(path).read_text())
+    except (OSError, ValueError):
+        return None
+    out = {"all": 0}
+    for e in doc.get("traceEvents", ()):
+        if e.get("cat") != "kernel":
+            continue
+        out["all"] += 1
+        m = PORT_KERNEL_FN.search(str(e.get("name", "")))
+        if m:
+            out[m.group(1)] = out.get(m.group(1), 0) + 1
+    return out
+
+
+def proc_cpu_s(pid: int) -> float:
+    """User + system CPU seconds of a live process (/proc/<pid>/stat)."""
+    import os
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def rosenbrock_qor(cfg: dict, dims: int) -> float:
+    x = [cfg[f"x{i}"] for i in range(dims)]
+    return float(sum(100.0 * (x[i + 1] - x[i] ** 2) ** 2 + (1 - x[i]) ** 2
+                     for i in range(dims - 1)))
+
+
+def fleet_timeline(path) -> tuple:
+    """A router's fleet timeline (`Router(hub_timeline=)`, every row its
+    hub acked): each source's last window, by pid, and the fleet's
+    counters as a hub that replays the timeline serves them."""
+    from uptune_tpu_torch.obs import flight
+    from uptune_tpu_torch.obs.hub import TelemetryHub
+    last = {}
+    for row in flight.read_chain(str(path)):
+        if row.get("kind") == "window" and isinstance(row.get("row"), dict):
+            last[row["src"].split(":")[1]] = row["row"]
+    hub = TelemetryHub(port=0, timeline=str(path))
+    try:
+        fleet = hub.handle({"op": "metrics"})["metrics"]["counters"]
+    finally:
+        hub.stop()
+    return last, fleet
+
+
+def cold_starts(rows: list, t_ready: float) -> list:
+    """The seconds each shard of a tier that `Router.start()` booted one
+    after another took to answer its ping, from the router's `shards`
+    rows read at once: a shard's spawn follows the last one's ping, and
+    `t_ready` (time.time()) is when start() returned."""
+    now = time.time()
+    born = sorted(now - row["uptime_s"] for row in rows)
+    return [b - a for a, b in zip(born, born[1:] + [t_ready])]
+
+
+def route_placement(n_spaces: int, dims: int, k: int, s0_partial: bool):
+    """Space signatures for a routed drive, by the JAX package's idiom
+    (`bench.py:3063-3082`): rosenbrock over [-3 - i - o/8, 3 + i + o/8],
+    the offset o walked until every shard s0..s{k-1} owns a signature
+    (and, with s0_partial, s0 owns some but not all of them)."""
+    from uptune_tpu_torch.exec.space_io import records_from_space
+    from uptune_tpu_torch.serve.router import HashRing, routing_key
+    from uptune_tpu_torch.workloads import rosenbrock_space
+    ring = HashRing()
+    for i in range(k):
+        ring.add(f"s{i}")
+    for o in range(64):
+        bounds = [(-3.0 - i - o * 0.125, 3.0 + i + o * 0.125)
+                  for i in range(n_spaces)]
+        records = [records_from_space(rosenbrock_space(dims, lo, hi))
+                   for lo, hi in bounds]
+        owners = [ring.lookup(routing_key(r)) for r in records]
+        if len(set(owners)) == k and (
+                not s0_partial or 1 <= owners.count("s0") < n_spaces):
+            return {"offset_steps": o, "bounds": bounds, "records": records,
+                    "owners": owners}
+    raise AssertionError(f"no placement of {n_spaces} spaces over {k} "
+                         f"shards")
+
+
+def route_sharded(dev, work: Path, bad: list) -> dict:
+    """Part (a) of the route phase: the JAX package's sharded protocol
+    (`bench.py --serve-sharded`, not --quick) on the port (see the
+    module docstring)."""
+    import os
+    from uptune_tpu_torch.obs import faults
+    from uptune_tpu_torch.serve import LocalSession, connect
+    from uptune_tpu_torch.serve.router import Router
+    from uptune_tpu_torch.workloads import rosenbrock_space
+    place = route_placement(ROUTE_SPACES, 2, ROUTE_K[-1], True)
+    records, owners = place["records"], place["owners"]
+    work.mkdir(parents=True, exist_ok=True)
+    out = {"placement": {k: place[k] for k in ("owners", "offset_steps")}}
+    per, errors, lock = {}, [], threading.Lock()
+
+    def drive(router, idx, seed, tag, n_epochs, hold, held):
+        # one auto-resume client driving one session to n_epochs committed
+        # versions through the router (open redirected to the owning
+        # shard, everything after shard-direct); with `hold`, a session
+        # placed on a shard in `held` pauses after its first committed
+        # epoch until `hold` is set (the kill has fired, the fleet has
+        # been scraped)
+        try:
+            c = connect(("127.0.0.1", router.port), timeout=120,
+                        auto_resume=True, max_retries=80, backoff_base=0.25,
+                        backoff_max=2.0)
+            h = c.open_session(records[idx], seed=seed,
+                               program=f"sharded-{idx}")
+            memo, asks, acked, monotone = {}, 0, 0, True
+            stop_at = time.time() + 300
+            while h.version < n_epochs:
+                if time.time() > stop_at:
+                    raise RuntimeError(f"{tag}/{idx} wedged at v{h.version}")
+                if hold is not None and owners[idx] in held and h.version:
+                    hold.wait(timeout=120)
+                trials = h.ask(ROUTE_CHUNK)
+                if not trials:
+                    continue
+                asks += len(trials)
+                res = []
+                for t in trials:
+                    key = json.dumps(t.config, sort_keys=True)
+                    if key not in memo:
+                        memo[key] = rosenbrock_qor(t.config, 2)
+                    res.append((t.ticket, memo[key]))
+                r = h.tell_many(res)
+                # zero committed loss, client-observed: an acked committed
+                # version never goes back after a resume
+                v = r.get("version")
+                if v is not None:
+                    monotone &= int(v) >= acked
+                    if r.get("committed"):
+                        acked = max(acked, int(v))
+            with lock:
+                per[tag, idx] = {"best": h.best(), "asks": asks,
+                                 "acked": acked, "monotone": monotone,
+                                 "reconnects": c.reconnects,
+                                 "redirects": c.redirects}
+            h.close()
+            c.close()
+        except Exception as e:
+            with lock:
+                errors.append((tag, idx, repr(e)))
+
+    def run_round(router, tag, seed_base, n_epochs, mid=None, hold=None,
+                  held=("s0",)):
+        ts = [threading.Thread(target=drive, args=(
+            router, i, seed_base + i, tag, n_epochs, hold, held))
+            for i in range(ROUTE_SPACES)]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        if mid is not None:
+            mid()
+        for t in ts:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in ts):
+            raise AssertionError(f"route round {tag}: {errors}")
+        asks = sum(per[tag, i]["asks"] for i in range(ROUTE_SPACES))
+        return {"asks": asks, "wall_s": wall, "agg_asks_per_s": asks / wall}
+
+    def router(name, shards):
+        return Router(port=0, shards=shards, slots=4,
+                      max_sessions=ROUTE_SPACES * 2 + 8,
+                      store_dir=str(work / "store"), work_dir=str(work / name),
+                      supervise_interval=0.5, device=str(dev),
+                      hub_timeline=str(work / f"{name}.fleet.jsonl"))
+
+    # the scaling run, its shards traced: K walked by the scale op, one
+    # round of every session at each K; then a short round at K 3 whose
+    # sessions hold after their first epoch while the fleet is scraped
+    trace_dir = work / "device_trace"
+    ra = router("scaling", 0)
+    fleet, scaling = {}, {}
+    scraped = threading.Event()
+
+    def scrape_mid():
+        # every shard has said hello to the hub and shipped a window
+        # with the live sessions, then the scrape ops and `top` itself
+        deadline, m = time.time() + 60, {}
+        while time.time() < deadline:
+            m = ra.handle({"op": "metrics"})
+            if m.get("sessions") and m.get("sources") == ROUTE_K[-1]:
+                break
+            time.sleep(0.25)
+        src = ra.handle({"op": "sources"})
+        r = subprocess.run(
+            [sys.executable, "-m", "uptune_tpu_torch.cli", "top", "--addr",
+             f"127.0.0.1:{ra.port}", "--once", "--fleet", "--json"],
+            env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+            text=True, timeout=120)
+        try:
+            frame = json.loads(r.stdout)
+        except ValueError:
+            frame = {}
+        fleet.update(
+            metrics={k: m.get(k) for k in ("sessions", "shards", "sources")},
+            sources=[{k: row.get(k) for k in ("shard", "pid", "final",
+                                               "stale", "rates")}
+                     for row in src.get("rows", ())],
+            top_rc=r.returncode,
+            top_sources=len(frame.get("sources") or ()),
+            top_meta_sources=(frame.get("meta") or {}).get("sources"),
+            top_counters={k: v for k, v in (frame.get("counters") or {})
+                          .items() if k.startswith("serve.")})
+        if not (r.returncode == 0 and fleet["top_sources"] == ROUTE_K[-1]
+                and fleet["top_meta_sources"] == ROUTE_K[-1]):
+            bad.append(f"route: top --addr <router> --fleet: {fleet} "
+                       f"{r.stderr[-2000:]}")
+        scraped.set()
+
+    os.environ["UT_DEVICE_TRACE"] = str(trace_dir)      # this run's shards
+    try:
+        ra.start()
+        for ki, k in enumerate(ROUTE_K):
+            t0 = time.perf_counter()
+            r = ra.handle({"op": "scale", "shards": k})
+            scale_s = time.perf_counter() - t0
+            if not (r["ok"] and r["live"] == k):
+                raise AssertionError(f"route: scale to {k}: {r}")
+            if k == ROUTE_K[-1]:
+                os.environ.pop("UT_DEVICE_TRACE")
+            scaling[str(k)] = dict(run_round(
+                ra, f"k{k}", 5000 + 1000 * ki, ROUTE_EPOCHS),
+                scale_s=scale_s)
+        run_round(ra, "scrape", 7000, 2, mid=scrape_mid, hold=scraped,
+                  held=tuple(f"s{i}" for i in range(ROUTE_K[-1])))
+        stats_a = ra.handle({"op": "stats"})
+    finally:
+        os.environ.pop("UT_DEVICE_TRACE", None)
+        t0 = time.perf_counter()
+        ra.stop()                           # SIGTERM: traces, final windows
+        stop_s = time.perf_counter() - t0
+    out["scaling"] = scaling
+    out["fleet_scrape_mid_drive"] = fleet
+    # each traced shard: its merge launches against its own commits (its
+    # final window, as the hub acked it), and no other kernel of the port;
+    # a shard killed at the end of the stop's grace, its trace not yet
+    # written out, leaves no trace or a torn one and fails here
+    last, _ = fleet_timeline(work / "scaling.fleet.jsonl")
+    shards, merges, gp_events = {}, 0, 0
+    for sh in stats_a["shards"]:
+        win = last.get(str(sh["pid"])) or {}
+        kern = trace_kernels(trace_dir / sh["name"] / "device_trace.json")
+        row = {"pid": sh["pid"], "restarts": sh["restarts"],
+               "final_window": bool(win.get("final")),
+               "commits": (win.get("counters") or {}).get("serve.commits"),
+               "trace": kern}
+        shards[sh["name"]] = row
+        if kern is None:
+            bad.append(f"route: shard {sh['name']} left no device trace: "
+                       f"{row}")
+            continue
+        merges += kern.get("merge_rows_kernel", 0)
+        others = {k: v for k, v in kern.items()
+                  if k not in ("all", "merge_rows_kernel")}
+        gp_events += sum(others.values())
+        if not (row["final_window"] and row["commits"]
+                and kern.get("merge_rows_kernel") == row["commits"]
+                and not others and not row["restarts"]):
+            bad.append(f"route: shard {sh['name']}: {row}")
+    out["traced_shards"] = shards
+    out["merge_launches"], out["gp_kernel_events"] = merges, gp_events
+    out["stop_s"] = stop_s
+    if len(shards) != ROUTE_K[-1] or stats_a["kills"] or stats_a["restarts"]:
+        bad.append(f"route: scaling run shards {sorted(shards)}, stats "
+                   f"{stats_a}")
+
+    # the kill: a fresh tier of K shards, untraced; every session commits,
+    # route.kill SIGKILLs s0 on one supervisor tick, the supervisor
+    # respawns it on its port with its checkpoints, the clients resume
+    rb = router("kill", ROUTE_K[-1])
+    epochs_kill = ROUTE_EPOCHS + 2
+    kill_seen = threading.Event()
+    try:
+        t0 = time.perf_counter()
+        rb.start()
+        out["kill_tier_start_s"] = time.perf_counter() - t0
+
+        def mid():
+            deadline = time.time() + 300
+            while (time.time() < deadline and rb.handle({"op": "ping"})[
+                    "sessions"] < ROUTE_SPACES):
+                time.sleep(0.1)
+            faults.arm("route.kill", "error",
+                       at=faults.hits("route.kill") + 1)
+            deadline = time.time() + 60
+            while time.time() < deadline and rb.kills < 1:
+                time.sleep(0.1)
+            kill_seen.set()
+
+        out["kill_round"] = run_round(rb, "kill", 6000, epochs_kill,
+                                      mid=mid, hold=kill_seen)
+        faults.disarm()
+        stats = rb.handle({"op": "stats"})
+    finally:
+        faults.disarm()
+        rb.stop()
+    restarts = {row["name"]: row["restarts"] for row in stats["shards"]}
+    affected = [i for i in range(ROUTE_SPACES) if owners[i] == "s0"]
+    parity = []
+    for i in range(ROUTE_SPACES):
+        # the uninterrupted matched-seed run on the card
+        lo, hi = place["bounds"][i]
+        ls = LocalSession(rosenbrock_space(2, lo, hi), seed=6000 + i,
+                          device=dev)
+        while ls.version < epochs_kill:
+            for t in ls.ask(ROUTE_CHUNK):
+                ls.tell(t.ticket, rosenbrock_qor(t.config, 2))
+        want = ls.best()
+        ls.close()
+        got = per["kill", i]
+        parity.append({"space": i, "owner": owners[i],
+                       "config_equal": got["best"]["config"] == want["config"],
+                       "qor_equal": got["best"]["qor"] == want["qor"],
+                       "version_equal": got["best"]["version"]
+                       == want["version"] == epochs_kill,
+                       "monotone": got["monotone"],
+                       "no_acked_loss": got["best"]["version"] >= got["acked"],
+                       "reconnects": got["reconnects"],
+                       "redirects": got["redirects"]})
+    out["kill"] = {"epochs": epochs_kill, "kills": stats["kills"],
+                   "restarts": restarts, "victim": "s0",
+                   "affected_sessions": affected, "parity": parity}
+    ok = (stats["kills"] == 1
+          and restarts == {f"s{i}": int(i == 0) for i in range(ROUTE_K[-1])}
+          and affected
+          and all(p["config_equal"] and p["qor_equal"] and p["version_equal"]
+                  and p["monotone"] and p["no_acked_loss"] for p in parity)
+          and all(parity[i]["reconnects"] > 0 for i in affected))
+    out["kill"]["ok"] = ok
+    if not ok:
+        bad.append(f"route: the kill: {out['kill']}")
+    return out
+
+
+def route_loaded(dev, work: Path, bad: list, serve) -> dict:
+    """Part (b) of the route phase: the serve phase's protocol over K
+    shard processes whose groups live on `dev` (see the module
+    docstring)."""
+    import os
+    import numpy as np
+    from uptune_tpu_torch.serve import connect
+    from uptune_tpu_torch.serve.router import Router
+    dims, ask_n, hist = 4, 8, 256
+    place = route_placement(ROUTE_SIGS, dims, ROUTE_SHARDS, False)
+    records = place["records"]
+    per_sig = ROUTE_TENANTS // ROUTE_SIGS
+    work.mkdir(parents=True, exist_ok=True)
+    timeline = work / "fleet.jsonl"
+    r = Router(port=0, shards=ROUTE_SHARDS, slots=per_sig,
+               max_sessions=ROUTE_TENANTS + 64, store_dir=str(work / "store"),
+               work_dir=str(work), device=str(dev),
+               hub_timeline=str(timeline))
+    out = {"sessions": ROUTE_TENANTS, "signatures": ROUTE_SIGS,
+           "shards": ROUTE_SHARDS, "waves": ROUTE_WAVES,
+           "owners": place["owners"], "offset_steps": place["offset_steps"]}
+    n_threads = ROUTE_SIGS                   # one a signature
+    clients, handles = [None] * n_threads, [None] * n_threads
+    errors, lat_lock = [], threading.Lock()
+
+    def measure_all(cfgs):
+        x = np.array([[c[f"x{i}"] for i in range(dims)] for c in cfgs])
+        return (100.0 * (x[:, 1:] - x[:, :-1] ** 2) ** 2
+                + (1 - x[:, :-1]) ** 2).sum(axis=1).tolist()
+
+    def drive(hs, lats):
+        n_asks = 0
+        for h in hs:
+            done = False
+            while not done:
+                a = time.perf_counter()
+                trials = h.ask(ask_n)
+                lats.append(time.perf_counter() - a)
+                if not trials:
+                    done = True
+                    continue
+                n_asks += len(trials)
+                res = h.tell_many(zip((t.ticket for t in trials),
+                                      measure_all([t.config for t in trials])))
+                done = bool(res.get("committed"))
+        return n_asks
+
+    t_start = time.perf_counter()
+    try:
+        r.start()
+        t_ready = time.time()
+        out["start_s"] = time.perf_counter() - t_start
+        tier = r.handle({"op": "shards"})["shards"]
+        out["shard_cold_start_s"] = cold_starts(tier, t_ready)
+        addrs = {row["name"]: row["addr"] for row in tier}
+        pids = {row["name"]: row["pid"] for row in tier}
+
+        def open_all(ti):
+            try:
+                c = connect(("127.0.0.1", r.port))
+                hs = [c.open_session(records[ti], seed=ti * 10000 + j,
+                                     program="chip-route",
+                                     history_capacity=hist)
+                      for j in range(per_sig)]
+                clients[ti], handles[ti] = c, hs
+            except Exception as e:
+                errors.append(repr(e))
+
+        t0 = time.perf_counter()
+        ts = [threading.Thread(target=open_all, args=(ti,))
+              for ti in range(n_threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        out["open_s"] = time.perf_counter() - t0
+        if errors:
+            raise AssertionError(f"route: opens: {errors}")
+        # the probe: one session's epoch alone, its first ask the first
+        # trial after Router.start()
+        probe_lat = []
+        drive([handles[0][0]], probe_lat)
+        out["first_trial_from_start_s"] = (t0 - t_start + out["open_s"]
+                                           + probe_lat[0])
+        out["first_ask_ms"] = probe_lat[0] * 1e3
+        cpu0 = {n: proc_cpu_s(p) for n, p in pids.items()}
+        lats, totals, walls = [], [], []
+        done_s = [0.0] * n_threads          # a signature's threads' drive
+        barrier = threading.Barrier(n_threads)
+
+        def run_waves(ti):
+            try:
+                for _ in range(ROUTE_WAVES):
+                    barrier.wait()
+                    a = time.perf_counter()
+                    mine = []
+                    n = drive(handles[ti], mine)
+                    done_s[ti] += time.perf_counter() - a
+                    with lat_lock:
+                        lats.extend(mine)
+                        totals.append(n)
+                    barrier.wait()
+                    if ti == 0:
+                        walls.append(time.perf_counter() - a)
+            except BaseException as exc:
+                errors.append(repr(exc))
+                barrier.abort()
+                raise
+
+        me0 = time.process_time()
+        t0 = time.perf_counter()
+        ts = [threading.Thread(target=run_waves, args=(ti,))
+              for ti in range(n_threads)]
+        with GpuBusy() as busy:
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+        drive_s = time.perf_counter() - t0
+        client_cpu = time.process_time() - me0
+        shard_cpu = {n: proc_cpu_s(p) - cpu0[n] for n, p in pids.items()}
+        if errors:
+            raise AssertionError(f"route: waves: {errors}")
+        versions = [h.version for hs in handles for h in hs]
+        # each shard's own counters, scraped from the shard itself
+        own = {}
+        for name, addr in sorted(addrs.items()):
+            host, port = addr.rsplit(":", 1)
+            with connect((host, int(port)), timeout=30) as sc:
+                m = sc.metrics()
+            c = (m.get("metrics") or {}).get("counters") or {}
+            h = (m.get("metrics") or {}).get("hists") or {}
+            own[name] = {k: c.get(f"serve.{k}") for k in (
+                "commits", "proposes", "asks", "tells", "store_served")}
+            own[name]["server_hists"] = serve_hists(h)
+            own[name]["sessions"] = m.get("sessions")
+            # when the last of its signatures' threads finished its waves
+            own[name]["signatures_done_s"] = max(
+                done_s[i] for i, o in enumerate(place["owners"])
+                if o == name)
+        for ti in range(n_threads):
+            c, hs = clients[ti], handles[ti]
+            c.batch([{"op": "close", "session": h.id} for h in hs])
+            c.close()
+    finally:
+        r.stop()                            # SIGTERM: the final windows
+    last, fleet = fleet_timeline(timeline)
+    rollup = {}
+    for name, pid in sorted(pids.items()):
+        win = last.get(str(pid)) or {}
+        c = win.get("counters") or {}
+        rollup[name] = {"commits": c.get("serve.commits"),
+                        "proposes": c.get("serve.proposes"),
+                        "final": bool(win.get("final"))}
+    total = sum(totals)
+    ms = np.sort(np.array(lats)) * 1e3
+    out.update({
+        "drive_s": drive_s, "asks": total, "agg_asks_per_s": total / drive_s,
+        "wave_walls_s": walls,
+        "ask": {"requests": len(ms), "p50_ms": float(ms[len(ms) // 2]),
+                "p95_ms": float(ms[int(len(ms) * 0.95)]),
+                "max_ms": float(ms[-1])},
+        "shards_own": own, "shards_rollup": rollup,
+        "fleet_commits": fleet.get("serve.commits"),
+        "fleet_proposes": fleet.get("serve.proposes"),
+        "shard_cpu_over_wall": {n: v / drive_s for n, v in shard_cpu.items()},
+        "gpu_busy": busy.summary(),
+        "client_cpu_over_wall": client_cpu / drive_s})
+    if serve is not None:
+        out["single_server_asks_per_s"] = serve["card"]["agg_asks_per_s"]
+        out["routed_over_single"] = (out["agg_asks_per_s"]
+                                     / out["single_server_asks_per_s"])
+    own_commits = sum(v["commits"] or 0 for v in own.values())
+    want = ROUTE_TENANTS * ROUTE_WAVES + 1          # the probe's epoch too
+    ok = (min(versions) >= ROUTE_WAVES and own_commits == want
+          and out["fleet_commits"] == own_commits
+          and all(v["final"] for v in rollup.values())
+          and all(v["commits"] == own[n]["commits"]
+                  for n, v in rollup.items())
+          and all(own[n]["commits"] for n in own))
+    out["ok"] = ok
+    if not ok:
+        bad.append(f"route: the loaded drive: versions {min(versions)}, "
+                   f"own {own}, rollup {rollup}, fleet {out['fleet_commits']}"
+                   f", want {want}")
+    return out
+
+
+def route_phase(dev, serve=None) -> dict:
+    """The sharded front tier on the card (see the module docstring):
+    part (a), the JAX package's sharded protocol with the traced scaling
+    run and the kill, and part (b), the loaded routed drive; with the
+    serve phase's result, routed asks/s over the single server's."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    out = {"phase": "route"}
+    bad = []
+    tmp = Path(tempfile.mkdtemp(prefix="ut_route_"))
+    try:
+        out["sharded"] = route_sharded(dev, tmp / "sharded", bad)
+        out["loaded"] = route_loaded(dev, tmp / "loaded", bad, serve)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if bad:
+        raise AssertionError("route: " + "; ".join(bad))
+    return out
+
+
 # the short name of every kernel function of csrc/*.cu (with its template
 # arguments) within ptxas's mangled one
 PTXAS_KERNEL = re.compile(
@@ -3991,8 +4660,8 @@ PHASES = {
     "batched_flagship": ("surrogate",),
     "topk_batched": ("surrogate",), "tf32": ("surrogate",),
     "portfolio_flagship": ("surrogate",), "portfolio_batched": (),
-    "driver": (), "surrogate_driver": (), "serve": (), "program": (),
-    "obs": ("engine", "surrogate", "program"),
+    "driver": (), "surrogate_driver": (), "serve": (), "route": (),
+    "program": (), "obs": ("engine", "surrogate", "program"),
 }
 
 
@@ -4159,6 +4828,8 @@ def main() -> int:
         r["surrogate_driver"] = surrogate_driver_phase(dev)
     if "serve" in todo:
         r["serve"] = serve_phase(dev)
+    if "route" in todo:
+        r["route"] = route_phase(dev, r.get("serve"))
     if "program" in todo:
         r["program"] = program_phase(dev)
     if "obs" in todo:
@@ -4188,6 +4859,7 @@ def main() -> int:
     prog = r["program"]
     topkb = r["topk_batched"]
     serve = r["serve"]["card"]
+    route = r["route"]["sharded"]
     entries = []
     for k in kernels:
         common = {"name": k.name, "route": "cuda",
@@ -4206,7 +4878,13 @@ def main() -> int:
                    "launches_program_gcc": prog["gcc"]["launches"][k.name],
                    "launches_propose_topk": topkb["propose_topk"][
                        "launches"][k.name],
-                   "launches_serve": serve["launches"][k.name]}
+                   "launches_serve": serve["launches"][k.name],
+                   # the traced shards of the route phase's scaling run
+                   # (their device traces: the merge's, and the GP
+                   # kernels' functions, of which none may appear)
+                   "launches_route": (route["merge_launches"]
+                                      if k.name == "merge_rows"
+                                      else route["gp_kernel_events"])}
         if k.name == "merge_rows":
             entries.append(dict(
                 common, **batched, launches=engine["launches"][k.name],

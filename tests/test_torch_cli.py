@@ -139,14 +139,33 @@ def test_subcommands_are_refused(sub, capsys):
     assert "ROADMAP Queue 1 item" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("sub,module", [
+    ("route", "uptune_tpu_torch.serve.router"),
+    ("hub", "uptune_tpu_torch.obs.hub"),
+    ("top", "uptune_tpu_torch.obs.top")])
+def test_subcommands_dispatch(sub, module, capsys):
+    """`ut-torch route|hub|top` reach the port's modules (the serving
+    plane's router, the fleet hub, the dashboard): their parser's
+    `--help` names the subcommand and exits 0."""
+    assert cli.SUBCOMMANDS[sub] == (module, "main")
+    with pytest.raises(SystemExit) as e:
+        cli.main([sub, "--help"])
+    assert e.value.code == 0
+    assert capsys.readouterr().out.startswith(f"usage: ut-torch {sub}")
+
+
 def test_top_and_hub_wait_for_the_serving_plane():
-    """`serve` is the port's serve/cli.py; `top` and `hub` read and serve
-    the serving plane's wire, and `route` is its router: they come with
-    the rest of it (item 6b), not with the observability plane."""
-    assert set(cli.SUBCOMMANDS) == {"report", "serve"}
-    assert cli.SUBCOMMANDS["serve"] == ("uptune_tpu_torch.serve.cli", "main")
-    for sub in ("top", "hub", "route"):
-        assert cli.REFUSED_SUBCOMMANDS[sub].startswith("item 6b")
+    """`top` and `hub` read and serve the serving plane's wire, and
+    `route` is its router: they came with the rest of it (item 6b).
+    The port's subcommands are now the JAX package's, less the store
+    server (item 7), each at the same relative module path."""
+    import uptune_tpu.cli as jcli
+    assert set(cli.SUBCOMMANDS) == set(jcli.SUBCOMMANDS) - {"store"}
+    for sub, (mod, attr) in cli.SUBCOMMANDS.items():
+        assert (mod.replace("uptune_tpu_torch.", "uptune_tpu."), attr) \
+            == jcli.SUBCOMMANDS[sub]
+    assert set(cli.REFUSED_SUBCOMMANDS) == {"store"}
+    assert cli.REFUSED_SUBCOMMANDS["store"].startswith("item 7")
 
 
 def test_report_subcommand_renders_a_journal(tmp_path, capsys):

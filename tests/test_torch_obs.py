@@ -3,12 +3,16 @@ reference's own contracts: every test body of tests/test_obs.py,
 test_obs_distributed.py and test_quality.py that exercises the plane
 alone is run here with the reference module's `obs`, `flight`, `merge`,
 `sidecar`, `journal`, `quality` and `report` names pointed at the port's
-modules.  The cases that need the JAX driver, the serving plane or `top`
-/ `hub` (which come with the serving plane) are not run here; the
-port's counterparts of the driver and pool cases are in
+modules, and `top` and the serving plane's cases (TestTop, TestTopJson,
+TestServeHealth) with the JAX package's modules they import pointed at
+the port's (test_torch_serve's `point_at_port`, servers on the CPU).  The
+cases that need the JAX driver are not run here; the port's
+counterparts of the driver and pool cases are in
 tests/test_torch_obs_e2e.py, of test_device.py in
-tests/test_torch_obs_device.py."""
+tests/test_torch_obs_device.py, of the fleet's in
+tests/test_torch_fleet.py."""
 import inspect
+import sys
 
 import pytest
 
@@ -18,12 +22,14 @@ import test_quality as ref_quality
 
 from uptune_tpu_torch import obs
 from uptune_tpu_torch.obs import (flight, journal, merge, quality, report,
-                                  sidecar)
+                                  sidecar, top)
+
+from test_torch_serve import point_at_port
 
 # the reference test modules' names for the plane, and the port's
 PORT = {"obs": obs, "flight": flight, "merge": merge, "sidecar": sidecar,
         "journal": journal, "quality": quality, "obs_report": report,
-        "QualityConfig": quality.QualityConfig,
+        "top": top, "QualityConfig": quality.QualityConfig,
         "SessionQuality": quality.SessionQuality}
 MODULES = {"test_obs": ref_obs, "test_obs_distributed": ref_dist,
            "test_quality": ref_quality}
@@ -61,6 +67,11 @@ CASES = {
                       "test_cli_merge_and_validate",
                       "test_committed_merged_artifact_is_valid"],
         "TestExitFlush": ["test_flush_all_writes_trace_and_final_row"],
+        "TestTop": ["test_render_shows_vitals_and_rates",
+                    "test_render_missing_families_degrade_to_dash",
+                    "test_rates_fall_back_to_poll_diffs",
+                    "test_once_over_metrics_file",
+                    "test_ut_cli_dispatches_top"],
     },
     "test_quality": {
         "TestJournal": ["test_disabled_is_noop",
@@ -75,6 +86,11 @@ CASES = {
             if name.startswith("test_")],
         "TestCommittedExamples": ["test_journal_example_schema_valid",
                                   "test_report_renders_from_committed_journal"],
+        "TestServeHealth": ["test_health_op_per_session_and_rollup",
+                            "test_failing_session_and_bad_threshold",
+                            "test_local_session_health_and_journal_rows"],
+        "TestTopJson": ["test_json_once_frame", "test_json_requires_once",
+                        "test_search_panel_renders"],
     },
 }
 PARAMS = [(m, c, n) for m, classes in CASES.items()
@@ -83,8 +99,12 @@ PARAMS = [(m, c, n) for m, classes in CASES.items()
 
 @pytest.fixture
 def port_plane(monkeypatch):
-    """Point the reference test modules at the port's plane, reset it
-    around the case, and close any journal the case left open."""
+    """Point the reference test modules at the port's plane (and the JAX
+    package's modules their bodies import at the port's, the servers on
+    the CPU), reset it around the case, and close any journal the case
+    left open."""
+    point_at_port(monkeypatch, [])
+    monkeypatch.setitem(sys.modules, "uptune_tpu.obs.top", top)
     for mod in MODULES.values():
         for name, value in PORT.items():
             if hasattr(mod, name):
@@ -106,12 +126,12 @@ def test_reference_contract(port_plane, module, cls, name, request):
 
 def test_the_cases_cover_every_plane_only_reference_test():
     """Every reference test class left out above needs the JAX driver,
-    the serving plane or `top` / `hub`; the classes run here are run
-    whole (TestCore, TestExport, ...), so a new reference case of theirs
-    shows up as a missing one."""
-    left_out = {"TestStructural", "TestGuardMerge", "TestTop",
-                "TestSubprocessE2E", "TestDriverJournal", "TestServeHealth",
-                "TestTopJson", "TestFeatureInterm"}
+    its worker pool or its trace guard (the port's counterparts are in
+    tests/test_torch_obs_e2e.py), or is the slow-marked subprocess pair;
+    the classes run here are run whole (TestCore, TestExport, TestTop,
+    ...), so a new reference case of theirs shows up as a missing one."""
+    left_out = {"TestStructural", "TestGuardMerge", "TestSubprocessE2E",
+                "TestDriverJournal", "TestFeatureInterm"}
     for module, mod in MODULES.items():
         for cname, klass in inspect.getmembers(mod, inspect.isclass):
             if not cname.startswith("Test") or klass.__module__ != module:

@@ -7,6 +7,7 @@ CUDA-event paths run here against a stand-in for `torch.cuda`; the card
 itself runs them in `chip_smoke.py`'s obs phase."""
 import json
 import os
+import sys
 
 import pytest
 import torch
@@ -14,7 +15,7 @@ import torch
 import test_device as ref_device
 
 from uptune_tpu_torch import obs
-from uptune_tpu_torch.obs import device, report
+from uptune_tpu_torch.obs import device, report, top
 
 H100 = "NVIDIA H100 80GB HBM3"
 
@@ -40,6 +41,17 @@ def ref_on_port(monkeypatch):
 ])
 def test_reference_contract(ref_on_port, cls, name):
     getattr(getattr(ref_device, cls)(), name)()
+
+
+@pytest.mark.parametrize("name", ["test_panel_renders_values_and_dashes",
+                                  "test_json_frame_carries_device_family"])
+def test_reference_top_device_panel(monkeypatch, name):
+    """TestTopDevicePanel on the port's `top`: its `from uptune_tpu.obs
+    import top` resolves to the port's module.  The panel keeps the
+    reference's keys (`device.mxu_util`, `device.hbm_util`, ...)."""
+    monkeypatch.setitem(sys.modules, "uptune_tpu.obs", obs)
+    monkeypatch.setitem(sys.modules, "uptune_tpu.obs.top", top)
+    getattr(ref_device.TestTopDevicePanel(), name)()
 
 
 def test_h100_peaks_by_substring():

@@ -20,9 +20,11 @@ from these:
   UT_DEVICE_TRACE capture a torch.profiler Chrome trace
   (DIR/device_trace.json) instead of an XPlane dump; ``ut-torch report``
   renders a journal (`obs/report.py`);
-* UT_TRACE_GUARD set to anything but off, the subcommands serve, route,
-  top, hub and store, and a ``tcp://`` store exit with code 2, naming
-  the reason or the ROADMAP item that brings them;
+* the subcommands ``serve``, ``route``, ``top``, ``hub`` and ``report``
+  are the port's (``serve`` and ``route`` take ``--device`` too);
+* UT_TRACE_GUARD set to anything but off, the subcommand store, and a
+  ``tcp://`` store exit with code 2, naming the reason or the ROADMAP
+  item that brings them;
 * ``--compile-cache-dir`` is accepted and has no effect.
 
 Mode selection is automatic (async_task_scheduler.py:465-474): template
@@ -250,19 +252,17 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-# The JAX package's `ut <name>` subcommands: `report` is the port's
-# (module, entry); the rest are refused with the ROADMAP item (Queue 1)
-# that brings them.
+# The JAX package's `ut <name>` subcommands: the port's (module, entry)
+# for each one ported; the rest are refused with the ROADMAP item
+# (Queue 1) that brings them.
 SUBCOMMANDS = {
-    "report": ("uptune_tpu_torch.obs.report", "main"),
     "serve": ("uptune_tpu_torch.serve.cli", "main"),
+    "route": ("uptune_tpu_torch.serve.router", "main"),
+    "top": ("uptune_tpu_torch.obs.top", "main"),
+    "report": ("uptune_tpu_torch.obs.report", "main"),
+    "hub": ("uptune_tpu_torch.obs.hub", "main"),
 }
 REFUSED_SUBCOMMANDS = {
-    "route": "item 6b (the serving plane's router, serve/router.py)",
-    "top": "item 6b (the serving plane: obs/top.py reads a server "
-           "through serve.client)",
-    "hub": "item 6b (the serving plane: obs/hub.py serves "
-           "serve/wire.py)",
     "store": "item 7 (the store server)",
 }
 # observability variables the port refuses when set to anything but off,

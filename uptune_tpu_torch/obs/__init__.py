@@ -26,7 +26,9 @@ for the span taxonomy and metric names (the same here).
 
 The plane imports neither torch nor numpy at module level: a tuned
 program's child process imports it (through `api/state.py`) and must
-stay light.  `hub` and `top` are not here: they ride the serving plane.
+stay light.  `hub` (the fleet collector, `ut-torch hub`) and `top` (the
+dashboard, `ut-torch top`) are modules of the package, not names of
+this surface, as in the JAX package: they ride the serving plane's wire.
 """
 from __future__ import annotations
 

@@ -22,8 +22,11 @@ Surface: ``ut-torch serve`` (CLI; on the card unless ``--device cpu``),
 newline-delimited JSON over TCP, frame for frame the JAX package's), and
 ``LocalSession`` — the same session mechanics without a server, which
 doubles as the matched-seed offline sibling the parity tests hold the
-server to.  The sharded front tier (``serve/router.py``, ``route``) is
-not ported yet (ROADMAP Queue 1 item 6b).
+server to.  ``ut-torch route`` (``Router``, serve/router.py) is the
+sharded front tier: K ``ut-torch serve --durable`` shard processes
+behind one thin process that redirects each open to the shard its
+space signature hashes to (``HashRing``, ``routing_key``) and never
+proxies.
 """
 # Lazy surface: the wire kernel (serve/wire.py) and its light consumers
 # — SessionClient above all, which a tenant process imports — must stay
@@ -50,6 +53,9 @@ _LAZY = {
     "WireServer": ("uptune_tpu_torch.serve.wire", "WireServer"),
     "WireReply": ("uptune_tpu_torch.serve.wire", "WireReply"),
     "encode_reply": ("uptune_tpu_torch.serve.wire", "encode_reply"),
+    "Router": ("uptune_tpu_torch.serve.router", "Router"),
+    "HashRing": ("uptune_tpu_torch.serve.router", "HashRing"),
+    "routing_key": ("uptune_tpu_torch.serve.router", "routing_key"),
 }
 
 __all__ = sorted(_LAZY)

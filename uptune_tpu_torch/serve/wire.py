@@ -2,9 +2,10 @@
 every wire-speaking plane.
 
 Counterpart of `uptune_tpu/serve/wire.py`, frame for frame: the session
-server, and in the JAX package the fleet-telemetry hub, the sharded
-front-tier router and the remote ResultStore server (not ported yet)
-all speak the same protocol: one JSON object per
+server, the fleet-telemetry hub (obs/hub.py), the sharded front-tier
+router (serve/router.py) and, in the JAX package, the remote
+ResultStore server (not ported yet) all speak the same protocol: one
+JSON object per
 line, each carrying an ``op`` field, answered by one JSON object per
 line.  This module owns the generic half so each service only writes
 its op table:
