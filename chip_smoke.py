@@ -14,6 +14,9 @@ toolkit:
                                        # these phases (and those whose
                                        # results they take) alone, for
                                        # an A/B call; no ok line
+    python3 chip_smoke.py --phases store,parallel
+                                       # the cooperative store and the
+                                       # mesh plane alone
 
 It imports nothing of JAX or of the JAX package.  TF32 is switched off
 for matrix products (the GP's distances and Cholesky are f32) and the
@@ -249,6 +252,50 @@ setting is printed.  Phases, each printing one JSON line:
              that timeline equal to their sum, every tenant's epoch
              committed, the shards' and the load generator's CPU seconds
              over the wall, and routed asks/s over the serve phase's;
+15d. store - the cooperative store: the JAX package's store protocol
+             (`bench.py --store-remote`, not --quick) on the port: one
+             `python -m uptune_tpu_torch.cli store` server process, K 3
+             cooperating child processes (`chip_smoke.py --store-child`,
+             each on the card in its own CUDA context: a journaled
+             `Tuner(surrogate="gp")` with a synchronous refit over
+             rosenbrock-4d on the int grid [-6, 6], budget 300, target
+             3.0, a `RemoteStore` refreshed every 0.02 s, the store hit /
+             record / exchange / federate loop of the controller), then
+             3 independent matched-seed children, each set at once; evals
+             to the target coop against independent (printed, not
+             gated), exchanges and federated rows, each child's cold
+             start, commits, merge launches (its wrapper's count and its
+             own UT_DEVICE_TRACE=DIR/<tag>'s kernels: both its commits, no
+             other kernel of the port), and each child's online quality
+             gauges equal to an offline replay of its journal; then the
+             kill: a server armed with `rstore.append=crash@25` under 3
+             writing `RemoteStore`s dies with rc 137, every acked row is
+             served by a server restarted on the same directory, a
+             record while it is down takes under 100 ms, and the
+             surviving client drains its backlog;
+15e. parallel - the mesh plane at the main path's width (the flagship
+             at scale 64, a 2^15-row history; the GP at N 1024, F 31,
+             EI): (a) `ShardedEngine` over local meshes of the card, 50
+             steps: (search 1, eval 4) bitwise equal to `FusedEngine.run`
+             from the replica's key, (search 2, eval 2) every replica
+             holding the global best; merge once a replica a commit, and
+             ms/step; (b) `BatchedEngine(flagship, N 4,
+             mesh=make_instance_mesh(2))` scored by C (C and the merge
+             once a shard a step), against the unsharded route: the run
+             bitwise where C's scores do not depend on a launch's rows,
+             and `global_topk` at k 128 (D once a shard, then the
+             gather): owners and indices bitwise, values bitwise or
+             within the sd tolerance; (c) `sharded_gp_score` over 2 x
+             6040 rows (B once a shard) against one launch of B over
+             12,080 rows and against the plain version, B's time a shard
+             and the gather's; (d) two ranks on the one card
+             (`chip_smoke.py --mesh-rank` started with `ut-torch
+             --num-hosts`'s UT_* environment, gloo, the card's tensors
+             staged through pinned host memory) running `ShardedEngine`
+             (search 2, eval 1): both ranks' global best equal to each
+             other and to a one-process local mesh bitwise, with
+             `init_process_group`'s seconds; then the same steps in a
+             one-rank NCCL group;
 16. program - program mode: `python -m uptune_tpu_torch.cli
              rosenbrock.py -pf 4 --test-limit 100 --seed 0` on a copy of
              the unchanged sample (its child imports the JAX package):
@@ -295,8 +342,9 @@ setting is printed.  Phases, each printing one JSON line:
              largest ratio to the tolerance), times and bound; the merge
              also over its instance axis and at the driver's shape, and
              the launches of the batched, portfolio, driver, surrogate
-             driver, program, propose_topk, serve and route paths (the
-             route path's from the traced shards' device traces; D also timed
+             driver, program, propose_topk, serve, route, store and
+             parallel paths (the route path's from the traced shards'
+             device traces; D also timed
              at the manager's shapes and over its instance axis), and
              A-D's times at F = 1028.
 
@@ -450,9 +498,9 @@ TOPK_SEGMENTS = ((BF_N, 6040, TOP_K), (64, 4096, 32))
 TOPK_EPOCHS = 20
 # the serving protocol: tenants on the card and on the CPU, epochs, and
 # the closes (and opens) between epochs
-# (the CPU's cut from 1024 to 256 for the time limit)
+# (the CPU's cut from 1024 to 256, then to 128, for the time limit)
 SERVE_SESSIONS, SERVE_CPU_SESSIONS, SERVE_EPOCHS, SERVE_CHURN = (
-    1024, 256, 3, 8)
+    1024, 128, 3, 8)
 # the sharded front tier (bench.py --serve-sharded, not --quick): six
 # space signatures of rosenbrock-2d, one session each, chunk 8; K walked
 # 1 -> 2 -> 3 by the scale op, 4 epochs a round (the scaling run, its
@@ -4564,6 +4612,708 @@ def route_phase(dev, serve=None) -> dict:
     return out
 
 
+# -- the cooperative store ----------------------------------------------------------
+# the JAX package's `bench.py --store-remote` protocol (not --quick)
+STORE_K = 3
+STORE_DIMS, STORE_LO, STORE_HI = 4, -6, 6
+STORE_BUDGET, STORE_TARGET = 300, 3.0
+STORE_SEEDS = tuple(9100 + i for i in range(STORE_K))
+STORE_EXCHANGE_S = 0.02
+STORE_CRASH_AT = 25
+STORE_SURROGATE = {"min_points": 12, "refit_interval": 16,
+                   "max_points": 192, "async_refit": False}
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def store_child_main(argv) -> int:
+    """`chip_smoke.py --store-child`: one tuning process of the store
+    phase, on the card — a journaled `Tuner(surrogate="gp")` over the
+    integer rosenbrock whose loop is the controller's store discipline
+    (lookup before measuring, record after, exchange and federate on the
+    refresh tick), pointed at a `ut-torch store` server (--addr
+    tcp://...) or at nothing (--addr off: the independent matched-seed
+    replica).  Its commits are counted around `Tuner._commit`, its merge
+    launches by the wrapper, and UT_DEVICE_TRACE captures its kernels.
+    Prints one JSON line."""
+    t_start = time.time()
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--store-child", action="store_true")
+    ap.add_argument("--addr", required=True)
+    ap.add_argument("--seed", type=int, required=True)
+    ap.add_argument("--journal", required=True)
+    ap.add_argument("--tag", required=True)
+    args = ap.parse_args(argv)
+    import collections
+    import numpy as np
+    from uptune_tpu_torch import native, obs
+    from uptune_tpu_torch.driver import Tuner
+    from uptune_tpu_torch.store.remote import RemoteStore
+    from uptune_tpu_torch.workloads import rosenbrock_space
+    t_imported = time.time()
+    dims = STORE_DIMS
+    space = rosenbrock_space(dims, STORE_LO, STORE_HI, as_int=True)
+
+    def measure(cfg):
+        x = np.array([float(cfg[f"x{i}"]) for i in range(dims)])
+        return float(np.sum(100.0 * (x[1:] - x[:-1] ** 2) ** 2
+                            + (1 - x[:-1]) ** 2))
+
+    store = None
+    if args.addr != "off":
+        store = RemoteStore(args.addr, [repr(s) for s in space.specs],
+                            "chip-smoke-store",
+                            refresh_interval=STORE_EXCHANGE_S)
+    t_trace = time.time()
+    obs.device.maybe_trace_from_env()
+    t_traced = time.time()
+    obs.enable(capacity=1 << 18)
+    jmon = obs.start_journal(args.journal, meta={
+        "example": "chip_smoke.py store", "tag": args.tag,
+        "seed": args.seed, "addr": args.addr,
+        "workload": f"rosenbrock-{dims}d-int"})
+    tuner = Tuner(space, None, seed=args.seed, surrogate="gp",
+                  surrogate_opts=dict(STORE_SURROGATE), device="cuda")
+    commits = [0]
+    commit = tuner._commit
+
+    def counted(*a, **kw):
+        commits[0] += 1
+        return commit(*a, **kw)
+    tuner._commit = counted
+    native.reset_launches()
+    t_ready = time.time()
+    evals, best, hit_at = 0, float("inf"), None
+    exchange_injected = federated = 0
+    queue: collections.deque = collections.deque()
+
+    def serve(tr):
+        nonlocal evals, best
+        row = store.lookup(tr.config) if store is not None else None
+        if row is not None:
+            q = float(row["qor"])
+            tuner.tell(tr, q, float(row.get("dur", 0.0)))
+            obs.journal.emit("store_hit", gid=tr.gid, qor=round(q, 6))
+        else:
+            q = measure(tr.config)
+            evals += 1
+            tuner.tell(tr, q)
+            if store is not None:
+                tk = tr.ticket
+                store.record(tr.config, q, u=tk.u_np[tr.slot],
+                             perms=[pp[tr.slot] for pp in tk.perms_np])
+        best = min(best, q)
+
+    while evals < STORE_BUDGET and not (hit_at is not None and not queue):
+        if not queue:
+            queue.extend(tuner.ask(min_trials=1))
+        serve(queue.popleft())
+        if hit_at is None and best <= STORE_TARGET:
+            hit_at = evals
+        if store is not None and store.maybe_refresh():
+            rows = store.pop_fresh_rows()
+            if rows:
+                # elite migration + federated surrogate rows: the
+                # controller's _maybe_exchange_best split
+                top = min(rows, key=lambda r: float(r["qor"]))
+                injected = []
+                if tuner.sign * float(top["qor"]) < float(tuner.best.qor):
+                    injected = tuner.inject([top["cfg"]], source="exchange")
+                if injected:
+                    exchange_injected += len(injected)
+                    obs.journal.emit("exchange",
+                                     qor=round(float(top["qor"]), 6))
+                    queue.extendleft(reversed(injected))
+                rest = [r for r in rows if not (injected and r is top)]
+                n = tuner.preload_rows(rest, refit=False)
+                if n:
+                    federated += n
+                    if tuner.surrogate is not None:
+                        tuner.surrogate.maybe_refit()
+                    obs.journal.emit("federate", rows=n)
+    torch.cuda.synchronize()
+    t_done = time.time()
+    res = tuner.result()
+    launches = {k.name: k.launches for k in native.KERNELS}
+    tuner.close()
+    obs.journal.flush()
+    obs.stop_journal(jmon)
+    gauges = dict(jmon.gauges)
+    t_export = time.time()
+    obs.device.stop_trace()
+    t_exported = time.time()
+    sstats = store.stats() if store is not None else None
+    if store is not None:
+        store.flush_wait(10.0)
+        store.close()
+    print(json.dumps({
+        "tag": args.tag, "seed": args.seed, "evals": evals,
+        "hit_at": hit_at, "best": round(best, 6),
+        "tuner_best": round(res.best_qor, 6),
+        "exchange_injected": exchange_injected, "federated": federated,
+        "commits": commits[0], "launches": launches,
+        "t_start": t_start, "t_ready": t_ready,
+        "import_s": t_imported - t_start,
+        "trace_start_s": t_traced - t_trace,
+        "trace_export_s": t_exported - t_export,
+        "tune_s": t_done - t_ready, "store": sstats,
+        "gauges": gauges}), flush=True)
+    return 0
+
+
+def store_phase(dev) -> dict:
+    """The cooperative store on the card (see the module docstring):
+    K cooperating children against K independent ones, each journal
+    replayed, each child's merge launches from its own device trace;
+    then the deterministic mid-append kill."""
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+    from uptune_tpu_torch import obs
+    from uptune_tpu_torch.store.remote import RemoteStore
+    t_phase = time.perf_counter()
+    out = {"phase": "store", "k": STORE_K, "dims": STORE_DIMS,
+           "lo": STORE_LO, "hi": STORE_HI, "budget": STORE_BUDGET,
+           "target": STORE_TARGET, "seeds": list(STORE_SEEDS),
+           "exchange_interval_s": STORE_EXCHANGE_S}
+    bad = []
+    work = Path(tempfile.mkdtemp(prefix="ut_store_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+
+    def wait_ready(port, child, what, deadline_s=60):
+        import socket
+        deadline = time.time() + deadline_s
+        while time.time() < deadline:
+            try:
+                socket.create_connection(("127.0.0.1", port),
+                                         timeout=2).close()
+                return
+            except OSError:
+                if child.poll() is not None:
+                    raise RuntimeError(f"{what} died before ready: "
+                                       + child.communicate()[0][-2000:])
+                time.sleep(0.05)
+        raise RuntimeError(f"{what} never came up")
+
+    def start_server(port, root, extra=None):
+        t0 = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, "-m", "uptune_tpu_torch.cli", "store",
+             "--port", str(port), "--dir", str(root)], cwd=str(work),
+            env=dict(env, **(extra or {})), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        wait_ready(port, child, "ut-torch store")
+        return child, time.perf_counter() - t0
+
+    def req(port, payload):
+        import socket
+        with socket.create_connection(("127.0.0.1", port), timeout=10) as s:
+            f = s.makefile("rwb")
+            f.write(json.dumps(payload).encode() + b"\n")
+            f.flush()
+            resp = json.loads(f.readline())
+        if not resp.get("ok"):
+            raise RuntimeError(f"store request {payload}: {resp}")
+        return resp
+
+    def run_fleet(label, addr):
+        # the K children at once, each in its own CUDA context and traced
+        # into its own directory
+        children, outs = [], []
+        for i, seed in enumerate(STORE_SEEDS):
+            tag = f"{label}-{i}"
+            jpath = work / f"journal_{tag}.jsonl"
+            t_spawn = time.time()
+            ch = subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--store-child",
+                 "--addr", addr, "--seed", str(seed), "--journal",
+                 str(jpath), "--tag", tag], cwd=str(work),
+                env=dict(env, UT_DEVICE_TRACE=str(work / "trace" / tag)),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            children.append((tag, jpath, t_spawn, ch))
+        for tag, jpath, t_spawn, ch in children:
+            try:
+                txt = ch.communicate(timeout=600)[0]
+            except subprocess.TimeoutExpired:
+                for *_, c in children:
+                    c.kill()
+                raise
+            if ch.returncode != 0:
+                raise RuntimeError(f"{tag} failed (rc={ch.returncode}): "
+                                   f"{txt[-3000:]}")
+            o = json.loads([ln for ln in txt.strip().splitlines()
+                            if ln.startswith("{")][-1])
+            o["cold_start_s"] = o["t_ready"] - t_spawn
+            o["trace"] = trace_kernels(work / "trace" / tag
+                                       / "device_trace.json")
+            outs.append((jpath, o))
+        return outs
+
+    server = None
+    try:
+        # ---- K cooperating children against K independent ones -----------
+        port = free_port()
+        server, out["server_start_s"] = start_server(port, work / "store")
+        t0 = time.perf_counter()
+        try:
+            coop = run_fleet("coop", f"tcp://127.0.0.1:{port}")
+        finally:
+            server.terminate()
+            server.wait(timeout=30)
+            server = None
+        out["coop_fleet_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        indep = run_fleet("indep", "off")
+        out["indep_fleet_s"] = time.perf_counter() - t0
+
+        replay_exact = True
+        children = {}
+        for jpath, o in coop + indep:
+            _, rows = obs.journal.read(str(jpath), strict=True)
+            replayed = obs.quality.replay(rows)
+            exact = o["gauges"] == replayed.gauges
+            replay_exact &= exact
+            tr = o["trace"] or {}
+            merge_trace = tr.get("merge_rows_kernel")
+            others = {k: v for k, v in tr.items()
+                      if k not in ("all", "merge_rows_kernel")}
+            want = {k: 0 for k in o["launches"]}
+            want["merge_rows"] = o["commits"]
+            children[o["tag"]] = {
+                "evals": o["evals"], "hit_at": o["hit_at"],
+                "best": o["best"], "commits": o["commits"],
+                "merge_launches": o["launches"]["merge_rows"],
+                "merge_launches_traced": merge_trace,
+                "other_port_kernels_traced": others,
+                "cold_start_s": o["cold_start_s"], "import_s": o["import_s"],
+                "trace_start_s": o["trace_start_s"], "tune_s": o["tune_s"],
+                "trace_export_s": o["trace_export_s"],
+                "exchange_injected": o["exchange_injected"],
+                "federated": o["federated"], "journal_replay_exact": exact,
+                "store_hits": (o["store"] or {}).get("hits")}
+            if o["launches"] != want or merge_trace != o["commits"] \
+                    or others or not o["commits"]:
+                bad.append(f"{o['tag']}: launches {o['launches']}, traced "
+                           f"merge {merge_trace}, other kernels {others}, "
+                           f"commits {o['commits']}")
+            if not exact:
+                bad.append(f"{o['tag']}: online gauges differ from the "
+                           f"journal's replay")
+
+        def hit(o):
+            return o["hit_at"] if o["hit_at"] is not None \
+                else STORE_BUDGET + 1
+        coop_hits = [hit(o) for _, o in coop]
+        indep_hits = [hit(o) for _, o in indep]
+        out.update(
+            children=children, coop_evals_to_target=coop_hits,
+            indep_evals_to_target=indep_hits, coop_min=min(coop_hits),
+            indep_min=min(indep_hits),
+            exchange_injected=sum(o["exchange_injected"] for _, o in coop),
+            federated_rows=sum(o["federated"] for _, o in coop),
+            journal_replay_exact=replay_exact)
+        if not out["exchange_injected"] or not out["federated_rows"]:
+            bad.append("the cooperating children exchanged nothing")
+
+        # ---- the deterministic mid-append kill -------------------------------
+        port2 = free_port()
+        root2 = work / "store_crash"
+        server, _ = start_server(port2, root2, {
+            "UT_FAULTS": f"rstore.append=crash@{STORE_CRASH_AT}"})
+        sig = ["chip-smoke-crash-spec"]
+        clients = [RemoteStore(f"tcp://127.0.0.1:{port2}", sig,
+                               "chip-smoke-crash", refresh_interval=3600.0,
+                               backoff_base=0.05, backoff_max=0.5)
+                   for _ in range(STORE_K)]
+        rec_keys = [[] for _ in range(STORE_K)]
+        stop_rec = threading.Event()
+
+        def writer(ci):
+            n = 0
+            while not stop_rec.is_set() and n < 200:
+                row = clients[ci].record({"c": ci, "i": n}, float(n + 1),
+                                         source=f"w{ci}")
+                if row is not None:
+                    rec_keys[ci].append(row["k"])
+                n += 1
+                time.sleep(0.005)
+
+        threads = [threading.Thread(target=writer, args=(i,))
+                   for i in range(STORE_K)]
+        for t in threads:
+            t.start()
+        server.wait(timeout=120)
+        crash_rc = server.returncode
+        server = None
+        t0 = time.perf_counter()
+        clients[0].record({"deg": "probe"}, 999.0)
+        degrade_ms = (time.perf_counter() - t0) * 1e3
+        stop_rec.set()
+        for t in threads:
+            t.join()
+        acked = [c.stats()["remote"]["acked"] for c in clients]
+        acked_keys = [ks[:a] for ks, a in zip(rec_keys, acked)]
+        for c in clients[1:]:
+            c.close()
+        server, restart_s = start_server(port2, root2)
+        try:
+            lost = [k for ks in acked_keys for k in ks
+                    if req(port2, {"op": "lookup", "k": k}).get("row")
+                    is None]
+            st = req(port2, {"op": "stats"})
+            drained = clients[0].flush_wait(30.0)
+            resumed = clients[0].connected
+            survivor_ok = all(
+                req(port2, {"op": "lookup", "k": k}).get("row") is not None
+                for k in rec_keys[0])
+            dropped = clients[0].stats()["remote"]["dropped"]
+        finally:
+            clients[0].close()
+        out["kill"] = {
+            "crash_at_append": STORE_CRASH_AT, "crash_rc": crash_rc,
+            "acked_before_kill": acked, "acked_rows_lost": len(lost),
+            "rows_after_restart": st["rows"], "replayed": st["replayed"],
+            "torn_tail": st["torn_tail"], "restart_s": restart_s,
+            "degraded_record_ms": degrade_ms, "survivor_drained": drained,
+            "survivor_resumed": resumed,
+            "survivor_all_rows_on_server": survivor_ok,
+            "survivor_dropped": dropped}
+        if not (crash_rc == 137 and not lost and sum(acked) > 0 and drained
+                and resumed and survivor_ok and dropped == 0
+                and degrade_ms < 100.0):
+            bad.append(f"the kill: {out['kill']}")
+    finally:
+        if server is not None:
+            server.terminate()
+            server.wait(timeout=30)
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if bad:
+        raise AssertionError("store: " + "; ".join(bad))
+    return out
+
+
+# -- the mesh plane -----------------------------------------------------------------
+PAR_STEPS = 50
+PAR_BF_STEPS = 5
+
+
+def sharded_run(eng, mesh, seed: int, steps: int) -> tuple:
+    """(state, seconds, merge launches) of a ShardedEngine run."""
+    from uptune_tpu_torch import native
+    from uptune_tpu_torch.parallel import ShardedEngine
+    se = ShardedEngine(eng, mesh)
+    st0 = se.init(seed)
+    se.run(st0, 1)                                # warm step
+    torch.cuda.synchronize()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    st = se.run(st0, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return se, st, wall, {k.name: k.launches for k in native.KERNELS}
+
+
+def mesh_rank_main() -> int:
+    """`chip_smoke.py --mesh-rank`: one rank of the parallel phase's
+    process group — `initialize()` from the UT_* environment
+    (`ut-torch --num-hosts`'s), the multi-process mesh on the one card,
+    and the flagship's ShardedEngine (search 2, eval 1) over gloo.
+    Prints one JSON line."""
+    from uptune_tpu_torch.flagship import flagship
+    from uptune_tpu_torch.parallel import initialize, make_multihost_mesh
+    from uptune_tpu_torch.parallel import mesh as pmesh
+    from uptune_tpu_torch.parallel.multihost import shutdown
+    dev = torch.device("cuda")
+    torch.zeros(1, device=dev)
+    t0 = time.perf_counter()
+    cfg = initialize(timeout=120)
+    init_s = time.perf_counter() - t0
+    mesh = make_multihost_mesh(1, device="cuda")
+    eng = flagship(SCALE, history_capacity=CAPACITY, device=dev)
+    pmesh.all_gather(mesh, torch.zeros(1, device=dev))   # warm collective
+    pmesh.reset_staging()
+    se, st, wall, launches = sharded_run(eng, mesh, SEED + 41, PAR_STEPS)
+    staging = pmesh.staging()
+    qors = pmesh.all_gather(mesh, st.best.qor)
+    us = pmesh.all_gather(mesh, st.best.u)
+    shutdown()
+    print(json.dumps({
+        "rank": cfg["process_id"], "backend": cfg["backend"],
+        "init_process_group_s": init_s, "mesh": mesh.shape,
+        "replicas": se.replicas, "ms_per_step": wall / PAR_STEPS * 1e3,
+        "launches": launches, "staging": staging,
+        "qor_bits": col_bits(qors.cpu()).tolist(),
+        "u_bits": col_bits(us.cpu()).reshape(-1).tolist()}), flush=True)
+    return 0
+
+
+def parallel_phase(cases, feats: tuple, dev) -> dict:
+    """The mesh plane on the card at the main path's width (see the
+    module docstring): (a) ShardedEngine over local meshes, (b) the
+    instance mesh scored by C with global_topk, (c) sharded GP scoring
+    through B, (d) a process group of two ranks over gloo and one rank
+    over NCCL."""
+    import os
+    import subprocess
+    from uptune_tpu_torch import native
+    from uptune_tpu_torch.engine import (BatchedEngine, make_instance_mesh,
+                                         surrogate_eval_fn)
+    from uptune_tpu_torch.flagship import N_CITIES, flagship
+    from uptune_tpu_torch.parallel import (initialize, make_mesh,
+                                           make_multihost_mesh,
+                                           sharded_gp_score)
+    from uptune_tpu_torch.parallel import mesh as pmesh
+    from uptune_tpu_torch.parallel.multihost import shutdown
+    from uptune_tpu_torch.space.spec import CandBatch
+    from uptune_tpu_torch.surrogate import gp, pallas_score as ps
+    t_phase = time.perf_counter()
+    nc, ncat = feats
+    st_gp, xq, best, _, _ = cases["mixed_n1024"]
+    out = {"phase": "parallel", "scale": SCALE, "history_capacity": CAPACITY,
+           "steps": PAR_STEPS}
+    bad = []
+    zero = {k.name: 0 for k in native.KERNELS}
+    eng = flagship(SCALE, history_capacity=CAPACITY, device=dev)
+    eng.run(eng.init(SEED), 1)                    # warm step
+    torch.cuda.synchronize()
+
+    # (a) ShardedEngine over local meshes of the card
+    seed = SEED + 41
+    se, s14, wall, launches = sharded_run(eng, make_mesh(1, 4, device=dev),
+                                          seed, PAR_STEPS)
+    native.reset_launches()
+    t0 = time.perf_counter()
+    fused = eng.run(eng.init(se.replica_seeds(seed)[0]), PAR_STEPS)
+    torch.cuda.synchronize()
+    fused_ms = (time.perf_counter() - t0) / PAR_STEPS * 1e3
+    diff = trees_differ(row_of(s14, 0), fused)
+    a14 = {"mesh": "1x4", "ms_per_step": wall / PAR_STEPS * 1e3,
+           "fused_ms_per_step": fused_ms, "launches": launches,
+           "bitwise_equal_fused": not diff, "mismatched": diff[:6]}
+    if diff or launches != dict(zero, merge_rows=PAR_STEPS):
+        bad.append(f"(a) 1x4: {a14}")
+    se22, s22, wall, launches = sharded_run(eng, make_mesh(2, 2, device=dev),
+                                            seed, PAR_STEPS)
+    q22 = s22.best.qor
+    a22 = {"mesh": "2x2", "ms_per_step": wall / PAR_STEPS * 1e3,
+           "launches": launches, "replica_qors": q22.tolist(),
+           "global_best_is_every_replicas": bool(
+               (q22 == q22.min()).all() and (s22.best.u == s22.best.u[0]).all()
+               and (s22.best.perms[0] == s22.best.perms[0][0]).all()),
+           "best_tour_ok": is_perm_rows(s22.best.perms[0], N_CITIES)}
+    if not (a22["global_best_is_every_replicas"] and a22["best_tour_ok"]) \
+            or launches != dict(zero, merge_rows=2 * PAR_STEPS):
+        bad.append(f"(a) 2x2: {a22}")
+    out["sharded_engine"] = [a14, a22]
+
+    # (b) the instance mesh, scored by C, and global_topk
+    ev = surrogate_eval_fn(eng.space, st_gp, kind="ei", best_y=best,
+                           impl="fused", n_cont=nc, n_cat=ncat)
+    be = BatchedEngine(eng, BF_N)
+    bm = BatchedEngine(eng, BF_N, mesh=make_instance_mesh(2, device=dev))
+    st0 = be.init(SEED + 43)
+    tst, cands, keys = torch.func.vmap(eng.propose)(st0)
+    n, b = cands.u.shape[:2]
+    flat = CandBatch(cands.u.reshape(n * b, -1),
+                     tuple(p.reshape(n * b, -1) for p in cands.perms))
+    full = ev(flat)
+    half = n * b // 2
+    split = torch.cat([ev(flat[:half]), ev(flat[half:])])
+    c_bitwise = torch.equal(full, split)
+    native.reset_launches()
+    t0 = time.perf_counter()
+    sm = bm.run(st0, PAR_BF_STEPS, eval_fn=ev)
+    torch.cuda.synchronize()
+    mesh_ms = (time.perf_counter() - t0) / PAR_BF_STEPS * 1e3
+    run_launches = {k.name: k.launches for k in native.KERNELS}
+    su = be.run(st0, PAR_BF_STEPS, eval_fn=ev)
+    run_diff = trees_differ(sm, su)
+    native.reset_launches()
+    gv, gown, gidx = bm.global_topk(st0, TOP_K, ev)
+    torch.cuda.synchronize()
+    topk_launches = {k.name: k.launches for k in native.KERNELS}
+    uv, uown, uidx = be.global_topk(st0, TOP_K, ev)
+    err, ratio = tol_excess(gv[0], uv[0], SD_TOL, float(st_gp.y_std))
+    b_out = {
+        "instances": BF_N, "shards": 2, "rows_per_shard": half,
+        "steps": PAR_BF_STEPS, "ms_per_step": mesh_ms,
+        "launches": run_launches, "c_scores_bitwise_across_row_counts":
+            c_bitwise, "run_bitwise_equal_unsharded": not run_diff,
+        "run_mismatched": run_diff[:6], "k": TOP_K,
+        "global_topk_launches": topk_launches,
+        "owners_bitwise": torch.equal(gown, uown),
+        "indices_bitwise": torch.equal(gidx, uidx),
+        "values_bitwise": torch.equal(gv, uv),
+        "values_max_abs_err": err, "values_err_over_tol": ratio,
+        "rows_equal": bool((gv == gv[0]).all() and (gown == gown[0]).all())}
+    out["instance_mesh"] = b_out
+    want_run = dict(zero, acquire_scores=2 * PAR_BF_STEPS,
+                    merge_rows=2 * PAR_BF_STEPS)
+    if run_launches != want_run or topk_launches != dict(zero,
+                                                         acquire_topk=2):
+        bad.append(f"(b) launches {run_launches} / {topk_launches}")
+    if not (b_out["owners_bitwise"] and b_out["indices_bitwise"]
+            and b_out["rows_equal"]):
+        bad.append(f"(b) global_topk differs from the unsharded route")
+    if not (b_out["values_bitwise"] or ratio <= 1.0):
+        bad.append(f"(b) global_topk values {ratio:.3g}x the sd tolerance")
+    # the run is bitwise where C's scores do not depend on the launch's
+    # rows; where they do, its scores are held to the sd tolerance above
+    if c_bitwise and run_diff:
+        bad.append(f"(b) the sharded run differs: {run_diff[:6]}")
+    if not c_bitwise:
+        _, r = tol_excess(split, full, SD_TOL, float(st_gp.y_std))
+        b_out["c_split_err_over_tol"] = r
+        if not r <= 1.0:
+            bad.append(f"(b) C's split scores {r:.3g}x the sd tolerance")
+
+    # (c) sharded GP scoring: 2 x 6040 rows, B once a shard
+    rows = 2 * xq.shape[0]
+    q2 = torch.cat([xq, xq.flip(0)]).contiguous()
+    m12 = make_mesh(1, 2, device=dev)
+    sharded_gp_score(m12, "eval", st_gp, q2, kind="ei", best_y=best,
+                     n_cont=nc, n_cat=ncat)       # warm
+    torch.cuda.synchronize()
+    native.reset_launches()
+    got = sharded_gp_score(m12, "eval", st_gp, q2, kind="ei", best_y=best,
+                           n_cont=nc, n_cat=ncat)
+    torch.cuda.synchronize()
+    c_launches = {k.name: k.launches for k in native.KERNELS}
+    mu1, sd1 = ps.gp_mean_var_scores(st_gp, q2, nc, ncat)
+    one = gp.ei_from_moments(mu1, sd1, torch.tensor(best, device=dev))
+    blocks = ps.prep_blocks(st_gp, q2, nc, ncat)
+    mun, qv = ps.mean_var_tile_plain(*blocks, ps.state_kinv(st_gp))
+    mup, sdp = ps.target_moments(mun, qv, st_gp.noise, st_gp.y_mean,
+                                 st_gp.y_std)
+    plain = gp.ei_from_moments(mup, sdp, torch.tensor(best, device=dev))
+    e_one, r_one = tol_excess(got, one, SD_TOL, float(st_gp.y_std))
+    e_plain, r_plain = tol_excess(got, plain, SD_TOL, float(st_gp.y_std))
+    shard_q = q2[:xq.shape[0]].contiguous()
+    sb = ps.prep_blocks(st_gp, shard_q, nc, ncat)
+    kinv = ps.state_kinv(st_gp)
+    b_ms = median_ms(lambda: ps.mean_var_tile_cuda(*sb, kinv))
+    entry_ms = median_ms(lambda: ps.gp_mean_var_scores(st_gp, shard_q, nc,
+                                                       ncat))
+    parts = [got[:xq.shape[0]].clone(), got[xq.shape[0]:].clone()]
+    gather_ms = median_ms(lambda: pmesh.gather_local(parts))
+    call_ms_all = call_ms(lambda: sharded_gp_score(
+        m12, "eval", st_gp, q2, kind="ei", best_y=best, n_cont=nc,
+        n_cat=ncat), reps=10, per_rep=2)
+    c_out = {"rows": rows, "shards": 2, "rows_per_shard": xq.shape[0],
+             "features": int(xq.shape[1]), "n_train": int(st_gp.x.shape[0]),
+             "launches": c_launches,
+             "bitwise_one_launch": torch.equal(got, one),
+             "one_launch_max_abs_err": e_one, "one_launch_err_over_tol": r_one,
+             "plain_max_abs_err": e_plain, "plain_err_over_tol": r_plain,
+             "b_ms_per_shard": b_ms, "entry_ms_per_shard": entry_ms,
+             "collective_ms": gather_ms,
+             "sharded_call_ms": call_ms_all,
+             "bound_ms_per_shard": gp_bound(xq.shape[0], int(
+                 st_gp.x.shape[0]), int(xq.shape[1]), True, 8)["bound_ms"]}
+    out["sharded_gp_score"] = c_out
+    if c_launches != dict(zero, gp_mean_var=2) or not (
+            r_one <= 1.0 and r_plain <= 1.0):
+        bad.append(f"(c) {c_out}")
+
+    # (d) a process group of two ranks on the one card (gloo), against a
+    # one-process local mesh of the same shape and seed, then one rank
+    # over NCCL
+    _, s21, wall, _ = sharded_run(eng, make_mesh(2, 1, device=dev), seed,
+                                  PAR_STEPS)
+    local = {"qor_bits": col_bits(s21.best.qor.cpu()).tolist(),
+             "u_bits": col_bits(s21.best.u.cpu()).reshape(-1).tolist()}
+    port = free_port()
+    procs = []
+    t0 = time.perf_counter()
+    for pid in range(2):
+        env = dict(os.environ, PYTHONPATH=str(ROOT),
+                   UT_COORDINATOR=f"localhost:{port}", UT_NUM_PROCESSES="2",
+                   UT_PROCESS_ID=str(pid))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank"],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    ranks = []
+    try:
+        for p in procs:
+            txt = p.communicate(timeout=300)[0]
+            if p.returncode != 0:
+                raise RuntimeError(f"mesh rank failed (rc={p.returncode}): "
+                                   f"{txt[-3000:]}")
+            ranks.append(json.loads([ln for ln in txt.splitlines()
+                                     if ln.startswith("{")][-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    group_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = initialize(None, 1, 0, backend="nccl", timeout=120)
+    nccl_init_s = time.perf_counter() - t0
+    try:
+        mesh_n = make_multihost_mesh(1, devices=[dev, dev])
+        # the communicator forms at the first collective: warm it
+        pmesh.all_gather(mesh_n, torch.zeros(1, device=dev))
+        pmesh.reset_staging()
+        _, sn, nccl_wall, nccl_launches = sharded_run(
+            eng, mesh_n, seed, PAR_STEPS)
+        nccl_staging = pmesh.staging()
+    finally:
+        shutdown()
+    nccl = {"qor_bits": col_bits(sn.best.qor.cpu()).tolist(),
+            "u_bits": col_bits(sn.best.u.cpu()).reshape(-1).tolist()}
+    d_out = {
+        "ranks": [{k: r[k] for k in ("rank", "backend",
+                                     "init_process_group_s", "mesh",
+                                     "replicas", "ms_per_step", "launches",
+                                     "staging")} for r in ranks],
+        "group_wall_s": group_s,
+        "ranks_agree": all(r["qor_bits"] == ranks[0]["qor_bits"]
+                           and r["u_bits"] == ranks[0]["u_bits"]
+                           for r in ranks),
+        "equal_local_mesh": ranks[0]["qor_bits"] == local["qor_bits"]
+        and ranks[0]["u_bits"] == local["u_bits"],
+        "local_ms_per_step": wall / PAR_STEPS * 1e3,
+        "nccl": {"backend": cfg["backend"], "launches": nccl_launches,
+                 "init_process_group_s": nccl_init_s,
+                 "staging": nccl_staging,
+                 "ms_per_step": nccl_wall / PAR_STEPS * 1e3,
+                 "equal_local_mesh": nccl == local}}
+    out["process_group"] = d_out
+    if not (d_out["ranks_agree"] and d_out["equal_local_mesh"]
+            and d_out["nccl"]["equal_local_mesh"]):
+        bad.append(f"(d) the group's bests differ: {d_out}")
+    if any(r["backend"] != "gloo" or r["launches"] != dict(
+            zero, merge_rows=PAR_STEPS) or not r["staging"]["to_host"]
+            for r in ranks):
+        bad.append(f"(d) ranks: {d_out['ranks']}")
+    if nccl_launches != dict(zero, merge_rows=2 * PAR_STEPS) \
+            or nccl_staging["to_host"]:
+        bad.append(f"(d) nccl: {d_out['nccl']}")
+    # the launches of the phase's main runs, for the kernels line
+    out["launches"] = {
+        k: a14["launches"][k] + a22["launches"][k] + run_launches[k]
+        + topk_launches[k] + c_launches[k]
+        + sum(r["launches"][k] for r in ranks) + nccl_launches[k]
+        for k in zero}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if bad:
+        raise AssertionError("parallel: " + "; ".join(bad))
+    return out
+
+
 # the short name of every kernel function of csrc/*.cu (with its template
 # arguments) within ptxas's mangled one
 PTXAS_KERNEL = re.compile(
@@ -4661,6 +5411,7 @@ PHASES = {
     "topk_batched": ("surrogate",), "tf32": ("surrogate",),
     "portfolio_flagship": ("surrogate",), "portfolio_batched": (),
     "driver": (), "surrogate_driver": (), "serve": (), "route": (),
+    "store": (), "parallel": ("surrogate",),
     "program": (), "obs": ("engine", "surrogate", "program"),
 }
 
@@ -4737,6 +5488,11 @@ def profile_paths(r: dict) -> None:
 
 # -- main --------------------------------------------------------------------------
 def main() -> int:
+    # the store and parallel phases' child processes
+    if "--store-child" in sys.argv:
+        return store_child_main(sys.argv[1:])
+    if "--mesh-rank" in sys.argv:
+        return mesh_rank_main()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile a few engine steps")
@@ -4830,6 +5586,10 @@ def main() -> int:
         r["serve"] = serve_phase(dev)
     if "route" in todo:
         r["route"] = route_phase(dev, r.get("serve"))
+    if "store" in todo:
+        r["store"] = store_phase(dev)
+    if "parallel" in todo:
+        r["parallel"] = parallel_phase(*r["surrogate"], dev)
     if "program" in todo:
         r["program"] = program_phase(dev)
     if "obs" in todo:
@@ -4860,6 +5620,8 @@ def main() -> int:
     topkb = r["topk_batched"]
     serve = r["serve"]["card"]
     route = r["route"]["sharded"]
+    store = r["store"]
+    par = r["parallel"]["launches"]
     entries = []
     for k in kernels:
         common = {"name": k.name, "route": "cuda",
@@ -4884,7 +5646,13 @@ def main() -> int:
                    # kernels' functions, of which none may appear)
                    "launches_route": (route["merge_launches"]
                                       if k.name == "merge_rows"
-                                      else route["gp_kernel_events"])}
+                                      else route["gp_kernel_events"]),
+                   # each store child's own (its wrapper's count, equal
+                   # to its traced merge kernels), summed over the six
+                   "launches_store": sum(
+                       c["merge_launches"] for c in store["children"].values())
+                   if k.name == "merge_rows" else 0,
+                   "launches_parallel": par[k.name]}
         if k.name == "merge_rows":
             entries.append(dict(
                 common, **batched, launches=engine["launches"][k.name],

@@ -133,10 +133,19 @@ def test_print_search_space_size_equals_the_reference(tmp_path, capsys):
     assert got[-len(want):] == want
 
 
-@pytest.mark.parametrize("sub", sorted(cli.REFUSED_SUBCOMMANDS))
+@pytest.mark.parametrize("sub", ["store"])
 def test_subcommands_are_refused(sub, capsys):
-    assert cli.main([sub, "--port", "0"]) == 2
-    assert "ROADMAP Queue 1 item" in capsys.readouterr().err
+    """No subcommand is refused any more: the last one, the store server
+    (item 7), dispatches to the port's module, whose parser's `--help`
+    names it and exits 0."""
+    assert cli.REFUSED_SUBCOMMANDS == {}
+    assert cli.SUBCOMMANDS[sub] == ("uptune_tpu_torch.store.server", "main")
+    with pytest.raises(SystemExit) as e:
+        cli.main([sub, "--help"])
+    assert e.value.code == 0
+    out, err = capsys.readouterr()
+    assert out.startswith(f"usage: ut-torch {sub}")
+    assert "ROADMAP Queue 1 item" not in err
 
 
 @pytest.mark.parametrize("sub,module", [
@@ -157,15 +166,14 @@ def test_subcommands_dispatch(sub, module, capsys):
 def test_top_and_hub_wait_for_the_serving_plane():
     """`top` and `hub` read and serve the serving plane's wire, and
     `route` is its router: they came with the rest of it (item 6b).
-    The port's subcommands are now the JAX package's, less the store
-    server (item 7), each at the same relative module path."""
+    With the store server (item 7) the port's subcommands are the JAX
+    package's, each at the same relative module path."""
     import uptune_tpu.cli as jcli
-    assert set(cli.SUBCOMMANDS) == set(jcli.SUBCOMMANDS) - {"store"}
+    assert set(cli.SUBCOMMANDS) == set(jcli.SUBCOMMANDS)
     for sub, (mod, attr) in cli.SUBCOMMANDS.items():
         assert (mod.replace("uptune_tpu_torch.", "uptune_tpu."), attr) \
             == jcli.SUBCOMMANDS[sub]
-    assert set(cli.REFUSED_SUBCOMMANDS) == {"store"}
-    assert cli.REFUSED_SUBCOMMANDS["store"].startswith("item 7")
+    assert cli.REFUSED_SUBCOMMANDS == {}
 
 
 def test_report_subcommand_renders_a_journal(tmp_path, capsys):
@@ -216,11 +224,27 @@ def test_observability_variables_are_taken(var, monkeypatch, capsys):
 
 
 def test_store_server_is_refused(tmp_path, capsys):
+    """`--store tcp://HOST:PORT` is no longer refused: it reaches the
+    controller, whose trials are recorded into the port's store server
+    (`ut-torch store`).  A malformed address or mode still exits 2."""
+    from uptune_tpu_torch.store.server import StoreServer
     prog = tmp_path / "prog.py"
     prog.write_text("print(1)\n")
-    assert cli.main([str(prog), "--store", "tcp://127.0.0.1:9"]) == 2
-    assert "item 7" in capsys.readouterr().err
     assert cli.main([str(prog), "--store", "sideways"]) == 2
+    assert cli.main([str(prog), "--store", "tcp://127.0.0.1:nan"]) == 2
+    assert "not a number" in capsys.readouterr().err
+    shutil.copy(ROSEN, tmp_path / "rosenbrock.py")
+    srv = StoreServer("127.0.0.1", 0, str(tmp_path / "srv")).start()
+    try:
+        rc = cli.main([str(tmp_path / "rosenbrock.py"), "--store",
+                       f"tcp://127.0.0.1:{srv.port}", "--device", "cpu",
+                       "--test-limit", "6", "-pf", "2"])
+        assert rc == 0
+        assert "refused" not in capsys.readouterr().err
+        with srv._lock:
+            assert srv.recorded >= 5 and srv.append_errors == 0
+    finally:
+        srv.stop()
 
 
 def test_no_card_without_device_cpu_fails(tmp_path, capsys):

@@ -115,9 +115,20 @@ def test_sibling_rows_are_fresh_across_packages(tmp_path):
 
 
 def test_open_store_refuses_a_store_server(tmp_path):
+    """A tcp:// base is no longer refused: it opens a `RemoteStore` on
+    the store server (item 7), a directory a `ResultStore`."""
+    from uptune_tpu_torch.store.remote import RemoteStore
+    from uptune_tpu_torch.store.server import StoreServer
     sig = TSpace(_specs(TP)).signature()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        open_store("tcp://127.0.0.1:9", sig, ["prog"])
+    srv = StoreServer("127.0.0.1", 0, str(tmp_path / "srv")).start()
+    try:
+        rt = open_store(f"tcp://127.0.0.1:{srv.port}", sig, ["prog"])
+        try:
+            assert isinstance(rt, RemoteStore) and rt.connected and bool(rt)
+        finally:
+            rt.close()
+    finally:
+        srv.stop()
     st = open_store(str(tmp_path / "s"), sig, ["prog"])
     assert isinstance(st, TStore) and bool(st)
     st.close()

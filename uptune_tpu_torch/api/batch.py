@@ -32,7 +32,7 @@ def tune_batch(space, objective, n_instances: int, steps: int,
                seed: int = 0, arms: Optional[Sequence] = None,
                sense: str = "min", exchange_every: int = 0,
                history_capacity: int = 1 << 13,
-               eval_fn: Optional[Callable] = None, state=None,
+               eval_fn: Optional[Callable] = None, mesh=None, state=None,
                engine=None, device: DeviceLike = "cuda"
                ) -> BatchTuneResult:
     """Run `n_instances` tunes of `space` for `steps` batched steps each.
@@ -42,7 +42,9 @@ def tune_batch(space, objective, n_instances: int, steps: int,
     `eval_fn(cands) -> [B]` replaces it with a CandBatch-level evaluator
     (for example `engine.surrogate_eval_fn`'s fused GP scoring).
     `exchange_every=k` copies the global best to every instance after
-    every k-th step.  Pass `state=prev.state, engine=prev.engine` to
+    every k-th step; `mesh` (`engine.make_instance_mesh`) splits the
+    instances into one block a shard, each scored in its own call.  Pass
+    `state=prev.state, engine=prev.engine` to
     continue a previous run; `prev.state` stays as it was, since no
     state is ever updated in place."""
     from ..engine import BatchedEngine, FusedEngine
@@ -52,7 +54,8 @@ def tune_batch(space, objective, n_instances: int, steps: int,
         eng = FusedEngine(space, objective, arms=arms,
                           history_capacity=history_capacity, sense=sense,
                           device=device)
-        be = BatchedEngine(eng, n_instances, exchange_every=exchange_every)
+        be = BatchedEngine(eng, n_instances, exchange_every=exchange_every,
+                           mesh=mesh)
     elif be.n_instances != n_instances:
         raise ValueError(
             f"engine has {be.n_instances} instances, got "

@@ -20,11 +20,13 @@ from these:
   UT_DEVICE_TRACE capture a torch.profiler Chrome trace
   (DIR/device_trace.json) instead of an XPlane dump; ``ut-torch report``
   renders a journal (`obs/report.py`);
-* the subcommands ``serve``, ``route``, ``top``, ``hub`` and ``report``
-  are the port's (``serve`` and ``route`` take ``--device`` too);
-* UT_TRACE_GUARD set to anything but off, the subcommand store, and a
-  ``tcp://`` store exit with code 2, naming the reason or the ROADMAP
-  item that brings them;
+* the subcommands ``serve``, ``route``, ``top``, ``hub``, ``report``
+  and ``store`` are the port's (``serve`` and ``route`` take
+  ``--device`` too; ``store`` is host Python and needs no card);
+  ``--store tcp://HOST:PORT`` joins a ``ut-torch store`` (or a JAX
+  package ``ut store``) server;
+* UT_TRACE_GUARD set to anything but off exits with code 2, naming the
+  reason;
 * ``--compile-cache-dir`` is accepted and has no effect.
 
 Mode selection is automatic (async_task_scheduler.py:465-474): template
@@ -38,7 +40,7 @@ import json
 import logging
 import os
 import sys
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -149,8 +151,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--store", default=None, metavar="MODE|ADDR",
                    help="'on'/'off' forces the results store regardless "
                         "of --store-dir ('off' wins over any "
-                        "directory); a tcp://HOST:PORT store server is "
-                        "not ported yet (exits with code 2)")
+                        "directory); tcp://HOST:PORT joins a `ut-torch "
+                        "store` cooperative store server instead of a "
+                        "directory (shared results table, new-best "
+                        "exchange and federated surrogate rows across "
+                        "processes)")
     p.add_argument("--federate", choices=("on", "off"), default=None,
                    help="feed sibling instances' (config, qor) rows "
                         "into the local surrogate at exchange time "
@@ -194,7 +199,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "replica (multi-start: seeds diverge, replica "
                         "i>0 writes ut.archive.hi.jsonl / best.hi.json; "
                         "the launcher promotes the best replica to "
-                        "best.json at the end)")
+                        "best.json at the end). The UT_COORDINATOR / "
+                        "UT_NUM_PROCESSES / UT_PROCESS_ID env is also "
+                        "wired, so library-mode programs can call "
+                        "uptune_tpu_torch.parallel.initialize() for the "
+                        "torch.distributed sharded-engine plane")
     p.add_argument("--trace", default=None, metavar="OUT.json",
                    help="observability plane (docs/OBSERVABILITY.md): "
                         "record cross-plane spans (ticket lifecycle, "
@@ -253,18 +262,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 # The JAX package's `ut <name>` subcommands: the port's (module, entry)
-# for each one ported; the rest are refused with the ROADMAP item
-# (Queue 1) that brings them.
+# for each, at the same relative module path.  REFUSED_SUBCOMMANDS names
+# any not ported yet with the ROADMAP item (Queue 1) that brings it:
+# none is left.
 SUBCOMMANDS = {
     "serve": ("uptune_tpu_torch.serve.cli", "main"),
     "route": ("uptune_tpu_torch.serve.router", "main"),
     "top": ("uptune_tpu_torch.obs.top", "main"),
     "report": ("uptune_tpu_torch.obs.report", "main"),
     "hub": ("uptune_tpu_torch.obs.hub", "main"),
+    "store": ("uptune_tpu_torch.store.server", "main"),
 }
-REFUSED_SUBCOMMANDS = {
-    "store": "item 7 (the store server)",
-}
+REFUSED_SUBCOMMANDS: Dict[str, str] = {}
 # observability variables the port refuses when set to anything but off,
 # with the reason
 OBS_ENV = ("UT_TRACE_GUARD",)
@@ -551,7 +560,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         import importlib
         mod_name, attr = SUBCOMMANDS[raw[0]]
         return getattr(importlib.import_module(mod_name), attr)(raw[1:])
-    if raw and raw[0] in REFUSED_SUBCOMMANDS:
+    if raw and raw[0] in REFUSED_SUBCOMMANDS:  # none left (see above)
         print(f"ut-torch: the {raw[0]!r} subcommand is not ported yet "
               f"(ROADMAP Queue 1 {REFUSED_SUBCOMMANDS[raw[0]]})",
               file=sys.stderr)
@@ -598,14 +607,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         return res["returncode"]
 
     if args.store is not None and args.store not in ("on", "off"):
-        if args.store.startswith("tcp://"):
-            print(f"ut-torch: --store {args.store}: the store server is "
-                  f"not ported yet (ROADMAP Queue 1 item 7)",
-                  file=sys.stderr)
-        else:
+        if not args.store.startswith("tcp://"):
             print(f"ut-torch: --store must be on, off or tcp://HOST:PORT, "
                   f"got {args.store!r}", file=sys.stderr)
-        return 2
+            return 2
+        from .store.remote import parse_addr
+        try:
+            parse_addr(args.store)
+        except ValueError as e:
+            print(f"ut-torch: --store: {e}", file=sys.stderr)
+            return 2
     if not (args.print_params or args.print_search_space_size):
         # the tune runs on the card unless --device cpu: fail before the
         # analysis run on a host without one
@@ -700,6 +711,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         if cfg_dir is None or (isinstance(cfg_dir, str)
                                and cfg_dir.lower() in ("off", "none")):
             store_dir = "default"   # ut.temp/store under the work dir
+    elif args.store is not None and args.store != "on":
+        # tcp://HOST:PORT (checked above) joins a cooperative store
+        # server; the addr IS the store base (wins over any directory —
+        # a process cannot be in two stores)
+        store_dir = args.store
     pt = ProgramTuner(
         [sys.executable, script] + args.script_args, work_dir,
         parallel=args.parallel_factor, test_limit=args.test_limit,

@@ -24,8 +24,20 @@ The JAX package gates eviction at the batch level (`evict_pred`, one
 unbatched predicate, so that the evict branch of its `lax.cond` does not
 run for every instance).  The port's history evicts on every insert,
 which is the identity at zero overflow (`History._evict`), so there is
-nothing to gate.  The mesh route (`mesh=`, `make_instance_mesh`) is not
-ported yet (ROADMAP Queue 1 item 9).
+nothing to gate.
+
+The mesh route (`mesh=`, a one-axis ('idev',) mesh from
+`make_instance_mesh`) splits the instance axis into one contiguous
+block of instances a shard.  A step runs every shard's vmapped propose,
+ONE evaluation of the shard's flat batch (launcher C once a shard when
+the eval_fn is the fused acquisition) and its vmapped `commit_head`
+(the merge once a shard), then the exchange over every instance of
+every shard (the shards' bests stacked on the first shard's device,
+`parallel/mesh.py`'s collective over a local axis), then every shard's
+`commit_tail`.  The shards run one after another on the engine's
+device; on one card the mesh lists ``cuda:0`` once a shard.  A sharded
+run equals the unsharded run of the same seed bitwise wherever the
+evaluation of a row does not depend on the rows evaluated beside it.
 
 The slot primitives are the serving plane's seam (`serve/group.py`): a
 session server multiplexes ask/tell tenants onto ONE stacked state, one
@@ -54,11 +66,30 @@ import numpy as np
 import torch
 
 from .. import obs, rng
+from ..device import DeviceLike, resolve_device
 from ..ops import acquire
+from ..parallel.mesh import (Mesh, canonical, gather_local, stack_trees,
+                             unstack_tree)
 from ..space.spec import CandBatch
 from ..surrogate import gp
 from ..techniques.base import Best
 from .fused import EngineState, FusedEngine
+
+# the instance mesh's one axis (the JAX package's shard_map axis name)
+MESH_AXIS = "idev"
+
+
+def make_instance_mesh(n_devices: Optional[int] = None, devices=None,
+                       device: DeviceLike = "cuda"):
+    """1-D ('idev',) mesh of one process: `devices`, or `device` listed
+    `n_devices` times (default once) — on one card every shard is
+    ``cuda:0``."""
+    if devices is None:
+        devices = [resolve_device(device)] * (n_devices or 1)
+    devices = list(devices)
+    if n_devices is not None:
+        devices = devices[:n_devices]
+    return Mesh(np.array(devices, dtype=object), (MESH_AXIS,))
 
 
 def exchange_best(best: Best, dim: int = 0) -> Best:
@@ -102,15 +133,35 @@ class BatchedEngine:
     independent searches of one space in one program (see the module
     docstring); `exchange_every=k` copies the global best to every
     instance after every k-th step of a run, which turns multi-start
-    into a cooperative portfolio."""
+    into a cooperative portfolio; `mesh` (a ('idev',) mesh from
+    `make_instance_mesh`) splits the instances into one block a shard
+    (see the module docstring)."""
 
     def __init__(self, engine: FusedEngine, n_instances: int,
-                 exchange_every: int = 0):
+                 exchange_every: int = 0, mesh=None):
         if n_instances < 1:
             raise ValueError(f"n_instances must be >= 1: {n_instances}")
         self.engine = engine
         self.n_instances = int(n_instances)
         self.exchange_every = int(exchange_every)
+        self.mesh = mesh
+        self.n_shards = 1
+        if mesh is not None:
+            self.n_shards = n_dev = mesh.shape[MESH_AXIS]
+            if self.n_instances % n_dev:
+                raise ValueError(
+                    f"n_instances {n_instances} not divisible by "
+                    f"mesh axis size {n_dev}")
+            if mesh.group is not None:
+                raise ValueError("an instance mesh is one process's "
+                                 "(make_instance_mesh)")
+            on = {canonical(d) for d in mesh.devices.flat}
+            if on != {canonical(engine.device)}:
+                raise ValueError(
+                    f"the instance mesh's shards run on the engine's "
+                    f"device {engine.device}, not on "
+                    f"{sorted(str(d) for d in on)}")
+        self.n_local = self.n_instances // self.n_shards
 
     # -- state management ---------------------------------------------------
     def instance_seeds(self, seed: int) -> torch.Tensor:
@@ -139,33 +190,63 @@ class BatchedEngine:
         `commit_tail` under vmap.  `raw` is [n, B]; `draws` (stacked per
         arm, as `draw_observe` makes them for one instance) default to
         those of each instance's key."""
-        eng = self.engine
+        head = self._head(state, tstates, cands, raw)
+        if exchange:
+            head = head._replace(best=exchange_best(head.best))
+        return self._tail(state, tstates, cands, head, keys, draws)
+
+    def _head(self, state, tstates, cands, raw):
         with _no_vmap_fallback():
-            head = torch.func.vmap(eng.commit_head)(state, tstates, cands,
-                                                    raw)
-            if exchange:
-                head = head._replace(best=exchange_best(head.best))
-            # None (no draws, or an arm's without observe draws) is
-            # passed as it is
-            return torch.func.vmap(eng.commit_tail, in_dims=(
+            return torch.func.vmap(self.engine.commit_head)(
+                state, tstates, cands, raw)
+
+    def _tail(self, state, tstates, cands, head, keys, draws=None):
+        # None (no draws, or an arm's without observe draws) is passed
+        # as it is
+        with _no_vmap_fallback():
+            return torch.func.vmap(self.engine.commit_tail, in_dims=(
                 0, 0, 0, 0, 0, _map(lambda t: 0, draws)))(
                 state, tstates, cands, head, keys, draws)
 
-    def _step(self, state: EngineState, t: int,
-              eval_fn: Optional[Callable] = None) -> EngineState:
-        """propose (vmapped) -> score (ONE flat call) -> commit (vmapped,
-        exchanging after every exchange_every-th step)."""
-        with _no_vmap_fallback():
-            tstates, cands, keys = torch.func.vmap(self.engine.propose)(
-                state)
-        n, b = cands.u.shape[0], cands.u.shape[1]
-        flat = CandBatch(cands.u.reshape(n * b, -1),
-                         tuple(p.reshape(n * b, p.shape[-1])
-                               for p in cands.perms))
-        raw = (eval_fn or self.engine.evaluate)(flat).reshape(n, b)
+    def _split(self, tree) -> list:
+        """The mesh's shards of a stacked tree: one block of n_local
+        instances a shard (the whole tree unsharded)."""
+        if self.mesh is None:
+            return [tree]
+        return unstack_tree(tree, self.n_shards, self.n_local)
+
+    def _join(self, shards: list):
+        """The shards' trees stacked on the first shard's device (the
+        collective over the instance mesh's local axis)."""
+        if len(shards) == 1:
+            return shards[0]
+        return stack_trees(shards, cat=True)
+
+    def _step(self, shards: list, t: int,
+              eval_fn: Optional[Callable] = None) -> list:
+        """Every shard's propose (vmapped) -> score (ONE flat call a
+        shard) -> commit_head (vmapped), the exchange across every
+        instance after every exchange_every-th step, then every shard's
+        commit_tail (vmapped)."""
+        props, heads = [], []
+        for s in shards:
+            with _no_vmap_fallback():
+                tstates, cands, keys = torch.func.vmap(self.engine.propose)(
+                    s)
+            n, b = cands.u.shape[0], cands.u.shape[1]
+            flat = CandBatch(cands.u.reshape(n * b, -1),
+                             tuple(p.reshape(n * b, p.shape[-1])
+                                   for p in cands.perms))
+            raw = (eval_fn or self.engine.evaluate)(flat).reshape(n, b)
+            props.append((tstates, cands, keys))
+            heads.append(self._head(s, tstates, cands, raw))
         k = self.exchange_every
-        return self.commit(state, tstates, cands, raw, keys,
-                           exchange=k > 0 and (t + 1) % k == 0)
+        if k > 0 and (t + 1) % k == 0:
+            best = exchange_best(self._join([h.best for h in heads]))
+            heads = [h._replace(best=bs)
+                     for h, bs in zip(heads, self._split(best))]
+        return [self._tail(s, ts, c, h, kk)
+                for s, (ts, c, kk), h in zip(shards, props, heads)]
 
     def run(self, state: EngineState, n_steps: int,
             eval_fn: Optional[Callable] = None) -> EngineState:
@@ -176,18 +257,22 @@ class BatchedEngine:
 
     def _run_steps(self, state: EngineState, n_steps: int,
                    eval_fn: Optional[Callable]) -> EngineState:
+        shards = self._split(state)
         for t in range(n_steps):
-            state = self._step(state, t, eval_fn)
-        return state
+            shards = self._step(shards, t, eval_fn)
+        return self._join(shards)
 
     def run_traced(self, state: EngineState, n_steps: int
                    ) -> Tuple[EngineState, torch.Tensor]:
         """Like run() but also returns the per-instance best-so-far trace
-        [n_steps, n_instances] in the user's orientation."""
+        [n_steps, n_instances] in the user's orientation.  Unsharded
+        only, as in the JAX package."""
+        if self.mesh is not None:
+            raise ValueError("run_traced is unsharded-only")
         sign = self.engine.sign
         trace = []
         for t in range(n_steps):
-            state = self._step(state, t)
+            state, = self._step([state], t)
             trace.append(sign * state.best.qor)
         return state, torch.stack(trace)
 
@@ -208,6 +293,7 @@ class BatchedEngine:
         stacked CandBatch [n, B, ...], stacked keys).  A pure read of the
         state: one epoch can be re-derived, identically, for any slot
         that has not moved since."""
+        self._unsharded()
         return _propose_all_obs(self, state)
 
     def _propose_all(self, state):
@@ -222,6 +308,7 @@ class BatchedEngine:
         a leave (the departed tenant's rows are overwritten).  The row is
         `FusedEngine.init(seed)`, so it depends on the seed alone, never
         on the slot's position; `draws` (per arm) as for `init`."""
+        self._unsharded()
         return _init_slot_obs(self, state, i, seed, draws)
 
     def _init_slot(self, state, i, seed, draws):
@@ -238,6 +325,7 @@ class BatchedEngine:
         i changes.  No exchange: server sessions are independent tenants,
         coupled only through the shared results store.  `draws` (per arm,
         for observe) default to those of slot i's key."""
+        self._unsharded()
         return _commit_slot_obs(self, state, tstates, cands, keys, raw, i,
                                 draws)
 
@@ -249,32 +337,49 @@ class BatchedEngine:
         _write_row(state, i, new_i)
         return state
 
+    def _unsharded(self) -> None:
+        if self.mesh is not None:
+            # a sharded group would put every tenant's ask on every
+            # shard; the serving plane scales by more groups instead
+            raise ValueError("slot primitives are unsharded-only")
+
     def propose_topk(self, state: EngineState, k: int, acq, aux=None):
         """One proposal epoch and each slot's fused top k by acquisition
         -> (tstates, cands, keys, vals [n, k], idx [n, k]).  `acq` is a
         `StatefulEval` with a `.topk` (`surrogate_eval_fn(...,
         impl="fused")`); `aux` defaults to its published snapshot.  On
-        the card the n slots rank in one launch of D."""
+        the card the instances rank in one launch of D (one a shard
+        under a mesh, the shards' outputs stacked after)."""
         if acq.topk is None:
             raise ValueError("acq has no topk (need impl='fused')")
-        return _propose_topk_obs(self, state, k, acq,
-                                 acq.aux if aux is None else aux)
+        return self._join(_propose_topk_obs(
+            self, state, k, acq, acq.aux if aux is None else aux))
 
-    def _propose_topk(self, state, k, acq, aux):
-        with _no_vmap_fallback():
-            tstates, cands, keys = torch.func.vmap(self.engine.propose)(
-                state)
-            vals, idx = torch.func.vmap(lambda c: acq.topk(c, aux, k))(cands)
-        return tstates, cands, keys, vals, idx
+    def _propose_topk(self, state, k, acq, aux) -> list:
+        out = []
+        for s in self._split(state):
+            with _no_vmap_fallback():
+                tstates, cands, keys = torch.func.vmap(
+                    self.engine.propose)(s)
+                vals, idx = torch.func.vmap(
+                    lambda c: acq.topk(c, aux, k))(cands)
+            out.append((tstates, cands, keys, vals, idx))
+        return out
 
     def global_topk(self, state: EngineState, k: int, acq, aux=None):
-        """One proposal epoch, each slot's fused top k, then the
+        """One proposal epoch, each instance's fused top k, then the
         portfolio-wide top k of the [n * B] pool (`exchange_topk`) ->
         (vals, owner, idx), each [n, k] with identical rows: `owner` is
-        the instance that proposed each winner, `idx` its row there."""
+        the instance that proposed each winner, `idx` its row there.
+        Under a mesh each shard ranks its instances (D once a shard) and
+        the collective stacks the shards' top-k lists on the first
+        shard's device before the exchange."""
         if acq.topk is None:
             raise ValueError("acq has no topk (need impl='fused')")
-        _, _, _, vals, idx = self.propose_topk(state, k, acq, aux)
+        shards = _propose_topk_obs(self, state, k, acq,
+                                   acq.aux if aux is None else aux)
+        vals = gather_local([sh[3] for sh in shards])
+        idx = gather_local([sh[4] for sh in shards])
         n = self.n_instances
         return tuple(x.expand(n, k)
                      for x in _global_topk_obs(vals, idx, k))
@@ -308,9 +413,9 @@ def exchange_topk(vals: torch.Tensor, idx: torch.Tensor, k: int
     instance's batch), pooled in (instance, local rank) order, the k
     largest kept, ties to the lowest flat index (the JAX package's
     `lax.top_k` over the flattened pool) -> (vals [k], owner [k] int32,
-    idx [k] int32).  One process holds every instance, so this is plain
-    torch with no collective (the mesh route, like `BatchedEngine`'s, is
-    ROADMAP Queue 1 item 9)."""
+    idx [k] int32).  `vals` / `idx` hold every instance's list: under an
+    instance mesh `BatchedEngine.global_topk` gathers the shards' lists
+    first, and every instance reads the same winners."""
     v, pos = acquire.select_topk(vals.reshape(-1), k)
     pos = pos.long()
     return (v, torch.div(pos, k, rounding_mode="floor").to(torch.int32),

@@ -207,7 +207,8 @@ class ProgramTuner:
         # the recorded QoR through tell() without launching anything;
         # results land back in it as they are measured, and concurrent
         # instances sharing one directory — or one tcp:// store server
-        # (the JAX package's server; not ported yet) — exchange them.
+        # (`ut-torch store`, or the JAX package's `ut store`) — exchange
+        # them.
         # None resolves to <work_dir>/ut.temp/store; the literal 'off'
         # disables.
         self.store_dir = (store_dir if store_dir is not None
@@ -371,7 +372,7 @@ class ProgramTuner:
         """Open the results store for this (space, command, stage)
         scope, or return None when disabled ('off').  A ``tcp://``
         base names a cooperative store server
-        (the JAX package's; not ported yet, so it raises); anything
+        (`ut-torch store`, a `RemoteStore`); anything
         else a filesystem `ResultStore`."""
         base = self.store_dir
         if isinstance(base, str) and base.lower() in ("off", "none"):

@@ -256,8 +256,7 @@ def render(prev: Optional[Sample], cur: Sample, source: str,
             _fmt(r.get("pool.launched")),
             _fmt(_hist_p(h, "pool.build_s", "p95"), nd=2)),
         # recorded/acked-appends light up against a store-server
-        # scrape (`ut top --addr` on a JAX package `ut store`
-        # process; the port's store server is not ported yet)
+        # scrape (`ut-torch top --addr` on a `ut-torch store` process)
         "store     hits {}   misses {}   hit-rate {}   recorded {}   "
         "acked-appends {}   serve p95 {} ms".format(
             _fmt(hits, nd=0), _fmt(misses, nd=0),

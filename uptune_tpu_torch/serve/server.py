@@ -111,11 +111,10 @@ class SessionServer(WireServer):
         self.work_dir = os.path.abspath(work_dir or os.getcwd())
         if sd is None:
             sd = os.path.join(self.work_dir, "ut.serve", "store")
-        # a tcp:// base names a cooperative store server, which the
-        # port does not have yet (open_store refuses it, naming the item)
-        if is_remote_addr(sd):
-            open_store(sd, (), [])
+        # a tcp:// base joins a cooperative store server
+        # (`ut-torch store`) — an address, not a path
         self.store_dir = (None if str(sd).lower() in ("off", "none")
+                          else str(sd) if is_remote_addr(sd)
                           else os.path.abspath(str(sd)))
         # self._lock (WireServer) guards the registries below too
         self._groups: Dict[Tuple, List[SessionGroup]] = {}
@@ -146,7 +145,11 @@ class SessionServer(WireServer):
         self.recovered = 0
         self.recovery_s = 0.0
         if dv is not None:
-            cdir = (default_checkpoint_dir(self.store_dir, self.work_dir)
+            # a remote store base is no place for checkpoint files —
+            # 'on' falls back to the work-dir default then
+            local_sd = (None if is_remote_addr(self.store_dir)
+                        else self.store_dir)
+            cdir = (default_checkpoint_dir(local_sd, self.work_dir)
                     if str(dv).lower() in ("on", "true", "1")
                     else os.path.abspath(str(dv)))
             self.ckpt = CheckpointLog(

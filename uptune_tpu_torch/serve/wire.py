@@ -3,8 +3,8 @@ every wire-speaking plane.
 
 Counterpart of `uptune_tpu/serve/wire.py`, frame for frame: the session
 server, the fleet-telemetry hub (obs/hub.py), the sharded front-tier
-router (serve/router.py) and, in the JAX package, the remote
-ResultStore server (not ported yet) all speak the same protocol: one
+router (serve/router.py) and the remote
+ResultStore server (store/server.py) all speak the same protocol: one
 JSON object per
 line, each carrying an ``op`` field, answered by one JSON object per
 line.  This module owns the generic half so each service only writes

@@ -1,10 +1,11 @@
-"""Content-addressed trial results store (store.py) and its key
-derivation (keys.py): cache hits instead of repeated external builds,
-cross-tune warm starts, and multi-instance best-exchange over one shared
-directory.  The rows and keys are the JAX package's, so a store written
-by either package is read by the other.  The networked store (a
-``tcp://`` base: the JAX package's `store/server.py` and `remote.py`)
-is not ported yet (ROADMAP Queue 1 item 7)."""
+"""Content-addressed trial results store (store.py), its key
+derivation (keys.py), and the networked cooperative-store plane
+(server.py + remote.py): cache hits instead of repeated external
+builds, cross-tune warm starts, and multi-instance best-exchange over
+one shared directory OR one shared TCP store server (`ut-torch store`).
+The rows, keys and wire ops are the JAX package's, so a store written
+by either package is read by the other, and either package's
+`RemoteStore` joins either package's server."""
 from .keys import (canon_config, eval_signature, scope_id,  # noqa: F401
                    trial_key)
 from .store import ResultStore  # noqa: F401
@@ -21,13 +22,11 @@ def is_remote_addr(base) -> bool:
 
 def open_store(base, space_sig, command, **kw):
     """The one store factory every plug-in site routes through: a
-    filesystem `ResultStore` on the directory `base`.  A ``tcp://HOST:PORT``
-    base raises: the cooperative store server is ROADMAP Queue 1 item 7.
-    Keyword arguments are the shared constructor surface
+    ``tcp://HOST:PORT`` base opens a `RemoteStore` on the cooperative
+    store server, anything else a filesystem `ResultStore` on that
+    directory.  Keyword arguments are the shared constructor surface
     (stage/extra_files/env/refresh_interval/fsync)."""
     if is_remote_addr(base):
-        raise NotImplementedError(
-            f"store {base!r}: a tcp:// store server is not ported yet "
-            f"(ROADMAP Queue 1 item 7, store/remote.py and server.py); "
-            f"pass a directory")
+        from .remote import RemoteStore   # lazy: keeps dir-store imports lean
+        return RemoteStore(base, space_sig, command, **kw)
     return ResultStore(base, space_sig, command, **kw)
