@@ -17,6 +17,8 @@ toolkit:
     python3 chip_smoke.py --phases store,parallel
                                        # the cooperative store and the
                                        # mesh plane alone
+    python3 chip_smoke.py --phases notears,quickest
+                                       # the tooling plane alone
 
 It imports nothing of JAX or of the JAX package.  TF32 is switched off
 for matrix products (the GP's distances and Cholesky are f32) and the
@@ -186,7 +188,7 @@ setting is printed.  Phases, each printing one JSON line:
              card at every published snapshot a pull ranked against,
              buckets and extension-grown states, and timed at each bucket
              N beside its bound and `acquire_topk_ref`); the MLP ensemble
-             (1000 evaluations; one fit on the card against the CPU's);
+             (500 evaluations; one fit on the card against the CPU's);
              and one GP refit on the card against the CPU's;
 15a. topk_batched - launcher D over an instance axis (N segments of B
              rows against one GP in one launch, each with its own top
@@ -264,9 +266,11 @@ setting is printed.  Phases, each printing one JSON line:
              3 independent matched-seed children, each set at once; evals
              to the target coop against independent (printed, not
              gated), exchanges and federated rows, each child's cold
-             start, commits, merge launches (its wrapper's count and its
-             own UT_DEVICE_TRACE=DIR/<tag>'s kernels: both its commits, no
-             other kernel of the port), and each child's online quality
+             start, commits, merge launches (its wrapper's count, its
+             commits; in the cooperating fleet also its own
+             UT_DEVICE_TRACE=DIR/<tag>'s kernels: its commits, no other
+             kernel of the port; the independent fleet goes untraced for
+             the time limit), and each child's online quality
              gauges equal to an offline replay of its journal; then the
              kill: a server armed with `rstore.append=crash@25` under 3
              writing `RemoteStore`s dies with rc 137, every acked row is
@@ -304,7 +308,7 @@ setting is printed.  Phases, each printing one JSON line:
              printed line; `--resume --test-limit 125` builds no archived
              configuration again; the same tune with `--device cpu` (the
              three CLI runs cut from 200 and 250 trials for the time
-             limit); the ProgramTuner in process at -pf 4, 200 trials
+             limit); the ProgramTuner in process at -pf 4, 100 trials
              (counts set to 0 just
              before and read just after: one merge launch a committing
              ticket, nothing else; host syncs a ticket by line; median
@@ -319,7 +323,12 @@ setting is printed.  Phases, each printing one JSON line:
              CLI's main with `--learning-models gp -pf 4 --test-limit
              24 --runtime-limit 120`: a finite best beside the default
              -O2's, the width, builds, refits, no launch of D (a
-             512-row pool) and the merge's launches;
+             512-row pool) and the merge's launches; then the C++ header
+             client's demo (cpp/demo, built with g++) tuned by the
+             ProgramTuner for 30 trials at -pf 2: its four parameters
+             discovered, the default cost 7.4, a best no worse, the
+             merge launched, and the best applied back through the
+             client's BEST mode;
 17. obs    - the observability plane on the card: the program phase's
              traced run; ms a ticket of the driver phase's Tuner with
              obs off and with trace + journal on, in turns (the ratio
@@ -329,6 +338,34 @@ setting is printed.  Phases, each printing one JSON line:
              H100 peaks of `obs.device.PEAKS`; and the size of a
              `--device-trace` capture of three such steps, which must
              hold CUDA kernels and the host spans' ranges;
+    notears - NOTEARS on the card (`plugins/notears.py`, eager
+             projected-Adam steps through `torch.linalg.matrix_exp`):
+             test_notears.py's medium graphs (d 10, 12 edges, n 1500,
+             seeds 1-3, drawn on the CPU by the port's `simulate_dag`):
+             median F1 at least 0.8, each support that of the port's
+             CPU run of the same data, and its refit weights bitwise
+             where the structure the refit ran on is the CPU's (within
+             0.25, the reference's magnitude bar, where a
+             near-threshold entry fell the other way; reported); its
+             covariate-graph construction (n 600: a drives the QoR, c
+             does not); a d 32 graph (48 edges, n 4000; F1 and the CPU
+             comparison printed); seconds,
+             subproblems and Adam steps a second, card and CPU (each
+             card run a process of its own, the five at once beside one
+             process of the CPU runs: `--notears-run DEVICE NAME...`);
+             no kernel of the port launched;
+    quickest - QuickEst on the card: `train` on 2000 rows of 256
+             features (a few drive each target, the rest noise) and four
+             targets with the default options into a model directory
+             (the lasso's and the MLP's seconds a target), `test` on 500
+             held-out rows (LUT_impl's R2 above 0.85), the directory
+             loaded on the CPU (the same `sel`, predictions within 1e-5
+             of each target's std) and LUT_impl's lasso again on the CPU
+             (the same `sel`, w within 1e-5 of its largest entry);
+    stats  - `python -m uptune_tpu_torch.utils.stats` (`ut-torch-stats`)
+             over the program phase's CLI archive: the report's
+             evaluations sum to the archive's rows, and `--csv` writes
+             one row for each trial that improved its technique's best;
 18. profile (with --profile) - device time by kernel, the idle share and
              the host synchronisations over a few plain, surrogate-scored
              (by launcher C, then by `score_flat` through A and through B),
@@ -440,8 +477,8 @@ ASK_TRIALS, COUNT_TICKETS = 256, 20
 # the MLP ensemble; the MLP's card-against-CPU tolerance in units of the
 # targets' std (tests/test_torch_mlp.py FIT_TOL_Y_STD)
 # (the calibrated runs' 2000 cut to 1000 for the time limit when the route
-# phase came in)
-SD_LIMIT, SD_POOL_LIMIT, SD_MLP_LIMIT = 1000, 1000, 1000
+# phase came in, the MLP run's 1000 to 500 when the tooling plane did)
+SD_LIMIT, SD_POOL_LIMIT, SD_MLP_LIMIT = 1000, 1000, 500
 SD_POOL = {"propose_batch": 32, "pool_mult": 128}
 MLP_TOL_Y_STD = 1e-4
 # 3xTF32 (hi hi + hi lo + lo hi) drops the lo lo product: a relative
@@ -486,8 +523,9 @@ WIDE_KEYS = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
              "max_err_over_tol")
 # program mode: the rosenbrock sample's trials through the CLI and in
 # process, the trials of its resume, of the lockstep runs, and of the
-# gcc-options tune (builds of ~3 s each)
-PROGRAM_LIMIT, PROGRAM_LOCKSTEP, GCC_LIMIT = 200, 60, 24
+# gcc-options tune (builds of ~3 s each); the in-process run cut from 200
+# to 100 trials for the time limit when the tooling plane came in
+PROGRAM_LIMIT, PROGRAM_LOCKSTEP, GCC_LIMIT = 100, 60, 24
 # the CLI runs (on the card, resumed, on the CPU), cut from 200 and 250
 # trials for the time limit when the route phase came in
 CLI_LIMIT, CLI_RESUME = 100, 125
@@ -3244,6 +3282,11 @@ def program_phase(dev) -> dict:
                          str(CLI_LIMIT), "--seed", "0"], d, bad, "cli")
         if first["returncode"] == 0:
             rows = read_archive(d / "ut.archive.jsonl")
+            # the stats phase reads this archive after the phase's files
+            # are gone
+            keep = Path(tempfile.mkdtemp(prefix="ut_stats_"))
+            shutil.copy(d / "ut.archive.jsonl", keep)
+            out["archive"] = str(keep / "ut.archive.jsonl")
             dq = json.load(open(d / "ut.default_qor.json"))["qor"]
             best = json.load(open(d / "best.json"))
             first.update(default_qor=dq, archive_rows=len(rows),
@@ -3403,12 +3446,60 @@ def program_phase(dev) -> dict:
                 and gcc["launches"]["merge_rows"] > 0
                 and gcc["features"] >= 1028):
             bad.append(f"gcc-options tune: {gcc}")
+
+        # (d) the C++ header client's demo (cpp/demo), built with g++,
+        # tuned by the ProgramTuner on the card; its best applied back
+        # through the client's BEST mode
+        out["cpp"] = cpp_demo_run(tmp / "cpp", dev, bad)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     if bad:
         raise AssertionError("program mode: " + "; ".join(bad))
+    return out
+
+
+def cpp_demo_run(work: Path, dev, bad: list) -> dict:
+    """cpp/demo/demo_tune.cc tuned for CPP_LIMIT trials (see
+    program_phase)."""
+    import os
+
+    from uptune_tpu_torch import native
+    from uptune_tpu_torch.exec import ProgramTuner
+    work.mkdir(parents=True)
+    demo = work / "demo_tune"
+    t0 = time.perf_counter()
+    subprocess.run(["g++", "-std=c++11", "-O2", "-Wall", "-Wextra", "-Werror",
+                    "-I", str(ROOT / "cpp" / "include"), "-o", str(demo),
+                    str(ROOT / "cpp" / "demo" / "demo_tune.cc")],
+                   check=True, capture_output=True, text=True, timeout=300)
+    out = {"build_seconds": time.perf_counter() - t0, "trials": CPP_LIMIT}
+    pt = ProgramTuner([str(demo)], str(work), parallel=2,
+                      test_limit=CPP_LIMIT, runtime_limit=60.0, seed=3,
+                      device=dev)
+    params = [r["name"] for r in pt.analyze()[0]]
+    native.reset_launches()
+    t0 = time.perf_counter()
+    res = pt.run()
+    out.update(params=params, default_qor=pt.default_qor, evals=res.evals,
+               best_qor=res.best_qor, best_config=res.best_config,
+               seconds=time.perf_counter() - t0,
+               launches={k.name: k.launches for k in native.KERNELS})
+    r = subprocess.run([str(demo)], capture_output=True, text=True,
+                       cwd=str(work), timeout=60,
+                       env=dict(os.environ, BEST="True",
+                                UT_WORK_DIR=str(work)))
+    applied = (int(r.stdout.split("block=")[1].split()[0])
+               if r.returncode == 0 and "block=" in r.stdout else None)
+    out["best_applied_block"] = applied
+    if not (params == ["block", "alpha", "unroll", "opt"]
+            and abs(pt.default_qor - 7.4) < 1e-6
+            and res.evals >= CPP_LIMIT and res.best_qor <= 7.4
+            and applied == res.best_config["block"]
+            and out["launches"]["merge_rows"] > 0
+            and out["launches"]["acquire_topk"] == 0):
+        bad.append(f"C++ demo: {out}")
     return out
 
 
@@ -4771,8 +4862,9 @@ def store_child_main(argv) -> int:
 def store_phase(dev) -> dict:
     """The cooperative store on the card (see the module docstring):
     K cooperating children against K independent ones, each journal
-    replayed, each child's merge launches from its own device trace;
-    then the deterministic mid-append kill."""
+    replayed, each child's merge launches from its wrapper (and, in the
+    cooperating fleet, from its own device trace); then the
+    deterministic mid-append kill."""
     import os
     import shutil
     import subprocess
@@ -4824,9 +4916,12 @@ def store_phase(dev) -> dict:
             raise RuntimeError(f"store request {payload}: {resp}")
         return resp
 
-    def run_fleet(label, addr):
-        # the K children at once, each in its own CUDA context and traced
-        # into its own directory
+    def run_fleet(label, addr, traced):
+        # the K children at once, each in its own CUDA context and, in a
+        # traced fleet, traced into its own directory (the profiler's
+        # start takes ~8 s a child: the independent fleet goes untraced
+        # for the run's time limit, its merge launches held by the
+        # wrapper's count alone)
         children, outs = [], []
         for i, seed in enumerate(STORE_SEEDS):
             tag = f"{label}-{i}"
@@ -4836,7 +4931,8 @@ def store_phase(dev) -> dict:
                 [sys.executable, str(ROOT / "chip_smoke.py"), "--store-child",
                  "--addr", addr, "--seed", str(seed), "--journal",
                  str(jpath), "--tag", tag], cwd=str(work),
-                env=dict(env, UT_DEVICE_TRACE=str(work / "trace" / tag)),
+                env=dict(env, **({"UT_DEVICE_TRACE": str(
+                    work / "trace" / tag)} if traced else {})),
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             children.append((tag, jpath, t_spawn, ch))
         for tag, jpath, t_spawn, ch in children:
@@ -4852,8 +4948,10 @@ def store_phase(dev) -> dict:
             o = json.loads([ln for ln in txt.strip().splitlines()
                             if ln.startswith("{")][-1])
             o["cold_start_s"] = o["t_ready"] - t_spawn
-            o["trace"] = trace_kernels(work / "trace" / tag
-                                       / "device_trace.json")
+            o["traced"] = traced
+            o["trace"] = (trace_kernels(work / "trace" / tag
+                                        / "device_trace.json")
+                          if traced else None)
             outs.append((jpath, o))
         return outs
 
@@ -4864,14 +4962,14 @@ def store_phase(dev) -> dict:
         server, out["server_start_s"] = start_server(port, work / "store")
         t0 = time.perf_counter()
         try:
-            coop = run_fleet("coop", f"tcp://127.0.0.1:{port}")
+            coop = run_fleet("coop", f"tcp://127.0.0.1:{port}", True)
         finally:
             server.terminate()
             server.wait(timeout=30)
             server = None
         out["coop_fleet_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        indep = run_fleet("indep", "off")
+        indep = run_fleet("indep", "off", False)
         out["indep_fleet_s"] = time.perf_counter() - t0
 
         replay_exact = True
@@ -4899,8 +4997,8 @@ def store_phase(dev) -> dict:
                 "exchange_injected": o["exchange_injected"],
                 "federated": o["federated"], "journal_replay_exact": exact,
                 "store_hits": (o["store"] or {}).get("hits")}
-            if o["launches"] != want or merge_trace != o["commits"] \
-                    or others or not o["commits"]:
+            if o["launches"] != want or others or not o["commits"] \
+                    or (o["traced"] and merge_trace != o["commits"]):
                 bad.append(f"{o['tag']}: launches {o['launches']}, traced "
                            f"merge {merge_trace}, other kernels {others}, "
                            f"commits {o['commits']}")
@@ -5314,6 +5412,319 @@ def parallel_phase(cases, feats: tuple, dev) -> dict:
     return out
 
 
+# -- the tooling plane: NOTEARS, QuickEst, ut-torch-stats -----------------------
+# test_notears.py's medium graphs (d 10, 12 edges, n 1500) and one wider
+# graph, each drawn on the CPU from its seed by the port's simulate_dag,
+# and test_notears.py's covariate construction
+NOTEARS_CASES = (("d10_s1", 1, 10, 12, 1500), ("d10_s2", 2, 10, 12, 1500),
+                 ("d10_s3", 3, 10, 12, 1500), ("d32_s0", 0, 32, 48, 4000))
+NOTEARS_LAMBDA, NOTEARS_F1 = 0.05, 0.8
+# card against CPU: where the structure the refit ran on is the same, the
+# refit weights are bitwise the same (numpy on the same rows); where a
+# near-threshold entry of the iterate fell the other way, they are held
+# to the reference's own bar for refit magnitudes (tests/test_notears.py:
+# 56-57, 0.25 against the true weights)
+NOTEARS_REFIT_TOL = 0.25
+# QuickEst: rows, features, held-out rows; the card's predictions against
+# the CPU's of the same saved model, in units of each target's std
+QE_ROWS, QE_FEATURES, QE_TEST_ROWS = 2000, 256, 500
+QE_TARGETS = ("LUT_impl", "FF_impl", "DSP_impl", "BRAM_impl")
+QE_R2, QE_PRED_TOL_Y_STD, QE_LASSO_TOL = 0.85, 1e-5, 1e-5
+# the C++ header client's demo tuned in the program phase
+CPP_LIMIT = 30
+
+
+def notears_case(name: str, dev) -> dict:
+    """One NOTEARS run on `dev`: a graph of NOTEARS_CASES (its F1 against
+    the true graph, seconds, subproblems and Adam steps a second, the
+    learnt matrix and the structure its refit ran on) or "covariate"
+    (test_notears.py's construction: the QoR driven by a directly and by
+    b through a, c independent noise; the drivers found)."""
+    import numpy as np
+    from uptune_tpu_torch.plugins.notears import (covariate_graph, notears,
+                                                  simulate_dag)
+    t0 = time.perf_counter()
+    if name == "covariate":
+        rs = np.random.RandomState(0)
+        b = rs.randn(600)
+        a = 1.6 * b + 0.5 * rs.randn(600)
+        c = rs.randn(600)
+        q = 2.0 * a + 0.4 * rs.randn(600)
+        cov = covariate_graph([{"a": a[i], "b": b[i], "c": c[i]}
+                               for i in range(600)], q.tolist(),
+                              lambda1=NOTEARS_LAMBDA, device=dev)
+        return {"device": str(dev), "drivers": cov["drivers"],
+                "names": cov["names"], "seconds": time.perf_counter() - t0}
+    _, seed, d, edges, n = next(c for c in NOTEARS_CASES if c[0] == name)
+    w_true, x = simulate_dag(seed, d, edges, n, device="cpu")
+    info = {}
+    t0 = time.perf_counter()
+    w = notears(x, lambda1=NOTEARS_LAMBDA, device=dev, info=info)
+    dt = time.perf_counter() - t0
+    tp = float(((w_true != 0) & (w != 0)).sum())
+    fp = float(((w_true == 0) & (w != 0)).sum())
+    fn = float(((w_true != 0) & (w == 0)).sum())
+    return {"device": str(dev), "d": d, "edges": edges, "n": n,
+            "f1": 2 * tp / max(2 * tp + fp + fn, 1.0), "seconds": dt,
+            "subproblems": info["subproblems"],
+            "adam_steps": info["adam_steps"],
+            "adam_steps_per_s": info["adam_steps"] / dt,
+            "w": np.asarray(w).tolist(),
+            "support": info["support"].tolist()}
+
+
+def notears_child_main(argv) -> int:
+    """`chip_smoke.py --notears-run DEVICE NAME...`: runs of the notears
+    phase one after another in a process of its own (one torch thread),
+    with the kernel launches they made; prints one JSON line."""
+    from uptune_tpu_torch import native
+    i = argv.index("--notears-run")
+    torch.set_num_threads(1)
+    dev = torch.device(argv[i + 1])
+    native.reset_launches()
+    out = {"runs": {name: notears_case(name, dev) for name in argv[i + 2:]}}
+    out["launches"] = {k.name: k.launches for k in native.KERNELS}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def notears_phase(dev) -> dict:
+    """NOTEARS on the card: test_notears.py's medium graphs (median F1 at
+    least its 0.8; each graph's support that of the port's CPU run of
+    the same data, its refit weights bitwise where the structure the
+    refit ran on is the same and within NOTEARS_REFIT_TOL where it is
+    not), its covariate-graph construction (a drives the QoR, c does
+    not) and a d 32 graph (F1 and the CPU comparison printed).  An eager
+    Adam step is host-bound (~85 launches and one blocking read,
+    `matrix_exp`'s norm), so each card run is a process of its own, the
+    five at once, beside one process that runs the CPU references one
+    after another (`--notears-run DEVICE NAME...`): the wall is about
+    that of the slowest card run, each slowed by the others' CUDA
+    contexts sharing the card; threads of one process were slower still
+    (the interpreter lock); no kernel of the port is launched."""
+    import numpy as np
+    out = {"phase": "notears", "card": nvidia_smi()}
+    bad = []
+    t_phase = time.perf_counter()
+    names = [c[0] for c in NOTEARS_CASES]
+    groups = ([(str(dev), n) for n in names + ["covariate"]]
+              + [("cpu", *names)])
+    kids = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--notears-run",
+         *g], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for g in groups]
+    res, launches = {}, {}
+    try:
+        for g, p in zip(groups, kids):
+            so, se = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"notears runs {g}: {se[-1500:]}")
+            o = json.loads(so.strip().splitlines()[-1])
+            res.update({(n, g[0]): r for n, r in o["runs"].items()})
+            for k, v in o["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    finally:
+        for p in kids:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out["concurrent_processes"] = len(kids)
+    out["launches"] = launches
+    cov = out["covariate"] = res[("covariate", str(dev))]
+    graphs = {}
+    for name in names:
+        card_r, cpu_r = res[(name, str(dev))], res[(name, "cpu")]
+        wg, wc = np.asarray(card_r.pop("w")), np.asarray(cpu_r.pop("w"))
+        sg = np.asarray(card_r.pop("support"))
+        sc = np.asarray(cpu_r.pop("support"))
+        g = {"card": card_r, "cpu": cpu_r,
+             "support_equal": bool(((wg != 0) == (wc != 0)).all()),
+             "structure_equal": bool((sg == sc).all()),
+             "structure_differs_at": np.argwhere(sg != sc).tolist(),
+             "refit_max_abs_err": float(np.abs(wg - wc).max())}
+        graphs[name] = g
+        if name.startswith("d10") and not (
+                g["support_equal"]
+                and (np.array_equal(wg, wc) if g["structure_equal"]
+                     else g["refit_max_abs_err"] <= NOTEARS_REFIT_TOL)):
+            bad.append(f"{name}: the card's graph against the CPU's {g}")
+    out["graphs"] = graphs
+    f1s = [graphs[n]["card"]["f1"] for n in names if n.startswith("d10")]
+    out["median_f1_d10"] = float(np.median(f1s))
+    if out["median_f1_d10"] < NOTEARS_F1:
+        bad.append(f"median F1 {f1s} below {NOTEARS_F1}")
+    if "a" not in cov["drivers"] or "c" in cov["drivers"]:
+        bad.append(f"covariate drivers {cov['drivers']}")
+    if any(launches.values()):
+        bad.append(f"kernel launches {launches}")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if bad:
+        raise AssertionError("notears: " + "; ".join(bad))
+    return out
+
+
+def quickest_data(seed: int, n: int):
+    """QuickEst rows shaped like tests/test_quickest.py's: QE_FEATURES
+    uniform features of which a few drive each target (sums, products,
+    squares, a sine) and the rest are noise."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    x = rs.rand(n, QE_FEATURES).astype(np.float32)
+    y = np.stack([
+        3.0 * x[:, 0] + 2.0 * x[:, 1] * x[:, 2] - x[:, 3]
+        + 0.5 * np.sin(3 * x[:, 4]) + 0.05 * rs.randn(n),
+        1.5 * x[:, 5] + x[:, 6] ** 2 + 0.4 * x[:, 7] + 0.05 * rs.randn(n),
+        2.0 * x[:, 8] + x[:, 9] * x[:, 10] + 0.05 * rs.randn(n),
+        x[:, 11] + 0.5 * x[:, 12] ** 2 - 0.8 * x[:, 13]
+        + 0.05 * rs.randn(n)], 1)
+    return x, y.astype(np.float32)
+
+
+def quickest_phase(dev) -> dict:
+    """QuickEst on the card: `train` on QE_ROWS x QE_FEATURES rows and four
+    targets with the default options into a model directory, `test` on
+    held-out rows (LUT_impl's R2 above QE_R2), the directory loaded on the
+    CPU (the same `sel`, predictions within QE_PRED_TOL_Y_STD of each
+    target's std), and LUT_impl's lasso on the CPU from the same rows
+    (the same `sel`, w within QE_LASSO_TOL of its largest entry); the
+    seconds a target of the lasso and of the MLP fit."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from uptune_tpu_torch import native
+    from uptune_tpu_torch import quickest as qe
+    from uptune_tpu_torch.quickest import pipeline
+    from uptune_tpu_torch.surrogate import mlp
+    out = {"phase": "quickest", "card": nvidia_smi(), "rows": QE_ROWS,
+           "features": QE_FEATURES, "targets": list(QE_TARGETS)}
+    bad = []
+    t_phase = time.perf_counter()
+    x, y = quickest_data(SEED, QE_ROWS)
+    xt, yt = quickest_data(SEED + 1, QE_TEST_ROWS)
+    tmp = Path(tempfile.mkdtemp(prefix="ut_quickest_"))
+    times = {"lasso": [], "mlp": []}
+    lasso, mlp_fit = pipeline._lasso_fit, mlp.fit
+    lasso_rows = []
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(kind, fn):
+        def run(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            sync()
+            times[kind].append(time.perf_counter() - t0)
+            if kind == "lasso":
+                lasso_rows.append((a[0].cpu(), a[1].cpu(), a[2], r))
+            return r
+        return run
+    try:
+        pipeline._lasso_fit = timed("lasso", lasso)
+        mlp.fit = timed("mlp", mlp_fit)
+        native.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            est = qe.train(x, y, list(QE_TARGETS), save_dir=str(tmp / "db"),
+                           device=dev)
+        finally:
+            pipeline._lasso_fit, mlp.fit = lasso, mlp_fit
+        out["train_seconds"] = time.perf_counter() - t0
+        out["lasso_seconds"] = dict(zip(QE_TARGETS, times["lasso"]))
+        out["mlp_seconds"] = dict(zip(QE_TARGETS, times["mlp"]))
+        t0 = time.perf_counter()
+        out["test"] = qe.test(xt, yt, list(QE_TARGETS),
+                              model_dir=str(tmp / "db"), device=dev)
+        out["test_seconds"] = time.perf_counter() - t0
+        out["launches"] = {k.name: k.launches for k in native.KERNELS}
+        cpu = qe.QuickEst.load(str(tmp / "db"), device="cpu")
+        errs = {}
+        for j, t in enumerate(QE_TARGETS):
+            pg, pc = est.predict(xt, t), cpu.predict(xt, t)
+            errs[t] = float(np.abs(pg - pc).max() / yt[:, j].std())
+            if not (np.array_equal(cpu.models[t].sel, est.models[t].sel)
+                    and errs[t] <= QE_PRED_TOL_Y_STD
+                    and np.isfinite(pg).all()):
+                bad.append(f"{t}: CPU load sel / predictions "
+                           f"({errs[t]} std)")
+        out["cpu_load_pred_err_over_y_std"] = errs
+        # LUT_impl's lasso again on the CPU, from the rows the card had
+        xs, ys, lam, (wg, _) = lasso_rows[0]
+        wg, wc = wg.cpu().numpy(), pipeline._lasso_fit(xs, ys, lam)[0].numpy()
+
+        def selected(w):     # _TargetModel.fit's selection
+            sel = np.argsort(-np.abs(w))[:32]
+            return np.sort(sel[np.abs(w[sel]) > 1e-6])
+        lerr = float(np.abs(wg - wc).max() / np.abs(wg).max())
+        out["lasso_cpu"] = {"w_err_over_max": lerr, "sel_equal": bool(
+            np.array_equal(selected(wc), selected(wg)))}
+        if lerr > QE_LASSO_TOL or not out["lasso_cpu"]["sel_equal"]:
+            bad.append(f"lasso card against CPU: {out['lasso_cpu']}")
+        out["sel"] = {t: est.models[t].sel.tolist() for t in QE_TARGETS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not out["test"]["LUT_impl"]["r2"] > QE_R2:
+        bad.append(f"LUT_impl R2 {out['test']['LUT_impl']}")
+    if any(out["launches"].values()):
+        bad.append(f"kernel launches {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if bad:
+        raise AssertionError("quickest: " + "; ".join(bad))
+    return out
+
+
+def stats_phase(prog: dict) -> dict:
+    """`ut-torch-stats` over the program phase's archive (the rosenbrock
+    tune through the CLI on the card), as a user runs it: the report's
+    evaluations sum to the archive's rows, and `--csv` writes the
+    per-technique convergence (one row a trial that improved its
+    technique's best, each at its row of the archive)."""
+    import shutil
+
+    from uptune_tpu_torch.utils import stats
+    out = {"phase": "stats", "card": nvidia_smi()}
+    bad = []
+    t_phase = time.perf_counter()
+    arc = Path(prog["archive"])
+    try:
+        rows = stats.load_archive(str(arc))
+        cmd = [sys.executable, "-m", "uptune_tpu_torch.utils.stats",
+               str(arc)]
+        r = subprocess.run(cmd + ["--json"], capture_output=True, text=True,
+                           timeout=120, cwd=str(ROOT))
+        rep = json.loads(r.stdout)
+        csv = arc.parent / "conv.csv"
+        r2 = subprocess.run(cmd + ["--csv", str(csv)], capture_output=True,
+                            text=True, timeout=120, cwd=str(ROOT))
+        lines = csv.read_text().strip().splitlines()
+        conv = stats.convergence(rows)
+        out.update(
+            archive_rows=len(rows), techniques=len(rep),
+            report_evals=sum(st["evals"] for st in rep.values()),
+            csv_rows=len(lines) - 1,
+            convergence_points=sum(len(v) for v in conv.values()),
+            table=r2.stdout.splitlines())
+        idx = [int(line.split(",")[1]) for line in lines[1:]]
+        if not (r.returncode == 0 == r2.returncode
+                and out["report_evals"] == len(rows) > 0
+                and lines[0] == "technique,eval_index,best_so_far"
+                and out["csv_rows"] == out["convergence_points"] > 0
+                and all(0 <= i < len(rows) for i in idx)):
+            bad.append(f"ut-torch-stats: {out}, {r.stderr[-500:]}")
+    finally:
+        shutil.rmtree(arc.parent, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if bad:
+        raise AssertionError("stats: " + "; ".join(bad))
+    return out
+
+
 # the short name of every kernel function of csrc/*.cu (with its template
 # arguments) within ptxas's mangled one
 PTXAS_KERNEL = re.compile(
@@ -5413,6 +5824,7 @@ PHASES = {
     "driver": (), "surrogate_driver": (), "serve": (), "route": (),
     "store": (), "parallel": ("surrogate",),
     "program": (), "obs": ("engine", "surrogate", "program"),
+    "notears": (), "quickest": (), "stats": ("program",),
 }
 
 
@@ -5488,11 +5900,13 @@ def profile_paths(r: dict) -> None:
 
 # -- main --------------------------------------------------------------------------
 def main() -> int:
-    # the store and parallel phases' child processes
+    # the store, parallel and notears phases' child processes
     if "--store-child" in sys.argv:
         return store_child_main(sys.argv[1:])
     if "--mesh-rank" in sys.argv:
         return mesh_rank_main()
+    if "--notears-run" in sys.argv:
+        return notears_child_main(sys.argv)
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile a few engine steps")
@@ -5595,6 +6009,12 @@ def main() -> int:
     if "obs" in todo:
         r["obs"] = obs_phase(r["engine"], r["program"],
                              r["surrogate"][0], dev)
+    if "notears" in todo:
+        r["notears"] = notears_phase(dev)
+    if "quickest" in todo:
+        r["quickest"] = quickest_phase(dev)
+    if "stats" in todo:
+        r["stats"] = stats_phase(r["program"])
     if args.profile:
         profile_paths(r)
     if args.phases is not None:
@@ -5648,7 +6068,8 @@ def main() -> int:
                                       if k.name == "merge_rows"
                                       else route["gp_kernel_events"]),
                    # each store child's own (its wrapper's count, equal
-                   # to its traced merge kernels), summed over the six
+                   # to its commits and, in the cooperating fleet, to its
+                   # traced merge kernels), summed over the six
                    "launches_store": sum(
                        c["merge_launches"] for c in store["children"].values())
                    if k.name == "merge_rows" else 0,

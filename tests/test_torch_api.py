@@ -215,12 +215,20 @@ def test_child_import_pulls_in_neither_torch_nor_jax(use):
 
 
 def test_names_not_ported_yet_name_their_item():
+    """No name is left to port: every public name of the JAX package's
+    lazy surface resolves in the port, from the port's counterpart of
+    the JAX package's module."""
+    import uptune_tpu
     import uptune_tpu_torch as ut
+    from uptune_tpu_torch import quickest
     from uptune_tpu_torch.serve import client, session
     assert ut.connect is client.connect
     assert ut.LocalSession is session.LocalSession
-    with pytest.raises(AttributeError, match="Queue 1 item 10"):
-        ut.preprocess
+    for name, (mod, attr) in uptune_tpu._LAZY.items():
+        assert ut._LAZY[name] == (mod.replace("uptune_tpu.",
+                                              "uptune_tpu_torch.", 1), attr)
+        assert getattr(ut, name) is not None
+    assert ut.preprocess is quickest.preprocess
     with pytest.raises(AttributeError, match="has no attribute"):
         ut.no_such_name
     assert {"tune", "target", "Tuner", "tune_batch"} <= set(dir(ut))

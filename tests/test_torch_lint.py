@@ -1,8 +1,10 @@
-"""Static checks of the port on the CPU: the JAX package's lock rules
-over `uptune_tpu_torch/`, and the host side of launchers B-D's launch
-planning (`csrc/gp_plan.h`), built with the host compiler alone.
+"""Static checks of the port on the CPU: the lock rules over
+`uptune_tpu_torch/` by the port's own analyzer, and the host side of
+launchers B-D's launch planning (`csrc/gp_plan.h`), built with the host
+compiler alone.
 
-The lock rules R101-R106 (`python -m uptune_tpu.analysis`, docs/LINT.md:
+The lock rules R101-R106 (`python -m uptune_tpu_torch.analysis`, the
+JAX package's rules, docs/LINT.md:
 locks held across blocking calls, lock order, unguarded shared state)
 apply to the port's threads as to the reference's: the surrogate refit
 worker, the flight recorder, the telemetry shipper, the pool.  The
@@ -27,8 +29,8 @@ MAX_SHARED = 232448
 
 def test_lock_rules_hold_over_the_port():
     out = subprocess.run(
-        [sys.executable, "-m", "uptune_tpu.analysis", "uptune_tpu_torch",
-         "--select", RULES, "--format", "text"],
+        [sys.executable, "-m", "uptune_tpu_torch.analysis",
+         "uptune_tpu_torch", "--select", RULES, "--format", "text"],
         cwd=str(native.CSRC.parent.parent), capture_output=True, text=True,
         timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr

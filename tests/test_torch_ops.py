@@ -8,6 +8,8 @@ XLA program per primitive), so no multiply-add is fused into an FMA and
 the float arithmetic is the same on both sides.  The other test_torch_*
 files reuse these replay helpers.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,26 @@ from uptune_tpu_torch.space.spec import Space as TSpace
 from uptune_tpu_torch.techniques import common as tcommon
 
 CPU = torch.device("cpu")
+
+
+def share_the_cpu():
+    """Give each pytest-xdist worker, and the processes it starts, its
+    share of the cores.  By default torch's intra-op pool has one OpenMP
+    thread a core in every worker: under `-n 6` on eight cores they
+    oversubscribe the machine and spin at every small op's barrier while
+    the cores run other workers (a 3 s sharded run of
+    test_torch_parallel.py took 87 s beside six busy processes, 6 s with
+    one thread).  Every worker collects this file, so the setting holds
+    for every port test file it runs; a run without xdist keeps torch's
+    default."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    if workers > 1:
+        n = max(1, len(os.sched_getaffinity(0)) // workers)
+        torch.set_num_threads(n)
+        os.environ["OMP_NUM_THREADS"] = str(n)
+
+
+share_the_cpu()
 
 
 # -- conversion ----------------------------------------------------------

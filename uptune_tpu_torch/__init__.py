@@ -6,9 +6,10 @@ nothing of `uptune_tpu`: where it needs a jax-free module of the JAX
 package it keeps its own copy (`space/params.py`, `calibrated.py`,
 `driver/plugins.py`, `driver/objectives.py`, `driver/inputs.py`).
 
-Ported so far (the fused tuning step end to end, the GP surrogate, the
-batched multi-instance engine, every technique, the ask/tell driver and
-its surrogate manager, program mode):
+Every module of the JAX package has its counterpart here but three
+(`ops/routing.py`, `analysis/trace_guard.py`, `utils/platform_guard.py`:
+a mode knob, a jit-retrace counter and a JAX platform guard, which the
+port has no use for):
 
 * `space`      — parameter specs, the flat encoding, codecs and hashing;
 * `ops`        — numeric and permutation operators, the dedup merge
@@ -42,6 +43,13 @@ its surrogate manager, program mode):
                  (`ut.tune`, `ut.target`, ...) is the JAX package's, byte
                  for byte, so a program importing either package is
                  served.
+* `serve`, `obs`, `parallel` — the serving plane, observability and the
+                 mesh plane;
+* `plugins`    — NOTEARS causal discovery (`plugins.notears`);
+* `quickest`   — the QuickEst estimator (`train`, `test`, `predict`,
+                 `analyze`, `extract`);
+* `analysis`   — `ut-torch-lint` (the JAX package's rules) and
+                 `LockGuard`; `utils.stats` — `ut-torch-stats`.
 
 Entry points take `device=` and default to ``"cuda"``; without a card
 they raise unless the caller passes ``device="cpu"``.  Randomness comes
@@ -84,27 +92,18 @@ _LAZY = {
     "StepStats": ("uptune_tpu_torch.driver", "StepStats"),
     "connect": ("uptune_tpu_torch.serve.client", "connect"),
     "LocalSession": ("uptune_tpu_torch.serve.session", "LocalSession"),
+    # QuickEst estimator pipeline, analysis and HLS-report extraction
+    "preprocess": ("uptune_tpu_torch.quickest", "preprocess"),
+    "train": ("uptune_tpu_torch.quickest", "train"),
+    "test": ("uptune_tpu_torch.quickest", "test"),
+    "predict": ("uptune_tpu_torch.quickest", "predict"),
+    "analyze": ("uptune_tpu_torch.quickest", "analyze"),
+    "extract": ("uptune_tpu_torch.quickest", "extract"),
 }
-
-# the JAX package's public names the port does not have yet, with the
-# ROADMAP item (Queue 1) that brings each
-_NOT_YET = {
-    "preprocess": "item 10 (quickest)",
-    "train": "item 10 (quickest)",
-    "test": "item 10 (quickest)",
-    "predict": "item 10 (quickest)",
-    "analyze": "item 10 (quickest)",
-    "extract": "item 10 (quickest)",
-}
-
 
 def __getattr__(name):
     """The lazy public API: the module of a name is imported on first
     use."""
-    if name in _NOT_YET:
-        raise AttributeError(
-            f"uptune_tpu_torch.{name} is not ported yet: ROADMAP Queue 1 "
-            f"{_NOT_YET[name]}")
     try:
         modname, attr = _LAZY[name]
     except KeyError:

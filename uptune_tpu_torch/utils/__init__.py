@@ -1,2 +1,2 @@
-"""Host-side helpers of the port (so far `pypath`, the child-process
-import seam)."""
+"""Host-side helpers of the port: `pypath` (the child-process import
+seam), `net` and `stats` (`ut-torch-stats`, the archive report)."""
