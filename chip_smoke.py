@@ -3577,13 +3577,11 @@ def obs_phase(engine, prog: dict, cases, dev) -> dict:
             "program": "engine.run", "steps": OBS_STEPS,
             "device_kind": torch.cuda.get_device_name(0),
             "wall_ms_per_step": wall * 1e3 / OBS_STEPS,
-            "device_window_ms_per_step":
-                prog_rec["device_s"] * 1e3 / OBS_STEPS,
             "cost": "launcher C's counted FLOPs and bytes a step "
                     "(gp_bound); the step's other ops are not counted",
             **win}
         if not (win.get("peak_flops_per_s") and "mxu_util" in win
-                and prog_rec["device_windows"] == 1):
+                and prog_rec["dispatches"] == 1):
             bad.append(f"record_window: {out['record_window']}")
 
         # (c) a --device-trace capture of a few of those steps: CUDA
@@ -3778,10 +3776,9 @@ class GpuBusy:
 
 
 # the histograms a serving process keeps of where a request's time goes:
-# the whole request, and the host dispatch and the device window of each
-# instrumented engine call (obs.device.instrument)
-SERVE_HISTS = ("serve.ask_ms", "serve.tell_ms", "device.dispatch_ms",
-               "device.window_ms")
+# the whole request, and the host dispatch of each instrumented engine
+# call (obs.device.instrument)
+SERVE_HISTS = ("serve.ask_ms", "serve.tell_ms", "device.dispatch_ms")
 
 
 def serve_hists(hists: dict) -> dict:

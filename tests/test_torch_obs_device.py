@@ -1,10 +1,10 @@
 """The port's device telemetry (`uptune_tpu_torch/obs/device.py`), the
 counterpart of tests/test_device.py: the H100 peak table, cost records
-in the reference's schema, the `instrument` seam (spans, dispatch
-metrics, CUDA-event windows read back without a wait), roofline windows,
-the torch.profiler capture, and `ut report`'s device section.  The
-CUDA-event paths run here against a stand-in for `torch.cuda`; the card
-itself runs them in `chip_smoke.py`'s obs phase."""
+in the reference's schema, the `instrument` seam (spans and dispatch
+metrics), roofline windows, the torch.profiler capture, and `ut
+report`'s device section.  The card's name comes here from a stand-in
+for `torch.cuda`; the card itself runs these paths in `chip_smoke.py`'s
+obs phase."""
 import json
 import os
 import sys
@@ -86,14 +86,14 @@ def test_instrument_disabled_is_a_call_through():
 
 
 def test_instrument_enabled_on_the_cpu():
-    """A span and the dispatch metrics a call; no CUDA context, no
-    device window; nothing compiles, so the totals stay 0."""
+    """A span and the dispatch metrics a call; nothing compiles, so the
+    totals stay 0."""
     obs.enable()
     f = obs.instrument_device_fn(lambda x: x * 2, "dev.cpu", kind="t")
     assert f(torch.ones(3)).sum().item() == 6.0
     f(torch.ones(3))
     rec = device.programs()["dev.cpu"]
-    assert rec["dispatches"] == 2 and rec["device_windows"] == 0
+    assert rec["dispatches"] == 2
     assert rec["compiles"] == 0 and device.compile_totals() == (0, 0.0)
     m = obs.metrics_snapshot()
     assert m["counters"]["device.dispatches"] == 2
@@ -102,30 +102,7 @@ def test_instrument_enabled_on_the_cpu():
     assert len(spans) == 2 and spans[0]["attrs"] == {"kind": "t"}
 
 
-class _Event:
-    """A stand-in CUDA event: completed once `done` is set."""
-    done = False
-
-    def __init__(self, enable_timing=False):
-        self.t = None
-
-    def record(self):
-        self.t = _Event.clock
-        _Event.clock += 1.5
-
-    def query(self):
-        return _Event.done
-
-    def synchronize(self):
-        _Event.done = True
-
-    def elapsed_time(self, other):
-        return other.t - self.t
-
-
 class _Cuda:
-    Event = _Event
-
     @staticmethod
     def get_device_name(i):
         return H100
@@ -133,26 +110,6 @@ class _Cuda:
     @staticmethod
     def current_device():
         return 0
-
-
-def test_device_windows_are_read_back_without_a_wait(monkeypatch):
-    """Each call is bracketed by two events on the current stream; a
-    window is read back at the program's next dispatch once its end
-    event has completed, or by `programs()`, which waits."""
-    monkeypatch.setattr(device, "_cuda", lambda: _Cuda)
-    _Event.clock, _Event.done = 0.0, False
-    obs.enable()
-    f = obs.instrument_device_fn(lambda: None, "dev.card")
-    f()
-    f()                                  # the first window is not done
-    assert device._PROGRAMS["dev.card"]["device_windows"] == 0
-    _Event.done = True
-    f()                                  # both earlier windows settle
-    assert device._PROGRAMS["dev.card"]["device_windows"] == 2
-    rec = device.programs()["dev.card"]  # waits for the last one
-    assert rec["device_windows"] == 3 and rec["dispatches"] == 3
-    assert rec["device_s"] == pytest.approx(3 * 1.5e-3)
-    assert obs.metrics_snapshot()["hists"]["device.window_ms"]["count"] == 3
 
 
 def test_record_window_against_the_h100_peaks(monkeypatch):

@@ -22,6 +22,13 @@ eager PyTorch on one device, and `run` is a Python loop.  One step:
 `propose_topk` ranks a proposal epoch with the fused acquisition top-k
 instead of evaluating it.
 
+Spans (the obs plane; nothing is recorded while it is off): a step is
+tiled by `engine.propose` (with one `arm.<name>.propose` an arm inside
+it), `engine.evaluate`, `engine.dedup`, `engine.merge` and
+`engine.observe` (with one `arm.<name>.observe` an arm), and
+`propose_topk`'s ranking is `engine.topk`.  They are host spans around
+the calls that launch each phase's work on the card.
+
 Randomness: the state carries a key (`EngineState.key`, an `rng.key`),
 as the JAX state does, and every draw is a function of it: `propose`
 splits the state's key into the key it returns and the key of its draws,
@@ -116,6 +123,9 @@ class FusedEngine:
         self.total_batch = sum(self.batches)
         self.history = History(history_capacity, device=self.device)
         self.dedup = dedup
+        # each arm's span names, made once: a step formats no strings
+        self._arm_spans = [(f"arm.{t.name}.propose", f"arm.{t.name}.observe")
+                           for t in self.arms]
         # elements each draw phase took last time: a stream hashes that
         # many at once (a size, never a result)
         self._hints = {}
@@ -165,16 +175,19 @@ class FusedEngine:
         batches concatenate.  A function of the state alone.  Returns
         `(new_tstates, cands, key)` for `commit()`.  `draws` (per arm)
         default to those of the draw key split off the state's key."""
-        key, kdraw = rng.split(state.key, 2).unbind(-2)
-        if draws is None:
-            draws = self.draw_propose(kdraw)
-        new_tstates, cands_list = [], []
-        for t, st, d in zip(self.arms, state.tstates, draws):
-            st2, c = t.propose(self.space, st, state.best, d)
-            new_tstates.append(st2)
-            cands_list.append(c)
-        cands = (concat_cands(cands_list) if len(cands_list) > 1
-                 else cands_list[0])
+        with obs.span("engine.propose"):
+            key, kdraw = rng.split(state.key, 2).unbind(-2)
+            if draws is None:
+                draws = self.draw_propose(kdraw)
+            new_tstates, cands_list = [], []
+            for i, (t, st, d) in enumerate(zip(self.arms, state.tstates,
+                                               draws)):
+                with obs.span(self._arm_spans[i][0]):
+                    st2, c = t.propose(self.space, st, state.best, d)
+                new_tstates.append(st2)
+                cands_list.append(c)
+            cands = (concat_cands(cands_list) if len(cands_list) > 1
+                     else cands_list[0])
         return tuple(new_tstates), cands, key
 
     def evaluate(self, cands: CandBatch) -> torch.Tensor:
@@ -194,7 +207,8 @@ class FusedEngine:
         if acq.topk is None:
             raise ValueError("acq has no topk (need impl='fused')")
         new_tstates, cands, key = self.propose(state, draws)
-        vals, idx = acq.topk(cands, acq.aux, k)
+        with obs.span("engine.topk"):
+            vals, idx = acq.topk(cands, acq.aux, k)
         return new_tstates, cands, key, vals, idx
 
     def step(self, state: EngineState, eval_fn=None,
@@ -204,7 +218,8 @@ class FusedEngine:
         example); `exchange(best) -> best` is the cross-instance best
         exchange, identity when absent."""
         new_tstates, cands, key = self.propose(state)
-        raw = self.evaluate(cands) if eval_fn is None else eval_fn(cands)
+        with obs.span("engine.evaluate"):
+            raw = self.evaluate(cands) if eval_fn is None else eval_fn(cands)
         return self.commit(state, new_tstates, cands, raw, key, exchange)
 
     # ------------------------------------------------------------------
@@ -231,48 +246,55 @@ class FusedEngine:
         best."""
         B = cands.batch
         dev = self.device
-        qor = self.sign * raw
-        qor = torch.where(torch.isfinite(qor), qor,
-                          float("inf")).to(torch.float32)
+        with obs.span("engine.dedup"):
+            qor = self.sign * raw
+            qor = torch.where(torch.isfinite(qor), qor,
+                              float("inf")).to(torch.float32)
+            if self.dedup:
+                hashes = self.space.hash_batch(cands)
+                found, _ = self.history.contains(state.hist, hashes)
+                src = dup_source(hashes)
+                novel = (src == torch.arange(B, device=dev)) & ~found
 
-        if self.dedup:
-            hashes = self.space.hash_batch(cands)
-            found, _ = self.history.contains(state.hist, hashes)
-            src = dup_source(hashes)
-            novel = (src == torch.arange(B, device=dev)) & ~found
-            hist = self.history.insert(state.hist, hashes, qor, novel)
-            n_new = novel.sum().to(torch.int32)
-        else:
-            hist = state.hist
-            n_new = torch.tensor(B, dtype=torch.int32, device=dev)
-        return CommitHead(qor, state.best.update(cands, qor), hist, n_new)
+        with obs.span("engine.merge"):
+            if self.dedup:
+                hist = self.history.insert(state.hist, hashes, qor, novel)
+                n_new = novel.sum().to(torch.int32)
+            else:
+                hist = state.hist
+                n_new = torch.tensor(B, dtype=torch.int32, device=dev)
+            best = state.best.update(cands, qor)
+        return CommitHead(qor, best, hist, n_new)
 
     def commit_tail(self, state: EngineState, new_tstates, cands: CandBatch,
                     head: CommitHead, key: torch.Tensor,
                     draws: Optional[tuple] = None) -> EngineState:
         """The commit from the (exchanged) best on: per-arm credit and
         every arm's observe, with `draws` defaulting to those of `key`."""
-        if draws is None:
-            draws = self.draw_observe(key)
-        qor, best = head.qor, head.best
-        prev_best = state.best.qor
-        step_min = torch.min(qor)
-        hits, tstates_out = [], []
-        off = 0
-        for t, st2, b, d in zip(self.arms, new_tstates, self.batches, draws):
-            sl = slice(off, off + b)
-            cq = qor[sl]
-            arm_best = torch.min(cq)
-            hits.append((arm_best < prev_best) & (arm_best <= step_min))
-            tstates_out.append(
-                t.observe(self.space, st2, cands[sl], cq, best, d))
-            off += b
+        with obs.span("engine.observe"):
+            if draws is None:
+                draws = self.draw_observe(key)
+            qor, best = head.qor, head.best
+            prev_best = state.best.qor
+            step_min = torch.min(qor)
+            hits, tstates_out = [], []
+            off = 0
+            for i, (t, st2, b, d) in enumerate(zip(
+                    self.arms, new_tstates, self.batches, draws)):
+                sl = slice(off, off + b)
+                cq = qor[sl]
+                arm_best = torch.min(cq)
+                hits.append((arm_best < prev_best) & (arm_best <= step_min))
+                with obs.span(self._arm_spans[i][1]):
+                    tstates_out.append(
+                        t.observe(self.space, st2, cands[sl], cq, best, d))
+                off += b
 
-        return EngineState(
-            tuple(tstates_out), best, head.hist, key,
-            state.evals + head.n_new, state.acqs + cands.batch,
-            state.arm_pulls + 1,
-            state.arm_hits + torch.stack(hits).to(torch.int32))
+            return EngineState(
+                tuple(tstates_out), best, head.hist, key,
+                state.evals + head.n_new, state.acqs + cands.batch,
+                state.arm_pulls + 1,
+                state.arm_hits + torch.stack(hits).to(torch.int32))
 
     # ------------------------------------------------------------------
     def run(self, state: EngineState, n_steps: int, eval_fn=None,

@@ -40,6 +40,9 @@ from .core import (DEFAULT_CAPACITY, complete_span, device_span,
                    disable, emit_at, enable, enabled, event,
                    new_span_id, now, reset, snapshot, span,
                    trace_origin_unix)
+# the port's own: a record's ts on the device trace's clock (not in
+# `__all__`, which is the reference's)
+from .core import to_unix_ns  # noqa: F401
 from .export import (chrome_trace, prometheus_text, text_summary,
                      validate_trace, write_metrics_jsonl, write_trace)
 from .metrics import count, counter_value, gauge, observe

@@ -29,7 +29,9 @@ Design constraints:
 
 Records are plain tuples ``(name, ts, dur, track, attrs)``:
 
-* ``ts``     — seconds since `enable()` (perf_counter timebase);
+* ``ts``     — seconds since `enable()` (perf_counter timebase;
+  `to_unix_ns` maps it to `time.time_ns()`'s clock, the one
+  ``torch.profiler`` stamps a device trace in);
 * ``dur``    — span length in seconds, or None for an instant event;
 * ``track``  — explicit lane name (worker slots, synthetic lanes), or
   None for "the thread that recorded it";
@@ -47,7 +49,7 @@ from typing import Any, Dict, List, Optional
 __all__ = [
     "enabled", "enable", "disable", "reset", "span", "device_span",
     "event", "complete_span", "emit_at", "new_span_id", "snapshot",
-    "trace_origin_unix", "DEFAULT_CAPACITY",
+    "trace_origin_unix", "to_unix_ns", "DEFAULT_CAPACITY",
 ]
 
 DEFAULT_CAPACITY = 1 << 16
@@ -55,6 +57,7 @@ DEFAULT_CAPACITY = 1 << 16
 _ENABLED = False
 _T0 = 0.0            # perf_counter at enable(): the trace origin
 _T0_UNIX = 0.0       # wall-clock at enable() (for artifact metadata)
+_T0_UNIX_NS = 0      # time_ns() read with _T0 (`to_unix_ns`)
 _CAPACITY = DEFAULT_CAPACITY
 
 _REG_LOCK = threading.Lock()
@@ -119,20 +122,35 @@ def enabled() -> bool:
 def enable(capacity: int = DEFAULT_CAPACITY) -> None:
     """Start recording.  Existing rings are cleared so a fresh enable
     always exports one coherent run."""
-    global _ENABLED, _T0, _T0_UNIX, _CAPACITY, _EPOCH
+    global _ENABLED, _T0, _T0_UNIX, _T0_UNIX_NS, _CAPACITY, _EPOCH
     with _REG_LOCK:
         _RINGS.clear()
         _EPOCH += 1
     # other threads' cached rings cannot be cleared from here; the
     # epoch bump makes them re-register on their next record instead
     _CAPACITY = int(capacity)
-    _T0 = time.perf_counter()
-    _T0_UNIX = time.time()
+    t0_ns, _T0_UNIX_NS = _origin_pair()
+    _T0 = t0_ns / 1e9
+    _T0_UNIX = _T0_UNIX_NS / 1e9
     _ENABLED = True
     from . import device as _d
     from . import metrics as _m
     _m.reset()
     _d.reset_registry()
+
+
+def _origin_pair():
+    """(perf_counter_ns, time_ns) read back to back: of five tries, the
+    pair whose two perf_counter reads around time_ns() lie closest, with
+    time_ns() set against their midpoint."""
+    best = None
+    for _ in range(5):
+        a = time.perf_counter_ns()
+        u = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) // 2, u)
+    return best[1], best[2]
 
 
 def disable() -> None:
@@ -160,6 +178,13 @@ def now() -> float:
 
 def trace_origin_unix() -> float:
     return _T0_UNIX
+
+
+def to_unix_ns(ts: float) -> int:
+    """A record's ``ts`` (seconds since the trace origin) on
+    `time.time_ns()`'s clock, the clock ``torch.profiler`` stamps its
+    device events in: host spans laid over a device trace."""
+    return _T0_UNIX_NS + round(ts * 1e9)
 
 
 def _record(rec: tuple) -> None:
@@ -295,11 +320,12 @@ def new_span_id() -> str:
 def snapshot() -> Dict[str, Any]:
     """All recorded events plus ring bookkeeping.
 
-    Returns ``{"events": [...], "dropped": {track: n}, "origin_unix"}``
-    where each event is
+    Returns ``{"events": [...], "dropped": {track: n}, "origin_unix",
+    "origin_unix_ns"}`` where each event is
     ``{"name", "ts", "dur"|None, "track", "attrs"|None}`` and ``ts`` /
-    ``dur`` are seconds since the trace origin.  Events are sorted by
-    timestamp across tracks."""
+    ``dur`` are seconds since the trace origin (`to_unix_ns` maps a
+    ``ts`` to nanoseconds on `time.time_ns()`'s clock).  Events are
+    sorted by timestamp across tracks."""
     with _REG_LOCK:
         rings = list(_RINGS)
     events = []
@@ -312,4 +338,4 @@ def snapshot() -> Dict[str, Any]:
                            "track": track or r.track, "attrs": attrs})
     events.sort(key=lambda e: e["ts"])
     return {"events": events, "dropped": dropped,
-            "origin_unix": _T0_UNIX}
+            "origin_unix": _T0_UNIX, "origin_unix_ns": _T0_UNIX_NS}

@@ -1,18 +1,16 @@
-"""Device-plane telemetry for the card: dispatch windows, the
+"""Device-plane telemetry for the card: dispatch counts, the
 per-program registry, roofline utilisation and the profiler capture.
 
 The counterpart of `uptune_tpu/obs/device.py`, redone for CUDA.  The
 obs plane watches the host (spans, metrics, distributed traces) and the
 search (journal, quality gauges); this module watches the DEVICE:
 
-* **Dispatch windows** — `instrument(fn, name)` (the implementation
-  behind ``obs.instrument_device_fn``, the seam wrapping the engines'
-  steps and the driver's per-arm proposals, dedup and commit) runs each
-  call under a `device_span` and, while a CUDA context is live, brackets
-  it with two CUDA events on the current stream.  Their elapsed time is
-  the call's device window; it is read back without a synchronisation
-  once the end event has completed (at the program's next dispatch, or
-  at `programs()`), so the instrumented path never waits on the card.
+* **Dispatches** — `instrument(fn, name)` (the implementation behind
+  ``obs.instrument_device_fn``, the seam wrapping the engines' steps
+  and the driver's per-arm proposals, dedup and commit) runs each call
+  under a `device_span` and counts it with its host seconds.  The
+  card's own time is the profiler capture's (below): the host spans
+  are laid over its kernels on one clock (`obs.to_unix_ns`).
 * **Registry + gauges** — per-program records (`programs()`) publish
   ``device.*`` counters, gauges and histograms into ``obs.metrics``, so
   the flight recorder, the Prometheus exposition and ``ut report``'s
@@ -165,8 +163,6 @@ def validate_record(rec: Any) -> None:
 # ----------------------------------------------------------- registry
 _LOCK = threading.Lock()
 _PROGRAMS: Dict[str, Dict[str, Any]] = {}
-# per program, the (start, end) CUDA events of windows not read back yet
-_PENDING: Dict[str, list] = {}
 
 
 def _program(name: str) -> Dict[str, Any]:
@@ -176,41 +172,13 @@ def _program(name: str) -> Dict[str, Any]:
             "name": name, "cost": None, "compiles": 0,
             "compile_s": 0.0, "cache": None, "cache_hits": 0,
             "cache_misses": 0, "dispatches": 0, "dispatch_s": 0.0,
-            "device_windows": 0, "device_s": 0.0,
         }
     return rec
 
 
-def _settle(name: str, wait: bool) -> None:
-    """Read back `name`'s completed device windows (all of them, waiting
-    on the card, with `wait`) into its record and the
-    ``device.window_ms`` histogram."""
-    with _LOCK:
-        pend = _PENDING.get(name)
-        if not pend:
-            return
-        done = []
-        while pend and (wait or pend[0][1].query()):
-            done.append(pend.pop(0))
-    for a, b in done:
-        if wait:
-            b.synchronize()
-        ms = a.elapsed_time(b)
-        metrics.observe("device.window_ms", ms)
-        with _LOCK:
-            rec = _program(name)
-            rec["device_windows"] += 1
-            rec["device_s"] += ms / 1e3
-
-
 def programs() -> Dict[str, Dict[str, Any]]:
     """Per-program telemetry records (copies): dispatch count and host
-    seconds, device windows and seconds (every pending window read back
-    first, waiting on the card), the caller's cost record if any."""
-    with _LOCK:
-        names = list(_PENDING)
-    for name in names:
-        _settle(name, wait=True)
+    seconds, the caller's cost record if any."""
     with _LOCK:
         return {k: dict(v) for k, v in _PROGRAMS.items()}
 
@@ -225,7 +193,6 @@ def compile_totals() -> Tuple[int, float]:
 def reset_registry() -> None:
     with _LOCK:
         _PROGRAMS.clear()
-        _PENDING.clear()
 
 
 def set_cost(name: str, cost: Dict[str, Any]) -> Dict[str, Any]:
@@ -248,7 +215,7 @@ def set_cost(name: str, cost: Dict[str, Any]) -> Dict[str, Any]:
 
 def _cuda():
     """torch.cuda when torch is already imported and holds a CUDA
-    context, else None (no events on a CPU-only run)."""
+    context, else None (no device name on a CPU-only run)."""
     torch = sys.modules.get("torch")
     if torch is None:
         return None
@@ -306,36 +273,23 @@ def instrument(fn, name: str, **attrs):
 
     Disabled path: one flag check.  Enabled path: the call runs under
     a `device_span`; its host dispatch time is recorded
-    (``device.dispatches``, ``device.dispatch_ms``) and, with a live
-    CUDA context, its window on the current stream is bracketed by two
-    CUDA events, read back later without a wait (`_settle`).  Other
-    attributes of `fn` stay reachable through ``__wrapped__``."""
+    (``device.dispatches``, ``device.dispatch_ms``).  Other attributes
+    of `fn` stay reachable through ``__wrapped__``."""
 
     @functools.wraps(fn)
     def wrapper(*a, **kw):
         if not core._ENABLED:
             return fn(*a, **kw)
-        cuda = _cuda()
-        ev = None
-        if cuda is not None:
-            _settle(name, wait=False)
-            ev = (cuda.Event(enable_timing=True),
-                  cuda.Event(enable_timing=True))
-            ev[0].record()
         t0 = time.perf_counter()
         with core.device_span(name, **attrs):
             out = fn(*a, **kw)
         dur = time.perf_counter() - t0
-        if ev is not None:
-            ev[1].record()
         metrics.count("device.dispatches")
         metrics.observe("device.dispatch_ms", dur * 1e3)
         with _LOCK:
             rec = _program(name)
             rec["dispatches"] += 1
             rec["dispatch_s"] += dur
-            if ev is not None:
-                _PENDING.setdefault(name, []).append(ev)
         return out
 
     return wrapper
