@@ -22,12 +22,37 @@ eager PyTorch on one device, and `run` is a Python loop.  One step:
 `propose_topk` ranks a proposal epoch with the fused acquisition top-k
 instead of evaluating it.
 
-Spans (the obs plane; nothing is recorded while it is off): a step is
-tiled by `engine.propose` (with one `arm.<name>.propose` an arm inside
-it), `engine.evaluate`, `engine.dedup`, `engine.merge` and
+CUDA graphs (`engine/graphs.py`).  On the card, `step` and
+`propose_topk` replay their phases as captured CUDA graphs, keyed by
+the state's structure (its tree, shapes and dtypes): without an
+`eval_fn` one graph holds the whole step; with one, graph "propose"
+holds `propose` and graph "commit" holds `commit_head` and
+`commit_tail`, and `eval_fn` runs eagerly between them on the proposal's
+buffers (valid until the next replay), its output copied into the
+commit's static input.  `propose_topk` replays "propose" and ranks
+eagerly.  A graph is captured inside the first call with its key,
+after one eager warm-up pass on a side stream; the engine keeps the
+graphs of the last `MAX_CAPTURES` structures.  Every state, batch and
+key a replay returns is a fresh copy.  The graphs engage only on a CUDA
+device, without `exchange=` or `draws=`, outside another capture; every
+other call, a phase that cannot be captured (an objective that reads a
+value on the host, say), and `propose` / `commit` / `commit_head` /
+`commit_tail` / `evaluate` called directly, run the eager code, which
+`BatchedEngine` vmaps.  `graph_counts` counts, per graph, its
+`captures`, `replays` and the `eager` calls that could have used it.
+
+Spans (the obs plane; nothing is recorded while it is off): an eager
+step is tiled by `engine.propose` (with one `arm.<name>.propose` an arm
+inside it), `engine.evaluate`, `engine.dedup`, `engine.merge` and
 `engine.observe` (with one `arm.<name>.observe` an arm), and
 `propose_topk`'s ranking is `engine.topk`.  They are host spans around
-the calls that launch each phase's work on the card.
+the calls that launch each phase's work on the card.  A graphed call
+records `engine.graph.step`, or `engine.graph.propose`, `engine.evaluate`
+(the eager `eval_fn`) and `engine.graph.commit`, or
+`engine.graph.propose` and `engine.topk`: one span a replay, around its
+copies in and out.  The phase spans inside a graph are recorded only
+when it is captured (by the warm-up pass and the capture), never on a
+replay; a capture also records the event `engine.graph.capture`.
 
 Randomness: the state carries a key (`EngineState.key`, an `rng.key`),
 as the JAX state does, and every draw is a function of it: `propose`
@@ -42,11 +67,15 @@ can feed the numbers JAX drew.
 """
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
+from functools import partial
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from .. import obs, rng
+from . import graphs
 from ..device import DeviceLike, resolve_device
 from ..driver.history import History, HistState, dup_source
 from ..space.spec import CandBatch, Space, concat_cands
@@ -58,6 +87,11 @@ DeviceObjective = Callable[[torch.Tensor, Tuple[torch.Tensor, ...]],
                            torch.Tensor]
 # the cross-instance best exchange: Best -> Best
 Exchange = Callable[[Best], Best]
+
+# the CUDA graphs of a FusedEngine, and how many state structures it
+# keeps them for (the newest used)
+GRAPHS = ("step", "propose", "commit")
+MAX_CAPTURES = 4
 
 
 class EngineState(NamedTuple):
@@ -129,6 +163,12 @@ class FusedEngine:
         # elements each draw phase took last time: a stream hashes that
         # many at once (a size, never a result)
         self._hints = {}
+        # the captured graphs by state structure (oldest first); a replay
+        # fills shared static buffers, so one call at a time
+        self._captures: "OrderedDict[tuple, graphs.Captures]" = OrderedDict()
+        self._graph_lock = threading.Lock()
+        self.graph_counts = {g: {"captures": 0, "replays": 0, "eager": 0}
+                             for g in GRAPHS}
 
     # ------------------------------------------------------------------
     def init(self, seed: Union[int, torch.Tensor] = 0,
@@ -206,7 +246,14 @@ class FusedEngine:
         caller gathers `cands[idx]`.  `draws` as for `propose`."""
         if acq.topk is None:
             raise ValueError("acq has no topk (need impl='fused')")
-        new_tstates, cands, key = self.propose(state, draws)
+        proposed = None
+        if draws is None:
+            with self._graph_lock:
+                proposed = self._graph_propose(state)
+        if proposed is None:
+            self.graph_counts["propose"]["eager"] += 1
+            proposed = self.propose(state, draws)
+        new_tstates, cands, key = proposed
         with obs.span("engine.topk"):
             vals, idx = acq.topk(cands, acq.aux, k)
         return new_tstates, cands, key, vals, idx
@@ -216,11 +263,133 @@ class FusedEngine:
         """One fused step: propose, evaluate, commit.  `eval_fn(cands) ->
         raw` replaces the objective call (a surrogate evaluator, for
         example); `exchange(best) -> best` is the cross-instance best
-        exchange, identity when absent."""
+        exchange, identity when absent.  On the card, replayed as CUDA
+        graphs (the module's docstring)."""
+        if exchange is None:
+            with self._graph_lock:
+                out = self._graph_step(state, eval_fn)
+            if out is not None:
+                return out
+        for g in (("step",) if eval_fn is None else ("propose", "commit")):
+            self.graph_counts[g]["eager"] += 1
+        return self._step(state, eval_fn, exchange)
+
+    def _step(self, state: EngineState, eval_fn=None,
+              exchange: Optional[Exchange] = None) -> EngineState:
+        """The eager step (and the function graph "step" captures)."""
         new_tstates, cands, key = self.propose(state)
         with obs.span("engine.evaluate"):
             raw = self.evaluate(cands) if eval_fn is None else eval_fn(cands)
         return self.commit(state, new_tstates, cands, raw, key, exchange)
+
+    # -- CUDA graphs -------------------------------------------------------
+    def _captured(self, state: EngineState):
+        """(the captures of `state`'s structure, the state's tensors), or
+        None where the call runs eagerly: off the card, inside another
+        capture, or for a state that is not a tree of tensors on the
+        engine's device.  Keeps the newest `MAX_CAPTURES` structures."""
+        if (self.device.type != "cuda"
+                or torch.cuda.is_current_stream_capturing()):
+            return None
+        dev = self.device
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        flat = graphs.flatten(state, dev)
+        if flat is None:
+            return None
+        leaves, spec = flat
+        g = self._captures.pop(spec, None)
+        if g is None:
+            g = graphs.Captures(leaves, spec, dev)
+            while len(self._captures) >= MAX_CAPTURES:
+                self._captures.popitem(last=False)
+        self._captures[spec] = g
+        return g, leaves
+
+    def _phase(self, g: graphs.Captures, key, name: str, fn: Callable,
+               args: tuple, load: Callable[[], None]):
+        """`g`'s phase under `key`, captured now if it is new (after
+        `load()` fills its static inputs); None for a phase that cannot
+        be captured."""
+        if key in g.phases:
+            return g.phases[key]
+        load()
+        with torch.cuda.device(g.device):
+            try:
+                ph = graphs.Phase(fn, args, g.device)
+            except (RuntimeError, TypeError) as e:
+                ph = None
+                obs.event("engine.graph.refused", graph=name,
+                          error=str(e)[:200])
+            else:
+                self.graph_counts[name]["captures"] += 1
+                obs.event("engine.graph.capture", graph=name)
+        g.phases[key] = ph
+        return ph
+
+    def _replay(self, ph: graphs.Phase, name: str) -> None:
+        ph.replay()
+        self.graph_counts[name]["replays"] += 1
+
+    def _graph_propose(self, state: EngineState):
+        """`propose(state)` by graph "propose", as fresh tensors; None
+        where it runs eagerly."""
+        cap = self._captured(state)
+        if cap is None:
+            return None
+        g, leaves = cap
+        ph = self._phase(g, "propose", "propose", self.propose, (g.state,),
+                         partial(g.load, leaves))
+        if ph is None:
+            return None
+        with obs.span("engine.graph.propose"):
+            g.load(leaves)
+            self._replay(ph, "propose")
+            return ph.fresh()
+
+    def _graph_step(self, state: EngineState, eval_fn):
+        """`step(state, eval_fn)` by graphs; None where it runs
+        eagerly."""
+        cap = self._captured(state)
+        if cap is None:
+            return None
+        g, leaves = cap
+        load = partial(g.load, leaves)
+        if eval_fn is None:
+            ph = self._phase(g, "step", "step", self._step, (g.state,), load)
+            if ph is None:
+                return None
+            with obs.span("engine.graph.step"):
+                g.load(leaves)
+                self._replay(ph, "step")
+                return ph.fresh()
+        prop = self._phase(g, "propose", "propose", self.propose,
+                           (g.state,), load)
+        if prop is None:
+            return None
+        with obs.span("engine.graph.propose"):
+            g.load(leaves)
+            self._replay(prop, "propose")
+        new_tstates, cands, key = prop.static
+        with obs.span("engine.evaluate"):
+            raw = eval_fn(cands)
+        k = ("commit", raw.shape, raw.dtype)
+        if k not in g.inputs:
+            g.inputs[k] = torch.empty(raw.shape, dtype=raw.dtype,
+                                      device=g.device)
+        static_raw = g.inputs[k]
+        com = self._phase(g, k, "commit", self.commit,
+                          (g.state, new_tstates, cands, static_raw, key),
+                          partial(static_raw.copy_, raw))
+        if com is None:
+            # an eager commit from the caller's state and fresh copies
+            self.graph_counts["commit"]["eager"] += 1
+            new_tstates, cands, key = prop.fresh()
+            return self.commit(state, new_tstates, cands, raw, key)
+        with obs.span("engine.graph.commit"):
+            static_raw.copy_(raw)
+            self._replay(com, "commit")
+            return com.fresh()
 
     # ------------------------------------------------------------------
     def commit(self, state: EngineState, new_tstates, cands: CandBatch,
@@ -262,7 +431,7 @@ class FusedEngine:
                 n_new = novel.sum().to(torch.int32)
             else:
                 hist = state.hist
-                n_new = torch.tensor(B, dtype=torch.int32, device=dev)
+                n_new = torch.full((), B, dtype=torch.int32, device=dev)
             best = state.best.update(cands, qor)
         return CommitHead(qor, best, hist, n_new)
 
