@@ -508,7 +508,9 @@ def surrogate_eval_fn(space, gp_state: gp.GPState, kind: str = "ei",
     sgn = 1.0 if sense == "min" else -1.0
 
     def feats(cands: CandBatch) -> torch.Tensor:
-        return space.surrogate_transform(space.features(cands))
+        # the features apart from the launch that scores them
+        with obs.span("acquire.features"):
+            return space.surrogate_transform(space.features(cands))
 
     def fn(cands: CandBatch, aux) -> torch.Tensor:
         st, by = aux

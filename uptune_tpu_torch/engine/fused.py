@@ -134,9 +134,12 @@ def default_arms(scale: int = 1) -> List[Technique]:
 
 class FusedEngine:
     """space + arms + device objective -> (init, propose, commit, step,
-    run) on one device (default ``"cuda"``)."""
+    run) on one device (default ``"cuda"``).  Without a device objective
+    (`objective=None`: one that cannot run on the card, such as a build)
+    every step is scored by its `eval_fn`."""
 
-    def __init__(self, space: Space, objective: DeviceObjective,
+    def __init__(self, space: Space,
+                 objective: Optional[DeviceObjective] = None,
                  arms: Optional[Sequence[Technique]] = None,
                  history_capacity: int = 1 << 15, dedup: bool = True,
                  sense: str = "min", device: DeviceLike = "cuda"):
@@ -232,6 +235,7 @@ class FusedEngine:
 
     def evaluate(self, cands: CandBatch) -> torch.Tensor:
         """The raw (un-oriented) objective on decoded values."""
+        self._need_objective()
         return self.objective(self.space.decode_scalars(cands.u),
                               cands.perms)
 
@@ -265,6 +269,8 @@ class FusedEngine:
         example); `exchange(best) -> best` is the cross-instance best
         exchange, identity when absent.  On the card, replayed as CUDA
         graphs (the module's docstring)."""
+        if eval_fn is None:
+            self._need_objective()
         if exchange is None:
             with self._graph_lock:
                 out = self._graph_step(state, eval_fn)
@@ -273,6 +279,11 @@ class FusedEngine:
         for g in (("step",) if eval_fn is None else ("propose", "commit")):
             self.graph_counts[g]["eager"] += 1
         return self._step(state, eval_fn, exchange)
+
+    def _need_objective(self) -> None:
+        if self.objective is None:
+            raise ValueError("this FusedEngine has no device objective: "
+                             "step it with an eval_fn")
 
     def _step(self, state: EngineState, eval_fn=None,
               exchange: Optional[Exchange] = None) -> EngineState:

@@ -10,8 +10,11 @@ changed source rebuilds and an unchanged one is reused.
 
 Each kernel is a `Kernel` object, declared in `KERNELS` below, holding its
 library and an integer `launches` that its wrapper increments once per
-launch and nowhere else.  Several launchers may share one source (and so
-one library): `csrc/gp_tile.cu` holds four.
+launch and nowhere else.  Launchers B, C and D also count their launches
+by width (`width_launches`, beside `launches`), which `route_launches()`
+reads by the route the library plans for each width (`ut_krows_route`):
+"cuda_cores" or "tensor_cores".  Several launchers may share one source
+(and so one library): `csrc/gp_tile.cu` holds four.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from collections import Counter
 from pathlib import Path
 from typing import Dict, Optional, Sequence
 
@@ -51,6 +55,10 @@ def find_nvcc() -> str:
         "csrc at first use on a machine with the CUDA toolkit")
 
 
+# the routes of B's, C's and D's kernel-rows pass, by ut_krows_route's code
+KROWS_ROUTES = ("cuda_cores", "tensor_cores")
+
+
 class Kernel:
     """One hand-written kernel's launcher: its source, C symbol and
     signature, the TPU kernels it replaces, the loaded library, and the
@@ -58,7 +66,7 @@ class Kernel:
 
     def __init__(self, name: str, source: str, symbol: str,
                  argtypes: Sequence, replaces: Sequence[str],
-                 limit: Optional[str] = None):
+                 limit: Optional[str] = None, routed: bool = False):
         self.name = name
         self.source = CSRC / source
         self.symbol = symbol
@@ -67,6 +75,11 @@ class Kernel:
         # the library's query of the largest N it takes, (f, var) -> int
         self.limit = limit
         self.launches = 0
+        # launches by F, for the launchers with a kernel-rows pass (B, C,
+        # D; None for the others): a dict increment a launch, the route
+        # asked of the library only when read
+        self.width_launches: Optional[Counter] = Counter() if routed \
+            else None
         self._lib = None
         self._fn = None
 
@@ -105,6 +118,24 @@ class Kernel:
         fn.argtypes = [ctypes.c_int] * len(args)
         fn.restype = restype
         return int(fn(*args))
+
+    def krows_route(self, f: int) -> str:
+        """The route of the kernel-rows pass at F features, as the
+        library plans it (`ut_krows_route`)."""
+        route = self.query("ut_krows_route", f)
+        if route < 0:
+            raise ValueError(f"no krows route for F={f}")
+        return KROWS_ROUTES[route]
+
+    def route_launches(self) -> Optional[Dict[str, int]]:
+        """The launches counted so far by the route of their kernel-rows
+        pass; None for a launcher without one."""
+        if self.width_launches is None:
+            return None
+        out = dict.fromkeys(KROWS_ROUTES, 0)
+        for f, n in self.width_launches.items():
+            out[self.krows_route(f)] += n
+        return out
 
 
 def library_path(source: Path) -> Path:
@@ -159,7 +190,7 @@ GP_MEAN_VAR = Kernel(
     replaces=("uptune_tpu/surrogate/pallas_score.py:107",   # _var_kernel
               "uptune_tpu/surrogate/pallas_score.py:112",   # _mixed
               "uptune_tpu/surrogate/pallas_score.py:119"),  # _expham
-    limit="ut_acquire_max_train_rows")
+    limit="ut_acquire_max_train_rows", routed=True)
 # C: ut_acquire_scores(qc, qk, xc, xk, alpha, kinv, params, u, scratch, b,
 #    n, fc, fk, kind, stream); passes kinv_prep (K^-T), krows (k, mean),
 #    wq (k K^-1 on the tensor cores in 3xTF32, q) and final (utility)
@@ -167,7 +198,7 @@ ACQ_SCORES = Kernel(
     name="acquire_scores", source="gp_tile.cu", symbol="ut_acquire_scores",
     argtypes=[_P] * 9 + [_I] * 5 + [_P],
     replaces=("uptune_tpu/ops/acquire.py:151",),        # _scores_kernel
-    limit="ut_acquire_max_train_rows")
+    limit="ut_acquire_max_train_rows", routed=True)
 # D: ut_acquire_topk(qc, qk, xc, xk, alpha, kinv, params, u, vals, idx,
 #    scratch, b, n, fc, fk, kind, k, segs, stream); C's passes with a
 #    per-chunk sort in the final pass, then topk_merge (ranks across
@@ -177,13 +208,15 @@ ACQ_TOPK = Kernel(
     name="acquire_topk", source="gp_tile.cu", symbol="ut_acquire_topk",
     argtypes=[_P] * 11 + [_I] * 7 + [_P],
     replaces=("uptune_tpu/ops/acquire.py:157",),        # _topk_kernel
-    limit="ut_acquire_max_train_rows")
+    limit="ut_acquire_max_train_rows", routed=True)
 KERNELS = (MERGE, GP_MEAN, GP_MEAN_VAR, ACQ_SCORES, ACQ_TOPK)
 
 
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+        if k.width_launches is not None:
+            k.width_launches.clear()
 
 
 def build(todo: Optional[Sequence[Kernel]] = None) -> Dict[str, Path]:

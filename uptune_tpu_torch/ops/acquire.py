@@ -158,6 +158,7 @@ def scores_cuda(qc, qk, xc, xk, alpha, kinv, params, kind: str,
                  KIND_CODE[kind], stream_of(dev))
     native.check(err, SCORES_KERNEL)
     SCORES_KERNEL.launches += 1
+    SCORES_KERNEL.width_launches[fc + fk] += 1
     return u
 
 
@@ -186,6 +187,7 @@ def topk_segments_cuda(qc, qk, xc, xk, alpha, kinv, params, kind: str,
                  fc, fk, KIND_CODE[kind], k, segments, stream_of(dev))
     native.check(err, TOPK_KERNEL)
     TOPK_KERNEL.launches += 1
+    TOPK_KERNEL.width_launches[fc + fk] += 1
     if slots != k:                  # several lists: merge them here
         vals, pos = select_topk(vals, k)
         idx = idx.gather(-1, pos.long())

@@ -193,10 +193,7 @@ def krows_route(f: int) -> str:
     the library plans it (`csrc/gp_plan.h`): "cuda_cores" (up to 361
     features, all in one block) or "tensor_cores" (the distances' cross
     term on wgmma in 3xTF32, 32 features at a time)."""
-    route = MEAN_VAR_KERNEL.query("ut_krows_route", f)
-    if route < 0:
-        raise ValueError(f"no krows route for F={f}")
-    return ("cuda_cores", "tensor_cores")[route]
+    return MEAN_VAR_KERNEL.krows_route(f)
 
 
 def scratch_words(kernel: native.Kernel, b: int, n: int, var: bool,
@@ -284,6 +281,7 @@ def mean_var_tile_cuda(qc, qk, xc, xk, alpha, kinv,
                  ptr(mu), ptr(q), ptr(scratch), b, n, fc, fk, stream_of(dev))
     native.check(err, MEAN_VAR_KERNEL)
     MEAN_VAR_KERNEL.launches += 1
+    MEAN_VAR_KERNEL.width_launches[fc + fk] += 1
     return mu, q
 
 
