@@ -45,7 +45,18 @@ setting is printed.  Phases, each printing one JSON line:
              merge over an instance axis (N 256, cap 2^11, b 114 and N 4,
              cap 2^15, b 6040: one launch for all N, bitwise per
              instance), timed against its byte bound, an empty kernel of
-             its grid and N single launches;
+             its grid and N single launches; then `rng`: the draws'
+             kernel (csrc/rng.cu) bitwise against rng.py's torch ops at
+             the main paths' block sizes (a key split's 4 words, the
+             flagship's observe block of 182 and proposal block of
+             515,158, gcc-options' observe block of 107,912 and proposal
+             block of 8,616,696), for one key and a stacked [4, 2] key
+             (its counter crossing 2^32), in both modes (a stream's
+             24-bit words and uniforms; a split's whole words), and
+             under vmap (one launch); `mismatches` must be 0; its
+             launch and element counters; its time against the bytes
+             it writes (12 an element drawn, 8 split) at 3.35 TB/s,
+             beside an eager call's and the torch ops' times;
 4. surrogate - the GP of the surrogate path: `fit_auto_bucketed` on 1024
              evaluated flagship configurations (43 Cholesky factorizations
              of 1024^2) and `precompute_kinv`; a padded-bucket state (700
@@ -374,7 +385,8 @@ setting is printed.  Phases, each printing one JSON line:
              and driver tickets (plain, and with the calibrated GP
              manager), and the device time of A's kernel and of each
              pass of B, C and D at F 31 and at F 1028;
-19. kernels - one entry per kernel: launches on the main path, error
+19. kernels - one entry per kernel (the draws' kernel's from the rng
+             phase and the engine's steps): launches on the main path, error
              against the plain version (and, for the GP kernels, its
              largest ratio to the tolerance), times and bound; the merge
              also over its instance axis and at the driver's shape, and
@@ -559,6 +571,16 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60
     ).stdout.strip()
+
+
+def kernel_launches() -> dict:
+    """Launches of each hand-written kernel since the last reset, by
+    name, but for the draws' kernel (rng_block): it launches once a
+    stream block or key split, a count the phases below do not predict;
+    the rng phase holds it, and the engine phase counts it a step."""
+    from uptune_tpu_torch import native
+    return {k.name: k.launches for k in native.KERNELS
+            if k is not native.RNG}
 
 
 # -- timing -------------------------------------------------------------------
@@ -779,6 +801,107 @@ def merge_phase(dev, sweep: bool) -> dict:
         raise AssertionError(f"merge over an instance axis differs from "
                              f"the plain version: {bad}")
     return out, case, timed[DRIVER_TIMED][3]
+
+
+# -- the draws' kernel against rng.py's torch ops ------------------------------
+# the main paths' block sizes: a key split's 4 words, the flagship's
+# observe and proposal blocks, gcc-options' observe and proposal blocks
+RNG_COUNTS = (4, 182, 107_912, 515_158, 8_616_696)
+RNG_STACK = 4                   # rows of the stacked key
+
+
+def rng_kernel(key, mode: str, start: int, count: int) -> tuple:
+    """The custom op of `mode` on the card (the kernel): (words,) or
+    (24-bit words, uniforms)."""
+    from uptune_tpu_torch import rng
+    if mode == "split":
+        return (torch.ops.uptune_tpu_torch.rng_hash(key, rng._SPLIT, start,
+                                                    count),)
+    return tuple(torch.ops.uptune_tpu_torch.rng_block(key, start, count))
+
+
+def rng_plain(key, mode: str, start: int, count: int) -> tuple:
+    """The same block from rng.py's torch ops, on the key's device."""
+    from uptune_tpu_torch import rng
+    if mode == "split":
+        return (rng._hash_torch(key, rng._SPLIT, start, count),)
+    return tuple(rng._block_torch(key, start, count))
+
+
+def rng_mismatches(got: tuple, want: tuple) -> int:
+    """Elements whose bits differ, over every output."""
+    return sum(int((col_bits(g) != col_bits(w)).sum())
+               for g, w in zip(got, want))
+
+
+def rng_phase(dev) -> dict:
+    """The draws' kernel bitwise against the torch ops, its counters, and
+    its times at each block size (one key)."""
+    from uptune_tpu_torch import native, rng
+    one = rng.key(SEED + 21, dev)
+    stacked = rng.split(one, RNG_STACK)
+    out = {"phase": "rng", "tolerance": "bitwise", "cases": []}
+    native.reset_launches()
+    rows_drawn = 0
+    for count in RNG_COUNTS:
+        # the stacked key from a counter just below 2^32, so that it
+        # crosses it
+        for shape, key, start in (("[2]", one, 0),
+                                  (f"[{RNG_STACK}, 2]", stacked,
+                                   2**32 - count // 2)):
+            for mode in ("draw", "split"):
+                got = rng_kernel(key, mode, start, count)
+                want = rng_plain(key, mode, start, count)
+                torch.cuda.synchronize()
+                out["cases"].append({
+                    "count": count, "key": shape, "start": start,
+                    "mode": mode,
+                    "mismatches": rng_mismatches(got, want)})
+                rows_drawn += (1 if key.dim() == 1 else RNG_STACK) * count
+                del got, want
+    vm = torch.func.vmap(lambda k: rng_kernel(k, "draw", 5, 182))(stacked)
+    torch.cuda.synchronize()
+    out["cases"].append({"count": 182, "key": f"vmap [{RNG_STACK}, 2]",
+                         "start": 5, "mode": "draw",
+                         "mismatches": rng_mismatches(
+                             vm, rng_plain(stacked, "draw", 5, 182))})
+    rows_drawn += RNG_STACK * 182
+    want_counts = (4 * len(RNG_COUNTS) + 1, rows_drawn)
+    out["launches"], out["elements"] = native.RNG.launches, \
+        native.RNG.elements
+    out["mismatches"] = sum(c["mismatches"] for c in out["cases"])
+    fn = native.RNG.function()
+    out["timed"] = {}
+    for count in RNG_COUNTS:
+        words = torch.empty(count, dtype=torch.int64, device=dev)
+        floats = torch.empty(count, dtype=torch.float32, device=dev)
+        for mode, f_ptr, per in (("draw", floats.data_ptr(), 12),
+                                 ("split", None, 8)):
+            domain = rng._DRAW if mode == "draw" else rng._SPLIT
+
+            def kernel(f_ptr=f_ptr, domain=domain):
+                native.check(fn(one.data_ptr(), words.data_ptr(), f_ptr, 1,
+                                count, 0, domain,
+                                torch.cuda.current_stream().cuda_stream),
+                             native.RNG)
+            bound = count * per / HBM_BYTES_PER_S * 1e3
+            ms = median_ms(kernel)
+            out["timed"].setdefault(str(count), {})[mode] = {
+                "ms": ms, "bound_ms": bound, "roofline_pct": 100 * bound / ms,
+                "bytes": count * per, "bound_by": "bytes",
+                "call_ms": call_ms(lambda: rng_kernel(one, mode, 0, count)),
+                "plain_ms": median_ms(lambda: rng_plain(one, mode, 0, count),
+                                      reps=10 if count > 10**6 else REPS)}
+        del words, floats
+    emit(out)
+    if out["mismatches"]:
+        raise AssertionError(f"rng kernel: {out['mismatches']} elements "
+                             f"differ from the torch ops")
+    if (out["launches"], out["elements"]) != want_counts:
+        raise AssertionError(f"rng kernel counted {out['launches']} "
+                             f"launches and {out['elements']} elements, "
+                             f"expected {want_counts}")
+    return out
 
 
 def merge_instances_case(n: int, cap: int, b: int, floor_ms, dev) -> dict:
@@ -1574,7 +1697,9 @@ def engine_phase(dev) -> tuple:
         st = eng.step(st)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in native.KERNELS}
+    launches = kernel_launches()
+    rng_block = {"launches": native.RNG.launches,
+                 "elements": native.RNG.elements}
 
     best = eng.best_qor(st)
     de = st.tstates[0]
@@ -1585,9 +1710,14 @@ def engine_phase(dev) -> tuple:
            "init_and_warm_step_s": warm_s, "best_qor": best,
            "evals": int(st.evals), "acqs": int(st.acqs),
            "hist_n": int(st.hist.n), "hist_dropped": int(st.hist.dropped),
-           "launches": launches,
+           "launches": launches, "rng_block": rng_block,
            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
     emit(out)
+    # a step draws from three blocks: the key split, the proposal's and
+    # the observe's
+    if rng_block["launches"] != 3 * STEPS:
+        raise AssertionError(f"rng kernel launched {rng_block} in {STEPS} "
+                             f"steps, not 3 a step")
     if launches["merge_rows"] != STEPS:
         raise AssertionError(f"merge kernel launched {launches['merge_rows']}"
                              f" times in {STEPS} commits")
@@ -1700,7 +1830,7 @@ def surrogate_engine_phase(eng, cases, feats: tuple, dev) -> dict:
             st = eng.step(st, eval_fn=e)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    launches = {k.name: k.launches for k in native.KERNELS}
+    launches = kernel_launches()
 
     best_q = eng.best_qor(st)
     out = {"phase": "surrogate_engine", "scale": SCALE,
@@ -1954,7 +2084,7 @@ def batched_phase(dev) -> tuple:
         st = be.run(st, 2)
         torch.cuda.synchronize()
         wall = (t1 - t0) + (time.perf_counter() - t2)
-        launches = {k.name: k.launches for k in native.KERNELS}
+        launches = kernel_launches()
         run = {"exchange_every": every, "seconds": wall,
                "ms_per_step": wall / MULTI_STEPS * 1e3,
                "acquisitions_per_s": MULTI_N * b * MULTI_STEPS / wall,
@@ -1967,7 +2097,7 @@ def batched_phase(dev) -> tuple:
         if every:
             run["all_equal_after_exchange"] = exchanged
         out["runs"].append(run)
-        want = {k.name: 0 for k in native.KERNELS}
+        want = dict.fromkeys(kernel_launches(), 0)
         want["merge_rows"] = MULTI_STEPS
         if launches != want:
             emit(out)
@@ -2019,7 +2149,7 @@ def batched_flagship_phase(cases, feats: tuple, dev) -> tuple:
     st = be.run(st0, BF_STEPS, eval_fn=ev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in native.KERNELS}
+    launches = kernel_launches()
     rows = BF_N * eng.total_batch
     out = {"phase": "batched_flagship", "scale": SCALE, "instances": BF_N,
            "rows_per_instance": eng.total_batch, "rows_per_step": rows,
@@ -2030,7 +2160,7 @@ def batched_flagship_phase(cases, feats: tuple, dev) -> tuple:
            "launches": launches,
            "acquire_scratch_bytes": 4 * ps.scratch_words(
                acq.SCORES_KERNEL, rows, int(st_gp.x.shape[0]), True)}
-    want = {k.name: 0 for k in native.KERNELS}
+    want = dict.fromkeys(kernel_launches(), 0)
     want.update(acquire_scores=BF_STEPS, merge_rows=BF_STEPS)
     bad = []
     if launches != want:
@@ -2247,7 +2377,7 @@ def portfolio_flagship_phase(cases, feats: tuple, dev) -> tuple:
         st = eng.step(st, eval_fn=ev)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = {k.name: k.launches for k in native.KERNELS}
+    launches = kernel_launches()
 
     best = eng.best_qor(st)
     out = {"phase": "portfolio_flagship", "scale": PF_SCALE,
@@ -2265,7 +2395,7 @@ def portfolio_flagship_phase(cases, feats: tuple, dev) -> tuple:
            "syncs_per_scored_step": sync_count(
                lambda: eng.step(st, eval_fn=ev))}
     bad = []
-    want = {k.name: 0 for k in native.KERNELS}
+    want = dict.fromkeys(kernel_launches(), 0)
     want.update(merge_rows=PF_STEPS + PF_SCORED, acquire_scores=PF_SCORED)
     if launches != want:
         bad.append(f"launches {launches}, expected {want}")
@@ -2404,7 +2534,7 @@ def portfolio_batched_phase(dev) -> tuple:
     st = be.run(st, PB_STEPS - MULTI_EXCHANGE)
     torch.cuda.synchronize()
     wall = (t1 - t0) + (time.perf_counter() - t2)
-    launches = {k.name: k.launches for k in native.KERNELS}
+    launches = kernel_launches()
     out.update({
         "seconds": wall, "ms_per_step": wall / PB_STEPS * 1e3,
         "acquisitions_per_s": PB_N * b * PB_STEPS / wall,
@@ -2413,7 +2543,7 @@ def portfolio_batched_phase(dev) -> tuple:
         "hist_dropped": int(st.hist.dropped.sum()), "launches": launches,
         "all_equal_after_exchange": exchanged,
         "syncs_per_step": sync_count(lambda: be.run(st, 1))})
-    want = {k.name: 0 for k in native.KERNELS}
+    want = dict.fromkeys(kernel_launches(), 0)
     want["merge_rows"] = PB_STEPS
     if launches != want:
         bad.append(f"launches {launches}, expected {want}")
@@ -2547,7 +2677,7 @@ def driver_phase(dev) -> tuple:
     res = t.run(test_limit=DRIVER_LIMIT)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in native.KERNELS}
+    launches = kernel_launches()
     tickets = res.steps
     out = {"phase": "driver", "space": "flagship",
            "technique": t.root.name,
@@ -2565,7 +2695,7 @@ def driver_phase(dev) -> tuple:
            "commits": commits[0], "launches": launches,
            "best_qor": res.best_qor,
            "hist_dropped": int(t.hist_state.dropped)}
-    want = {k.name: 0 for k in native.KERNELS}
+    want = dict.fromkeys(kernel_launches(), 0)
     want["merge_rows"] = commits[0]
     if launches != want or not commits[0]:
         bad.append(f"launches {launches}, expected {want}")
@@ -2765,7 +2895,7 @@ def surrogate_run(t, stats, commits, limit: int, bad: list) -> dict:
            "t_dedup_median_ms": statistics.median(
                s.t_dedup for s in stats) * 1e3,
            "commits": commits[0],
-           "launches": {k.name: k.launches for k in native.KERNELS},
+           "launches": kernel_launches(),
            "best_qor": res.best_qor,
            "refits_started": sm.refits_started,
            "refits_published": sm.refits, "extensions": sm.incr_updates,
@@ -2859,7 +2989,7 @@ def surrogate_driver_phase(dev) -> tuple:
                           "mlp_predictions_over_y_std": MLP_TOL_Y_STD}}
 
     def kernels_want(merges, topk=0):
-        want = {k.name: 0 for k in native.KERNELS}
+        want = dict.fromkeys(kernel_launches(), 0)
         want["merge_rows"], want["acquire_topk"] = merges, topk
         return want
 
@@ -3330,9 +3460,9 @@ def program_phase(dev) -> dict:
         t0 = time.perf_counter()
         syncs = sync_count(lambda: res.append(pt.run()), 2)
         wall = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in native.KERNELS}
+        launches = kernel_launches()
         tickets = len(stats)
-        want = {k.name: 0 for k in native.KERNELS}
+        want = dict.fromkeys(kernel_launches(), 0)
         want["merge_rows"] = commits[0]
         inproc = {
             "device": str(dev), "parallel": 4, "test_limit": PROGRAM_LIMIT,
@@ -3439,7 +3569,7 @@ def program_phase(dev) -> dict:
             pool_utilization=gpt.pool.utilization(),
             refits_started=sm.refits_started, refits_published=sm.refits,
             extensions=sm.incr_updates,
-            launches={k.name: k.launches for k in native.KERNELS})
+            launches=kernel_launches())
         out["gcc"] = gcc
         if not (np.isfinite(line["best_qor"]) and line["evals"] >= GCC_LIMIT
                 and gcc["launches"]["acquire_topk"] == 0
@@ -3485,7 +3615,7 @@ def cpp_demo_run(work: Path, dev, bad: list) -> dict:
     out.update(params=params, default_qor=pt.default_qor, evals=res.evals,
                best_qor=res.best_qor, best_config=res.best_config,
                seconds=time.perf_counter() - t0,
-               launches={k.name: k.launches for k in native.KERNELS})
+               launches=kernel_launches())
     r = subprocess.run([str(demo)], capture_output=True, text=True,
                        cwd=str(work), timeout=60,
                        env=dict(os.environ, BEST="True",
@@ -3704,8 +3834,8 @@ def topk_batched_phase(cases, feats: tuple, dev) -> dict:
         ts, cands, keys, vals, idx = be.propose_topk(st0, TOP_K, ev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {kk.name: kk.launches for kk in native.KERNELS}
-    want = {kk.name: 0 for kk in native.KERNELS}
+    launches = kernel_launches()
+    want = dict.fromkeys(kernel_launches(), 0)
     want["acquire_topk"] = TOPK_EPOCHS
     # each instance's top k is that instance's own D launch
     own = [ev.topk(CandBatch(cands.u[i], tuple(p[i] for p in cands.perms)),
@@ -3988,7 +4118,7 @@ def serve_drive(dev, n_sessions: int, bad: list) -> dict:
     lock["held_share_of_wall"] = lock["held_s"] / drive_s
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in native.KERNELS}
+    launches = kernel_launches()
     scrape = clients[0].metrics()
     counters = scrape["metrics"]["counters"]
     gauges = scrape["metrics"]["gauges"]
@@ -4043,7 +4173,7 @@ def serve_drive(dev, n_sessions: int, bad: list) -> dict:
            "process_cpu_over_wall": cpu_s / drive_s,
            "state_bytes": state_bytes, "launches": launches,
            "errors": errors, "sampled_seeds": sorted(offered)}
-    want = {k.name: 0 for k in native.KERNELS}
+    want = dict.fromkeys(kernel_launches(), 0)
     if dev.type == "cuda":                  # the CPU merges in plain torch
         want["merge_rows"] = out["commits"]
     if errors or launches != want or not out["commits"]:
@@ -4829,7 +4959,7 @@ def store_child_main(argv) -> int:
     torch.cuda.synchronize()
     t_done = time.time()
     res = tuner.result()
-    launches = {k.name: k.launches for k in native.KERNELS}
+    launches = kernel_launches()
     tuner.close()
     obs.journal.flush()
     obs.stop_journal(jmon)
@@ -5115,7 +5245,7 @@ def sharded_run(eng, mesh, seed: int, steps: int) -> tuple:
     st = se.run(st0, steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return se, st, wall, {k.name: k.launches for k in native.KERNELS}
+    return se, st, wall, kernel_launches()
 
 
 def mesh_rank_main() -> int:
@@ -5177,7 +5307,7 @@ def parallel_phase(cases, feats: tuple, dev) -> dict:
     out = {"phase": "parallel", "scale": SCALE, "history_capacity": CAPACITY,
            "steps": PAR_STEPS}
     bad = []
-    zero = {k.name: 0 for k in native.KERNELS}
+    zero = dict.fromkeys(kernel_launches(), 0)
     eng = flagship(SCALE, history_capacity=CAPACITY, device=dev)
     eng.run(eng.init(SEED), 1)                    # warm step
     torch.cuda.synchronize()
@@ -5230,13 +5360,13 @@ def parallel_phase(cases, feats: tuple, dev) -> dict:
     sm = bm.run(st0, PAR_BF_STEPS, eval_fn=ev)
     torch.cuda.synchronize()
     mesh_ms = (time.perf_counter() - t0) / PAR_BF_STEPS * 1e3
-    run_launches = {k.name: k.launches for k in native.KERNELS}
+    run_launches = kernel_launches()
     su = be.run(st0, PAR_BF_STEPS, eval_fn=ev)
     run_diff = trees_differ(sm, su)
     native.reset_launches()
     gv, gown, gidx = bm.global_topk(st0, TOP_K, ev)
     torch.cuda.synchronize()
-    topk_launches = {k.name: k.launches for k in native.KERNELS}
+    topk_launches = kernel_launches()
     uv, uown, uidx = be.global_topk(st0, TOP_K, ev)
     err, ratio = tol_excess(gv[0], uv[0], SD_TOL, float(st_gp.y_std))
     b_out = {
@@ -5283,7 +5413,7 @@ def parallel_phase(cases, feats: tuple, dev) -> dict:
     got = sharded_gp_score(m12, "eval", st_gp, q2, kind="ei", best_y=best,
                            n_cont=nc, n_cat=ncat)
     torch.cuda.synchronize()
-    c_launches = {k.name: k.launches for k in native.KERNELS}
+    c_launches = kernel_launches()
     mu1, sd1 = ps.gp_mean_var_scores(st_gp, q2, nc, ncat)
     one = gp.ei_from_moments(mu1, sd1, torch.tensor(best, device=dev))
     blocks = ps.prep_blocks(st_gp, q2, nc, ncat)
@@ -5480,7 +5610,7 @@ def notears_child_main(argv) -> int:
     dev = torch.device(argv[i + 1])
     native.reset_launches()
     out = {"runs": {name: notears_case(name, dev) for name in argv[i + 2:]}}
-    out["launches"] = {k.name: k.launches for k in native.KERNELS}
+    out["launches"] = kernel_launches()
     print(json.dumps(out), flush=True)
     return 0
 
@@ -5637,7 +5767,7 @@ def quickest_phase(dev) -> dict:
         out["test"] = qe.test(xt, yt, list(QE_TARGETS),
                               model_dir=str(tmp / "db"), device=dev)
         out["test_seconds"] = time.perf_counter() - t0
-        out["launches"] = {k.name: k.launches for k in native.KERNELS}
+        out["launches"] = kernel_launches()
         cpu = qe.QuickEst.load(str(tmp / "db"), device="cpu")
         errs = {}
         for j, t in enumerate(QE_TARGETS):
@@ -5728,7 +5858,7 @@ PTXAS_KERNEL = re.compile(
     r"(merge_rows_kernelILi\d+E|launch_floor_kernel|kinv_prep_kernel|"
     r"wq_kernel|moments_kernel|topk_merge_kernel|final_kernelILb\dE|"
     r"krows_kernelILb\dELb\dELb\dE|krows_mma_kernelILb\dELb\dELb\dE|"
-    r"gp_mean_kernelILb\dELb\dELb\dE)")
+    r"gp_mean_kernelILb\dELb\dELb\dE|rng_block_kernelILb\dE)")
 
 
 def ptxas_summary(log: str) -> list:
@@ -5812,7 +5942,7 @@ def emit_passes(cases, wide_state) -> None:
 # the phases of a full run, in order, each with the phases whose results
 # it takes (`--phases` runs those too)
 PHASES = {
-    "merge": (), "surrogate": (), "gp_kernels": ("surrogate",),
+    "merge": (), "rng": (), "surrogate": (), "gp_kernels": ("surrogate",),
     "gp_wide": (), "engine": (), "reference": ("engine",),
     "surrogate_engine": ("engine", "surrogate"), "batched": (),
     "batched_flagship": ("surrogate",),
@@ -5963,6 +6093,8 @@ def main() -> int:
     r = {}
     if "merge" in todo:
         r["merge"] = merge_phase(dev, args.profile)
+    if "rng" in todo:
+        r["rng"] = rng_phase(dev)
     if "surrogate" in todo:
         r["surrogate"] = surrogate_phase(dev)
     if "gp_kernels" in todo:
@@ -6044,6 +6176,19 @@ def main() -> int:
         common = {"name": k.name, "route": "cuda",
                   "source": str(k.source.relative_to(ROOT)),
                   "replaces": ", ".join(k.replaces), "matched": True}
+        if k is native.RNG:
+            main = r["rng"]["timed"][str(RNG_COUNTS[-1])]
+            entries.append(dict(
+                common, launches=engine["rng_block"]["launches"],
+                elements=engine["rng_block"]["elements"],
+                mismatches=r["rng"]["mismatches"],
+                shape=f"count={RNG_COUNTS[-1]}", ms=main["draw"]["ms"],
+                kernel_ms=main["draw"]["ms"],
+                call_ms=main["draw"]["call_ms"],
+                plain_ms=main["draw"]["plain_ms"],
+                bound_ms=main["draw"]["bound_ms"], bound_by="bytes",
+                library_ms=None, timed=r["rng"]["timed"]))
+            continue
         batched = {"launches_batched": multi["runs"][0]["launches"][k.name],
                    "launches_batched_flagship": flag["launches"][k.name],
                    "launches_portfolio_flagship": pflag["launches"][k.name],

@@ -376,6 +376,8 @@ def test_replays_record_one_span_each_and_no_phase_spans(card):
     st = eng.step(st, eval_fn=ev)
     eng.propose_topk(st, ev, 16)
     names = [e["name"] for e in obs.snapshot()["events"]]
+    # C and D stay eager, each with the span of its feature transform
     assert names == ["engine.graph.propose", "engine.evaluate",
-                     "engine.graph.commit", "engine.graph.propose",
-                     "engine.topk"]
+                     "acquire.features", "engine.graph.commit",
+                     "engine.graph.propose", "engine.topk",
+                     "acquire.features"]

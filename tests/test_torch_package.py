@@ -118,7 +118,8 @@ def test_the_kernel_sources_ship_with_the_package():
     from uptune_tpu_torch import native
     ks = native.KERNELS
     assert [k.name for k in ks] == ["merge_rows", "gp_mean", "gp_mean_var",
-                                    "acquire_scores", "acquire_topk"]
+                                    "acquire_scores", "acquire_topk",
+                                    "rng_block"]
     cited = []
     for k in ks:
         assert k.source.is_file() and k.source.parent == PKG / "csrc"
@@ -129,8 +130,10 @@ def test_the_kernel_sources_ship_with_the_package():
             text = (REPO / path).read_text().splitlines()[int(line) - 1]
             assert text.startswith("def _") and "kernel" in text, (r, text)
             cited.append(r)
-    # the nine Pallas kernels of the JAX package, each replaced once
+    # the nine Pallas kernels of the JAX package, each replaced once; the
+    # draws' kernel replaces none (the JAX package draws with jax.random)
     assert len(cited) == len(set(cited)) == 9
+    assert native.RNG.replaces == ()
 
 
 def test_a_cached_library_reports_its_build_log(tmp_path, monkeypatch):
@@ -215,7 +218,7 @@ def test_the_ptxas_summary_names_every_kernel_function(monkeypatch):
             (line,) = chip_smoke.ptxas_summary(log)
             assert line.startswith(name) and "_ZN" not in line, (src, line)
     assert {"gp_mean_kernel", "krows_kernel", "wq_kernel",
-            "merge_rows_kernel"} <= set(names), names
+            "merge_rows_kernel", "rng_block_kernel"} <= set(names), names
     assert "gp_tile_kernel" not in names
 
 

@@ -25,8 +25,9 @@ leaves as views, so a returned state is a value that no later replay
 overwrites.
 
 Launch counters.  Capture runs no kernel, so the increments of the
-hand-written kernels' `native.Kernel.launches` made while capturing are
-taken back out; each replay adds the counts its capture recorded.
+hand-written kernels' `native.Kernel.launches` (and `elements`) made
+while capturing are taken back out; each replay adds the counts its
+capture recorded.
 """
 from __future__ import annotations
 
@@ -146,7 +147,7 @@ class Phase:
         with torch.cuda.stream(side):
             fn(*args)
         cur.wait_stream(side)
-        before = [k.launches for k in native.KERNELS]
+        before = [(k.launches, k.elements) for k in native.KERNELS]
         self.graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(self.graph,
@@ -164,16 +165,19 @@ class Phase:
         finally:
             # a capture that fails leaves the capture stream current
             torch.cuda.set_stream(cur)
-            counts = [k.launches - n for k, n in zip(native.KERNELS, before)]
-            for k, n in zip(native.KERNELS, before):
-                k.launches = n
-        self.counts = [(k, n) for k, n in zip(native.KERNELS, counts) if n]
+            counts = [(k.launches - n, k.elements - e)
+                      for k, (n, e) in zip(native.KERNELS, before)]
+            for k, (n, e) in zip(native.KERNELS, before):
+                k.launches, k.elements = n, e
+        self.counts = [(k, n, e) for k, (n, e) in zip(native.KERNELS, counts)
+                       if n]
         self.static = unflatten(self.spec, views)
 
     def replay(self) -> None:
         self.graph.replay()
-        for k, n in self.counts:
+        for k, n, e in self.counts:
             k.launches += n
+            k.elements += e
 
     def fresh(self):
         """The output tree of the last replay, in a buffer of its own."""

@@ -10,11 +10,16 @@ changed source rebuilds and an unchanged one is reused.
 
 Each kernel is a `Kernel` object, declared in `KERNELS` below, holding its
 library and an integer `launches` that its wrapper increments once per
-launch and nowhere else.  Launchers B, C and D also count their launches
-by width (`width_launches`, beside `launches`), which `route_launches()`
-reads by the route the library plans for each width (`ut_krows_route`):
-"cuda_cores" or "tensor_cores".  Several launchers may share one source
-(and so one library): `csrc/gp_tile.cu` holds four.
+launch and nowhere else; the draws' kernel (`RNG`) also counts the
+elements it drew (`elements`).  Launchers B, C and D also count their
+launches by width (`width_launches`, beside `launches`), which
+`route_launches()` reads by the route the library plans for each width
+(`ut_krows_route`): "cuda_cores" or "tensor_cores".  Several launchers
+may share one source (and so one library): `csrc/gp_tile.cu` holds four.
+
+Most kernels replace a Pallas kernel of the JAX package (`replaces`).
+`RNG` replaces none: it computes the port's own counter hash
+(`rng.py`), which on the CPU runs as torch ops, bitwise equal.
 """
 from __future__ import annotations
 
@@ -75,6 +80,9 @@ class Kernel:
         # the library's query of the largest N it takes, (f, var) -> int
         self.limit = limit
         self.launches = 0
+        # elements drawn, for the kernel that counts them (RNG; 0 for the
+        # others)
+        self.elements = 0
         # launches by F, for the launchers with a kernel-rows pass (B, C,
         # D; None for the others): a dict increment a launch, the route
         # asked of the library only when read
@@ -209,12 +217,22 @@ ACQ_TOPK = Kernel(
     argtypes=[_P] * 11 + [_I] * 7 + [_P],
     replaces=("uptune_tpu/ops/acquire.py:157",),        # _topk_kernel
     limit="ut_acquire_max_train_rows", routed=True)
-KERNELS = (MERGE, GP_MEAN, GP_MEAN_VAR, ACQ_SCORES, ACQ_TOPK)
+# rng_block(keys, words, floats, rows, count, start, domain, stream): one
+# block of the draws' counter hash for `rows` keys in one pass (floats
+# null: whole words, for split keys); its wrapper is `rng.py::_block_cuda`.
+# It replaces no TPU kernel: the JAX package draws with jax.random.
+RNG = Kernel(
+    name="rng_block", source="rng.cu", symbol="ut_rng_block",
+    argtypes=[_P] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_uint] * 2
+    + [_P],
+    replaces=())
+KERNELS = (MERGE, GP_MEAN, GP_MEAN_VAR, ACQ_SCORES, ACQ_TOPK, RNG)
 
 
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.elements = 0
         if k.width_launches is not None:
             k.width_launches.clear()
 

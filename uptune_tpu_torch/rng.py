@@ -1,7 +1,7 @@
 """Draw helpers: every random number the port uses comes from here.
 
 The JAX package threads `jax.random` keys; so does the port, with its own
-counter-based generator in plain integer tensor ops.  A key is a [2]
+counter-based generator (a hash of a counter).  A key is a [2]
 int64 tensor holding two 32-bit words.  Element j of the stream of a key
 is a hash of (key, j), so a draw is a function of the key alone: the
 state that carries a key is a value (drawing twice from one state gives
@@ -19,11 +19,22 @@ draws for all N instances in the same launches as one key does.
   depend on the block size.
 
 The hash mixes 32-bit words held in int64 with multipliers below 2^31,
-so no product overflows.  A uniform is the top 24 bits of a word times
-2^-24 (exact in float32), an integer in [lo, hi) is lo + (those 24 bits
-times (hi - lo)) >> 24, a normal comes from two uniforms by Box-Muller.
-Uniforms and integers are the same on the CPU and on the card; a normal
-goes through log and cos and may differ in the last place.
+so no product overflows.  On the CPU it runs as those torch ops
+(`_hash_torch`); on the card a block of it is one launch of the
+hand-written kernel `csrc/rng.cu` (`native.RNG`), which does the same
+arithmetic in wrapping uint32 and gives the same words bit for bit.  The
+custom ops `uptune_tpu_torch::rng_hash` (whole words: `_hash`, so
+`split`) and `uptune_tpu_torch::rng_block` (a stream's block of 24-bit
+words and their uniforms) route by the key's device, with no mode knob:
+CPU keys take the torch ops, CUDA keys launch the kernel or raise.  Their
+vmap rules put a stacked key's instance axis in front and call the op
+once, so a batched engine draws for all its instances in one launch.
+
+A uniform is the top 24 bits of a word times 2^-24 (exact in float32),
+an integer in [lo, hi) is lo + (those 24 bits times (hi - lo)) >> 24, a
+normal comes from two uniforms by Box-Muller.  Uniforms and integers
+are the same on the CPU and on the card; a normal goes through log and
+cos and may differ in the last place.
 
 Each stochastic op of the port is split into a draw step built from these
 helpers and a pure function of the draws; the parity tests feed the pure
@@ -36,6 +47,8 @@ import math
 from typing import Optional, Sequence
 
 import torch
+
+from . import native
 
 _MASK = 0xFFFFFFFF
 # odd multipliers below 2^31: a 32-bit word times one fits in int64
@@ -55,15 +68,99 @@ def _mix(x):
     return x ^ (x >> 16)
 
 
-def _hash(key: torch.Tensor, domain: int, start: int,
-          count: int) -> torch.Tensor:
-    """[..., count] int64 words: elements start .. start + count - 1 of
-    the key's `domain` sequence.  Distinct elements of one sequence give
-    distinct words."""
+def _hash_torch(key: torch.Tensor, domain: int, start: int,
+                count: int) -> torch.Tensor:
+    """`_hash` as torch ops: the plain version of the kernel, which the
+    CPU runs."""
     j = torch.arange(start, start + count, dtype=torch.int64,
                      device=key.device)
     x = _mix((j * _STEP + key[..., :1] + domain) & _MASK)
     return _mix(x ^ key[..., 1:])
+
+
+def _block_torch(key: torch.Tensor, start: int, count: int):
+    """`Stream`'s block as torch ops: (24-bit words, uniforms)."""
+    words = _hash_torch(key, _DRAW, start, count) >> 8
+    return words, words.to(torch.float32) * 2.0 ** -24
+
+
+def _block_cuda(key: torch.Tensor, domain: int, start: int, count: int,
+                draw: bool):
+    """Launch the kernel (`csrc/rng.cu`) on a CUDA key [..., 2], on the
+    current stream: one launch for every key row (none for an empty
+    block), counted once, with its elements.  Returns (the [..., count]
+    int64 words, the uniforms or None): with `draw`, the 24-bit words of
+    the `_DRAW` sequence and their uniforms; otherwise the whole words of
+    the `domain` sequence.  Checks the key and raises if the launch
+    fails."""
+    dev = key.device
+    if dev.type != "cuda":
+        raise ValueError(f"rng's kernel needs a CUDA key, got {dev}")
+    if key.dtype != torch.int64 or key.dim() == 0 or key.shape[-1] != 2:
+        raise ValueError(f"a key is [..., 2] int64, got {key.dtype} "
+                         f"{tuple(key.shape)}")
+    if count < 0 or start < 0:
+        raise ValueError(f"elements {start} + {count} of a stream")
+    lead = tuple(key.shape[:-1])
+    rows = math.prod(lead)
+    keys = key.contiguous()
+    words = torch.empty(lead + (count,), dtype=torch.int64, device=dev)
+    floats = (torch.empty(lead + (count,), dtype=torch.float32, device=dev)
+              if draw else None)
+    if rows * count:
+        fn = native.RNG.function()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(keys.data_ptr(), words.data_ptr(),
+                     None if floats is None else floats.data_ptr(),
+                     rows, count, start & _MASK, domain, stream)
+        native.check(err, native.RNG)
+        native.RNG.launches += 1
+        native.RNG.elements += rows * count
+    return words, floats
+
+
+def _hash_impl(key, domain, start, count):
+    if key.device.type == "cpu":
+        return _hash_torch(key, domain, start, count)
+    return _block_cuda(key, domain, start, count, False)[0]
+
+
+def _block_impl(key, start, count):
+    if key.device.type == "cpu":
+        return _block_torch(key, start, count)
+    return _block_cuda(key, _DRAW, start, count, True)
+
+
+_hash_op = torch.library.custom_op(
+    "uptune_tpu_torch::rng_hash", _hash_impl, mutates_args=(),
+    schema="(Tensor key, int domain, int start, int count) -> Tensor")
+_block_op = torch.library.custom_op(
+    "uptune_tpu_torch::rng_block", _block_impl, mutates_args=(),
+    schema="(Tensor key, int start, int count) -> (Tensor, Tensor)")
+
+
+def _hash_vmap(info, in_dims, key, domain, start, count):
+    """vmap over `_hash`: the stacked key's instance axis goes in front
+    and the op runs once."""
+    return _hash_op(key.movedim(in_dims[0], 0), domain, start, count), 0
+
+
+def _block_vmap(info, in_dims, key, start, count):
+    return _block_op(key.movedim(in_dims[0], 0), start, count), (0, 0)
+
+
+_hash_op.register_vmap(_hash_vmap)
+_block_op.register_vmap(_block_vmap)
+
+
+def _hash(key: torch.Tensor, domain: int, start: int,
+          count: int) -> torch.Tensor:
+    """[..., count] int64 words: elements start .. start + count - 1 of
+    the key's `domain` sequence.  Distinct elements of one sequence give
+    distinct words.  Torch ops for a CPU key, one kernel launch for a
+    CUDA key (the module's docstring)."""
+    return _hash_op(key, domain, start, count)
 
 
 def key(seed: int, device) -> torch.Tensor:
@@ -102,8 +199,7 @@ class Stream:
                              else self._words.shape[-1])
         if self._words is None or self.used + n > end:
             size = max(n, self._hint - self.used)
-            self._words = _hash(self.key, _DRAW, self.used, size) >> 8
-            self._floats = self._words.to(torch.float32) * 2.0 ** -24
+            self._words, self._floats = _block_op(self.key, self.used, size)
             self._start = self.used
         a = self.used - self._start
         self.used += n
