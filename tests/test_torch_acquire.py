@@ -13,7 +13,6 @@ Tolerances: mean rtol 1e-4 / atol 1e-5, sd / EI / LCB rtol 1e-3 / atol
 equal at every rank whose value is apart from its neighbours by more
 than the tolerance; exact ties (duplicated rows) go to the lowest index.
 """
-import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -498,26 +497,24 @@ def test_mean_var_wrapper_takes_n_above_its_former_limit(n, monkeypatch):
     monkeypatch.setattr(tps, "require_cuda", lambda kernel, dev: None)
     launched = []
 
-    def function():
-        def fn(*args):
-            launched.append(args)
-            return 0
-        return fn
-    monkeypatch.setattr(native.GP_MEAN_VAR, "function", function)
-    monkeypatch.setattr(tps, "stream_of", lambda dev: 0)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda dev: contextlib.nullcontext())
+    def call(kernel, dev, *args):
+        launched.append((kernel, args))
+        return 0
+    monkeypatch.setattr(native.Kernel, "call", call)
     b, fc, fk = 8, 23, 8
     g = np.random.RandomState(1)
     ops = [torch.from_numpy(g.rand(*s).astype(np.float32))
            for s in ((b, fc), (b, fk), (n, fc), (n, fk), (n,))]
-    before = native.GP_MEAN_VAR.launches
+    before = native.counts()
     mu, q = tps.mean_var_tile_cuda(*ops, torch.zeros(n, n))
     assert mu.shape == q.shape == (b,) and mu.dtype == torch.float32
-    assert native.GP_MEAN_VAR.launches == before + 1
-    native.GP_MEAN_VAR.launches = before
-    (args,) = launched
-    assert args[-5:-1] == (b, n, fc, fk) and len(args) == 14
+    assert native.GP_MEAN_VAR.launches == before[
+        native.GP_MEAN_VAR, "launches", None] + 1
+    native.restore(before)
+    ((kernel, args),) = launched
+    # the C signature's arguments but the stream, which `call` appends
+    assert kernel is native.GP_MEAN_VAR and args[-4:] == (b, n, fc, fk)
+    assert len(args) == len(kernel.argtypes) - 1 == 13
     assert ("ut_acquire_scratch_words", (b, n, 1, 0, 1)) in asked
     assert ("ut_acquire_max_train_rows", (31, 1)) in asked
     geometry(monkeypatch, words=55, limit=3584)

@@ -9,7 +9,6 @@ trials the GP trains on; the launch counter by krows route; the
 
 Small scale: the default arms at scale 1 (432 rows a step), a 512-row
 history (a step must fit in it), a 64-row GP and k 8."""
-import contextlib
 import copy
 import ctypes
 import json
@@ -298,19 +297,14 @@ def plan(tmp_path_factory):
 
 
 def launch_on_the_plan(monkeypatch, plan):
-    """B, C and D launch nothing (a launcher that returns success), and
-    ask the host-built plan what the CUDA library would answer."""
+    """B, C and D launch nothing (the launch seam, `Kernel.call`, returns
+    success) and are counted from zero, and ask the host-built plan what
+    the CUDA library would answer."""
+    monkeypatch.setattr(native.Kernel, "call", lambda self, dev, *args: 0)
     for kern in (native.GP_MEAN_VAR, native.ACQ_SCORES, native.ACQ_TOPK):
         monkeypatch.setattr(kern, "library", lambda: plan)
-        monkeypatch.setattr(kern, "function",
-                            lambda: (lambda *args: 0))
-        monkeypatch.setattr(kern, "width_launches", type(
-            kern.width_launches)())
     monkeypatch.setattr(ps, "require_cuda", lambda kernel, dev: None)
-    for mod in (ps, acquire):
-        monkeypatch.setattr(mod, "stream_of", lambda dev: 0)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda dev: contextlib.nullcontext())
+    native.reset_launches()
 
 
 def operands(f, fc, b=16, n=8):

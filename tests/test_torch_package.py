@@ -136,6 +136,91 @@ def test_the_kernel_sources_ship_with_the_package():
     assert native.RNG.replaces == ()
 
 
+COUNTERS = {"launches", "width_launches", "elements"}
+
+
+def _outside_the_seam(tree: ast.AST, graphs: bool):
+    """What a module may not do outside `native.py`: call `.function()`,
+    read `.cuda_stream`, or assign a kernel counter (an attribute or an
+    item of one); `graphs` also forbids naming a counter at all."""
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "function"):
+            yield node.lineno, ".function()"
+        elif isinstance(node, ast.Attribute) and node.attr == "cuda_stream":
+            yield node.lineno, ".cuda_stream"
+        elif isinstance(node, ast.Attribute) and node.attr in COUNTERS and (
+                graphs or isinstance(node.ctx, ast.Store)):
+            yield node.lineno, f".{node.attr}"
+        elif (isinstance(node, ast.Subscript)
+              and isinstance(node.ctx, ast.Store)
+              and isinstance(node.value, ast.Attribute)
+              and node.value.attr in COUNTERS):
+            yield node.lineno, f".{node.value.attr}[...]"
+
+
+def test_only_native_launches_and_counts():
+    """`native.Kernel.launch` is the one launch seam: no other module of
+    the port fetches a C launcher, reads a stream handle for it, or
+    changes a launch counter, and the graph layer names no counter (it
+    saves and replays `native.counts()` whole)."""
+    found = []
+    for f in sorted(PKG.rglob("*.py")):
+        if f == PKG / "native.py":
+            continue
+        tree = ast.parse(f.read_text(), filename=str(f))
+        graphs = f == PKG / "engine" / "graphs.py"
+        found += [(str(f.relative_to(PKG)), *hit)
+                  for hit in _outside_the_seam(tree, graphs)]
+    assert not found
+    bad = ast.parse("k.launches += 1\nk.width_launches[f] += 1\n"
+                    "fn = K.function()\ns = t.cuda_stream\n"
+                    "k.launches, k.elements = 0, 0\n")
+    assert [w for _, w in _outside_the_seam(bad, False)] == [
+        ".launches", ".width_launches[...]", ".function()", ".cuda_stream",
+        ".launches", ".elements"]
+
+
+def test_the_counts_record_round_trips_every_counter(monkeypatch):
+    """Counted launches (a stand-in `Kernel.call`) show in `counts()`,
+    `width_launches` and `elements` included; `restore` puts a record
+    back, `add` adds one, and `reset_launches` restores zero.  A failed
+    launch raises `check`'s message and counts nothing."""
+    from uptune_tpu_torch import native
+    err = []
+    monkeypatch.setattr(native.Kernel, "call",
+                        lambda self, dev, *args: err.pop() if err else 0)
+    saved = native.counts()
+    native.reset_launches()
+    native.ACQ_SCORES.launch("cuda", width=31)
+    native.ACQ_SCORES.launch("cuda", width=1027)
+    native.ACQ_TOPK.launch("cuda", width=31)
+    native.RNG.launch("cuda", elements=600)
+    snap = native.counts()
+    assert snap == {(native.ACQ_SCORES, "launches", None): 2,
+                    (native.ACQ_SCORES, "width_launches", 31): 1,
+                    (native.ACQ_SCORES, "width_launches", 1027): 1,
+                    (native.ACQ_TOPK, "launches", None): 1,
+                    (native.ACQ_TOPK, "width_launches", 31): 1,
+                    (native.RNG, "launches", None): 1,
+                    (native.RNG, "elements", None): 600}
+    err.append(700)
+    with pytest.raises(RuntimeError, match=r"CUDA kernel merge_rows "
+                       r"\(merge.cu\) failed to launch: cudaError_t 700"):
+        native.MERGE.launch("cuda")
+    assert native.counts() == snap
+    native.add(snap)
+    assert native.counts() == snap + snap
+    assert native.ACQ_SCORES.width_launches == {31: 2, 1027: 2}
+    native.restore(snap)
+    assert native.counts() == snap and native.RNG.elements == 600
+    native.reset_launches()
+    assert native.counts() == {} and not native.ACQ_TOPK.width_launches
+    assert native.MERGE.width_launches is None
+    native.restore(saved)
+    assert native.counts() == saved
+
+
 def test_a_cached_library_reports_its_build_log(tmp_path, monkeypatch):
     """A reused library reads nvcc's output back from beside it, so the
     registers and shared memory of every kernel show on every run; no

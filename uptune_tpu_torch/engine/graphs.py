@@ -24,10 +24,9 @@ buffer; the caller gets a clone of that buffer (one copy) with the
 leaves as views, so a returned state is a value that no later replay
 overwrites.
 
-Launch counters.  Capture runs no kernel, so the increments of the
-hand-written kernels' `native.Kernel.launches` (and `elements`) made
-while capturing are taken back out; each replay adds the counts its
-capture recorded.
+Launch counters.  Capture runs no kernel, so what the hand-written
+kernels counted while capturing (`native.counts()`, every counter) is
+taken back out; each replay adds the counts its capture recorded.
 """
 from __future__ import annotations
 
@@ -147,7 +146,7 @@ class Phase:
         with torch.cuda.stream(side):
             fn(*args)
         cur.wait_stream(side)
-        before = [(k.launches, k.elements) for k in native.KERNELS]
+        before = native.counts()
         self.graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(self.graph,
@@ -165,19 +164,13 @@ class Phase:
         finally:
             # a capture that fails leaves the capture stream current
             torch.cuda.set_stream(cur)
-            counts = [(k.launches - n, k.elements - e)
-                      for k, (n, e) in zip(native.KERNELS, before)]
-            for k, (n, e) in zip(native.KERNELS, before):
-                k.launches, k.elements = n, e
-        self.counts = [(k, n, e) for k, (n, e) in zip(native.KERNELS, counts)
-                       if n]
+            self.counts = native.counts() - before
+            native.restore(before)
         self.static = unflatten(self.spec, views)
 
     def replay(self) -> None:
         self.graph.replay()
-        for k, n, e in self.counts:
-            k.launches += n
-            k.elements += e
+        native.add(self.counts)
 
     def fresh(self):
         """The output tree of the last replay, in a buffer of its own."""

@@ -8,11 +8,10 @@ the sources in the checkout, into `_build/` beside this file (listed in
 `.gitignore`); a library is named by a hash of its source and flags, so a
 changed source rebuilds and an unchanged one is reused.
 
-Each kernel is a `Kernel` object, declared in `KERNELS` below, holding its
-library and an integer `launches` that its wrapper increments once per
-launch and nowhere else; the draws' kernel (`RNG`) also counts the
-elements it drew (`elements`).  Launchers B, C and D also count their
-launches by width (`width_launches`, beside `launches`), which
+Each kernel is a `Kernel` object, declared in `KERNELS` below, which its
+wrapper launches through `Kernel.launch` alone: the one place that calls
+the C function and counts (`counts()` reads every counter as one record).
+Launchers B, C and D count their launches by width too, which
 `route_launches()` reads by the route the library plans for each width
 (`ut_krows_route`): "cuda_cores" or "tensor_cores".  Several launchers
 may share one source (and so one library): `csrc/gp_tile.cu` holds four.
@@ -32,6 +31,8 @@ import tempfile
 from collections import Counter
 from pathlib import Path
 from typing import Dict, Optional, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -80,12 +81,10 @@ class Kernel:
         # the library's query of the largest N it takes, (f, var) -> int
         self.limit = limit
         self.launches = 0
-        # elements drawn, for the kernel that counts them (RNG; 0 for the
-        # others)
-        self.elements = 0
+        self.elements = 0               # drawn, by RNG (0 for the others)
         # launches by F, for the launchers with a kernel-rows pass (B, C,
-        # D; None for the others): a dict increment a launch, the route
-        # asked of the library only when read
+        # D; None for the others): the route is asked of the library only
+        # when read
         self.width_launches: Optional[Counter] = Counter() if routed \
             else None
         self._lib = None
@@ -117,6 +116,26 @@ class Kernel:
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
+
+    def call(self, device: torch.device, *args) -> int:
+        """Call the C launcher on `device`'s current stream with `args`
+        (tensors as their data pointers, None as a null pointer) and the
+        stream's handle; -> its cudaError_t."""
+        fn = self.function()
+        argv = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                for a in args]
+        with torch.cuda.device(device):
+            return fn(*argv, torch.cuda.current_stream(device).cuda_stream)
+
+    def launch(self, device: torch.device, *args,
+               width: Optional[int] = None, elements: int = 0) -> None:
+        """`call`, raise if it failed, and count one launch, one at
+        `width` features (a routed launcher) and the `elements` drawn."""
+        check(self.call(device, *args), self)
+        self.launches += 1
+        if width is not None:
+            self.width_launches[width] += 1
+        self.elements += elements
 
     def query(self, symbol: str, *args: int, restype=ctypes.c_int) -> int:
         """Call a host-only C function of the library that takes ints and
@@ -229,12 +248,39 @@ RNG = Kernel(
 KERNELS = (MERGE, GP_MEAN, GP_MEAN_VAR, ACQ_SCORES, ACQ_TOPK, RNG)
 
 
-def reset_launches() -> None:
+def counts() -> Counter:
+    """Every kernel's counters as one record, zeros left out: (kernel,
+    "launches" or "elements", None) and (kernel, "width_launches", F) ->
+    count.  Records subtract and add as Counters."""
+    snap = Counter()
     for k in KERNELS:
-        k.launches = 0
-        k.elements = 0
+        snap[k, "launches", None] = k.launches
+        snap[k, "elements", None] = k.elements
+        for f, n in (k.width_launches or {}).items():
+            snap[k, "width_launches", f] = n
+    return +snap
+
+
+def add(delta: Counter) -> None:
+    """Add a `counts()` record to the kernels' counters."""
+    for (k, field, f), n in delta.items():
+        if f is None:
+            setattr(k, field, getattr(k, field) + n)
+        else:
+            k.width_launches[f] += n
+
+
+def restore(snap: Counter) -> None:
+    """Set every kernel's counters to those of a `counts()` record."""
+    for k in KERNELS:
+        k.launches = k.elements = 0
         if k.width_launches is not None:
             k.width_launches.clear()
+    add(snap)
+
+
+def reset_launches() -> None:
+    restore(Counter())
 
 
 def build(todo: Optional[Sequence[Kernel]] = None) -> Dict[str, Path]:

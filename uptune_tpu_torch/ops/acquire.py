@@ -52,8 +52,8 @@ from .. import native
 from ..surrogate import gp
 from ..surrogate.pallas_score import (Blocks, kernel_tile, launch_scratch,
                                       mean_tile_plain, mean_var_tile_plain,
-                                      n_rows, operand_dims, prep_blocks, ptr,
-                                      state_kinv, stream_of, target_moments,
+                                      n_rows, operand_dims, prep_blocks,
+                                      state_kinv, target_moments,
                                       tile_moments)
 
 KINDS = ("mean", "ei", "lcb")
@@ -150,15 +150,10 @@ def scores_cuda(qc, qk, xc, xk, alpha, kinv, params, kind: str,
     b, n, fc, fk, scratch = _check_launch(SCORES_KERNEL, kind, qc, qk, xc,
                                           xk, alpha, kinv, params, scratch)
     dev = alpha.device
-    fn = SCORES_KERNEL.function()
     u = torch.empty(b, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = fn(ptr(qc), ptr(qk), ptr(xc), ptr(xk), ptr(alpha), ptr(kinv),
-                 ptr(params), ptr(u), ptr(scratch), b, n, fc, fk,
-                 KIND_CODE[kind], stream_of(dev))
-    native.check(err, SCORES_KERNEL)
-    SCORES_KERNEL.launches += 1
-    SCORES_KERNEL.width_launches[fc + fk] += 1
+    SCORES_KERNEL.launch(dev, qc, qk, xc, xk, alpha, kinv, params, u,
+                         scratch, b, n, fc, fk, KIND_CODE[kind],
+                         width=fc + fk)
     return u
 
 
@@ -176,18 +171,13 @@ def topk_segments_cuda(qc, qk, xc, xk, alpha, kinv, params, kind: str,
                                           alpha, kinv, params, scratch, k,
                                           segments)
     dev = alpha.device
-    fn = TOPK_KERNEL.function()
     slots = TOPK_KERNEL.query("ut_acquire_topk_slots", b, k)
     u = torch.empty(segments * b, dtype=torch.float32, device=dev)
     vals = torch.empty(segments, slots, dtype=torch.float32, device=dev)
     idx = torch.empty(segments, slots, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = fn(ptr(qc), ptr(qk), ptr(xc), ptr(xk), ptr(alpha), ptr(kinv),
-                 ptr(params), ptr(u), ptr(vals), ptr(idx), ptr(scratch), b, n,
-                 fc, fk, KIND_CODE[kind], k, segments, stream_of(dev))
-    native.check(err, TOPK_KERNEL)
-    TOPK_KERNEL.launches += 1
-    TOPK_KERNEL.width_launches[fc + fk] += 1
+    TOPK_KERNEL.launch(dev, qc, qk, xc, xk, alpha, kinv, params, u, vals, idx,
+                       scratch, b, n, fc, fk, KIND_CODE[kind], k, segments,
+                       width=fc + fk)
     if slots != k:                  # several lists: merge them here
         vals, pos = select_topk(vals, k)
         idx = idx.gather(-1, pos.long())

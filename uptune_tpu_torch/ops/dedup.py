@@ -101,15 +101,9 @@ def merge_rows_cuda(hist: Rows, new: Rows, pos_new: torch.Tensor) -> Rows:
             or not pos_new.is_contiguous()):
         raise ValueError(f"pos_new must be a contiguous {lead + (b,)} "
                          f"int32 tensor on {dev}")
-    fn = MERGE_KERNEL.function()
     out = tuple(torch.empty_like(h) for h in hist)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(t.data_ptr() for t in hist), *(t.data_ptr() for t in new),
-                 pos_new.data_ptr(), *(t.data_ptr() for t in out),
-                 math.prod(lead), cap, b, stream)
-    native.check(err, MERGE_KERNEL)
-    MERGE_KERNEL.launches += 1
+    MERGE_KERNEL.launch(dev, *hist, *new, pos_new, *out, math.prod(lead),
+                        cap, b)
     return out
 
 

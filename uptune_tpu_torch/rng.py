@@ -108,15 +108,8 @@ def _block_cuda(key: torch.Tensor, domain: int, start: int, count: int,
     floats = (torch.empty(lead + (count,), dtype=torch.float32, device=dev)
               if draw else None)
     if rows * count:
-        fn = native.RNG.function()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(keys.data_ptr(), words.data_ptr(),
-                     None if floats is None else floats.data_ptr(),
-                     rows, count, start & _MASK, domain, stream)
-        native.check(err, native.RNG)
-        native.RNG.launches += 1
-        native.RNG.elements += rows * count
+        native.RNG.launch(dev, keys, words, floats, rows, count, start & _MASK,
+                          domain, elements=rows * count)
     return words, floats
 
 

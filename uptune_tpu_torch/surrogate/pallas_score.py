@@ -239,27 +239,14 @@ def launch_scratch(kernel: native.Kernel, b: int, n: int, f: int, var: bool,
     return scratch
 
 
-def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
-
-
-def stream_of(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def mean_tile_cuda(qc, qk, xc, xk, alpha) -> torch.Tensor:
     """Launch A (`ut_gp_mean`): mu_n [B] on the current stream."""
     b, n, fc, fk = operand_dims(MEAN_KERNEL, qc, qk, xc, xk, alpha)
     dev = alpha.device
     require_cuda(MEAN_KERNEL, dev)
     check_train_rows(MEAN_KERNEL, n, fc + fk, False)
-    fn = MEAN_KERNEL.function()
     mu = torch.empty(b, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = fn(ptr(qc), ptr(qk), ptr(xc), ptr(xk), ptr(alpha), ptr(mu),
-                 b, n, fc, fk, stream_of(dev))
-    native.check(err, MEAN_KERNEL)
-    MEAN_KERNEL.launches += 1
+    MEAN_KERNEL.launch(dev, qc, qk, xc, xk, alpha, mu, b, n, fc, fk)
     return mu
 
 
@@ -273,15 +260,10 @@ def mean_var_tile_cuda(qc, qk, xc, xk, alpha, kinv,
     dev = alpha.device
     scratch = launch_scratch(MEAN_VAR_KERNEL, b, n, fc + fk, True, 0,
                              scratch, dev)
-    fn = MEAN_VAR_KERNEL.function()
     mu = torch.empty(b, dtype=torch.float32, device=dev)
     q = torch.empty(b, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = fn(ptr(qc), ptr(qk), ptr(xc), ptr(xk), ptr(alpha), ptr(kinv),
-                 ptr(mu), ptr(q), ptr(scratch), b, n, fc, fk, stream_of(dev))
-    native.check(err, MEAN_VAR_KERNEL)
-    MEAN_VAR_KERNEL.launches += 1
-    MEAN_VAR_KERNEL.width_launches[fc + fk] += 1
+    MEAN_VAR_KERNEL.launch(dev, qc, qk, xc, xk, alpha, kinv, mu, q, scratch,
+                           b, n, fc, fk, width=fc + fk)
     return mu, q
 
 
