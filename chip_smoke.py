@@ -56,7 +56,15 @@ setting is printed.  Phases, each printing one JSON line:
              under vmap (one launch); `mismatches` must be 0; its
              launch and element counters; its time against the bytes
              it writes (12 an element drawn, 8 split) at 3.35 TB/s,
-             beside an eager call's and the torch ops' times;
+             beside an eager call's and the torch ops' times; then
+             `features`: the GP's query features in one kernel
+             (csrc/features.cu) bitwise against the torch chain it
+             replaces, at gcc-options' C and D calls (B 6352, D 328, F
+             1027) and the flagship's (B 6040, a 12-city tour, F 31);
+             `mismatches` must be 0, and its launches and rows are
+             counted through `native.counts()`; its time against the
+             bytes it moves at 3.35 TB/s, beside an eager call's and the
+             chain's times, and the device ops of one call of each;
 4. surrogate - the GP of the surrogate path: `fit_auto_bucketed` on 1024
              evaluated flagship configurations (43 Cholesky factorizations
              of 1024^2) and `precompute_kinv`; a padded-bucket state (700
@@ -107,10 +115,11 @@ setting is printed.  Phases, each printing one JSON line:
              both devices);
 8. surrogate_engine - the surrogate-guided flagship: 50 steps scored by
              `surrogate_eval_fn(kind="ei", impl="fused")`, a publish of a
-             refit, 50 `propose_topk(..., 128)`, then 10 steps each with
+             refit, 20 `propose_topk(..., 128)`, then 10 steps each with
              impl="score_flat" for kind "mean" and "ei"; counts set to 0
-             just before and read just after (C 50, D 50, A 10, B 10,
-             merge 70); a finite best, valid tours, and the last epoch's
+             just before and read just after (C 50, D 20, A 10, B 10,
+             merge 70, features 90: one a C or D call and a score_flat
+             step); a finite best, valid tours, and the last epoch's
              scores on the card against the same scoring on the CPU;
 9. batched - the JAX package's multi-instance protocol (bench.py
              --multi): rosenbrock-16d, default arms at scale 1 (114 rows
@@ -123,8 +132,8 @@ setting is printed.  Phases, each printing one JSON line:
              N = 256; the speedup over N times one instance's step;
 10. batched_flagship - the flagship at scale 64 over N = 4 instances
              (24,160 rows a step, a 2^15-row history each), 20 steps
-             scored by launcher C on the flat batch (C 20, merge 20
-             launches); C's scores of a flat batch against the CPU's
+             scored by launcher C on the flat batch (C 20, merge 20,
+             features 20 launches); C's scores of a flat batch against the CPU's
              within the sd tolerance; a 10-step batched run equal to four
              card FusedEngine runs from `instance_seeds` bitwise; one
              batched commit (with the exchange) on the card and on the
@@ -139,7 +148,7 @@ setting is printed.  Phases, each printing one JSON line:
              MultiTorczon, MultiNelderMead) at scale 11: 6104 rows a
              step, a 2^15-row history; 50 plain steps, then 20 scored by
              launcher C against the surrogate phase's GP; launches (merge
-             70, C 20), a finite best, every stored tour a permutation,
+             70, C 20, features 20), a finite best, every stored tour a permutation,
              C's scores of one proposal (6104 rows) against the CPU's,
              and one commit on the card and on the CPU bitwise;
 13. portfolio_batched - 256 instances of rosenbrock-16d (a 2^11-row
@@ -209,8 +218,9 @@ setting is printed.  Phases, each printing one JSON line:
              against `topk_plain`, timed against N single launches, the
              plain version and the library staging (two rounds in
              turns); then `BatchedEngine.propose_topk` on the flagship at
-             N 4, 20 epochs with the counts reset (one D launch an epoch,
-             each instance's top k bitwise its own launch's,
+             N 4, 20 epochs with the counts reset (one D launch and one
+             features launch an epoch, each instance's top k bitwise its
+             own launch's,
              `global_topk`'s rows equal and its best the pool's);
 15b. serve - the serving plane: the JAX package's serving protocol
              (`bench.py --serve`) against the port's SessionServer on
@@ -295,11 +305,11 @@ setting is printed.  Phases, each printing one JSON line:
              from the replica's key, (search 2, eval 2) every replica
              holding the global best; merge once a replica a commit, and
              ms/step; (b) `BatchedEngine(flagship, N 4,
-             mesh=make_instance_mesh(2))` scored by C (C and the merge
-             once a shard a step), against the unsharded route: the run
+             mesh=make_instance_mesh(2))` scored by C (C, the features
+             and the merge once a shard a step), against the unsharded route: the run
              bitwise where C's scores do not depend on a launch's rows,
-             and `global_topk` at k 128 (D once a shard, then the
-             gather): owners and indices bitwise, values bitwise or
+             and `global_topk` at k 128 (D and the features once a
+             shard, then the gather): owners and indices bitwise, values bitwise or
              within the sd tolerance; (c) `sharded_gp_score` over 2 x
              6040 rows (B once a shard) against one launch of B over
              12,080 rows and against the plain version, B's time a shard
@@ -577,7 +587,9 @@ def kernel_launches() -> dict:
     """Launches of each hand-written kernel since the last reset, by
     name, but for the draws' kernel (rng_block): it launches once a
     stream block or key split, a count the phases below do not predict;
-    the rng phase holds it, and the engine phase counts it a step."""
+    the rng phase holds it, and the engine phase counts it a step.  The
+    features kernel (surrogate_features) launches once a C or D call
+    scored through `surrogate_eval_fn`."""
     from uptune_tpu_torch import native
     return {k.name: k.launches for k in native.KERNELS
             if k is not native.RNG}
@@ -901,6 +913,90 @@ def rng_phase(dev) -> dict:
         raise AssertionError(f"rng kernel counted {out['launches']} "
                              f"launches and {out['elements']} elements, "
                              f"expected {want_counts}")
+    return out
+
+
+# -- the GP's query features in one kernel against the torch chain ------------
+# (configuration, rows a C or D call scores): gcc-options' (D 328, F 1027)
+# and the flagship's (D 13, one 12-city tour, F 31)
+FEATURE_SHAPES = (("gcc-options-g12", 6352), ("flagship-s64", 6040))
+FEATURE_CALLS = 3               # launches a shape's parity check counts
+
+
+def feature_space(name: str):
+    if name == "flagship-s64":
+        from uptune_tpu_torch.flagship import flagship_space
+        return flagship_space()
+    from portbench.drivers.common import program_space
+    cfg = ROOT / "portbench" / "configs" / f"{name}.json"
+    return program_space(json.loads(cfg.read_text())["space"])
+
+
+def features_phase(dev) -> dict:
+    """The features kernel (csrc/features.cu) bitwise against the torch
+    chain it replaces (`surrogate_transform(features(cands))`) at each
+    shape of FEATURE_SHAPES; its launches and rows by `native.counts()`;
+    its time against its bytes at 3.35 TB/s, beside an eager call's and
+    the chain's; the device ops of one call of each (profiler) and the
+    kernel's name as the profiler gives it."""
+    from uptune_tpu_torch import native, rng
+    from uptune_tpu_torch.space.spec import CandBatch
+    out = {"phase": "features", "tolerance": "bitwise", "shapes": {}}
+    for name, b in FEATURE_SHAPES:
+        space = feature_space(name)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+        u = torch.rand(b, space.n_scalar, generator=gen, device=dev)
+        cands = CandBatch(u, space.random(rng.generator(SEED + 32, dev),
+                                          b).perms)
+
+        def kernel():
+            return space.surrogate_features(cands)
+
+        def chain():
+            return space.surrogate_transform(space.features(cands))
+        want = chain()
+        before = native.counts()
+        mismatches = 0
+        for _ in range(FEATURE_CALLS):
+            got = kernel()
+            torch.cuda.synchronize()
+            mismatches += int((col_bits(got) != col_bits(want)).sum())
+        counted = native.counts() - before
+        d, p, f = space.n_scalar, sum(space.perm_sizes), got.shape[1]
+        nbytes = b * (4 * d + 8 * p + 4 * f)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = median_ms(kernel)
+        kernel_ops = device_events(profiled(kernel))
+        chain_ops = device_events(profiled(chain))
+        out["shapes"][name] = {
+            "b": b, "d": d, "p": p, "f": f, "mismatches": mismatches,
+            "launches": counted[native.FEATURES, "launches", None],
+            "elements": counted[native.FEATURES, "elements", None],
+            "other_counts": {f"{k.name}.{field}": n for (k, field, _), n
+                             in counted.items() if k is not native.FEATURES},
+            "ms": ms, "bytes": nbytes, "bound_ms": bound, "bound_by": "bytes",
+            "roofline_pct": 100 * bound / ms, "call_ms": call_ms(kernel),
+            "plain_ms": median_ms(chain), "plain_call_ms": call_ms(chain),
+            "device_ops": len(kernel_ops),
+            "kernel_names": sorted({e.name for e in kernel_ops}),
+            "plain_device_ops": len(chain_ops)}
+        del got, want, cands, u
+    emit(out)
+    for name, c in out["shapes"].items():
+        if c["mismatches"]:
+            raise AssertionError(f"features kernel at {name}: "
+                                 f"{c['mismatches']} elements differ from "
+                                 f"the torch chain")
+        if (c["launches"], c["elements"], c["other_counts"]) != (
+                FEATURE_CALLS, FEATURE_CALLS * c["b"], {}):
+            raise AssertionError(f"features kernel at {name}: counted "
+                                 f"{c['launches']} launches, "
+                                 f"{c['elements']} rows and "
+                                 f"{c['other_counts']}, expected "
+                                 f"{FEATURE_CALLS} launches alone")
+        if c["device_ops"] != 1:
+            raise AssertionError(f"features kernel at {name}: "
+                                 f"{c['device_ops']} device ops a call")
     return out
 
 
@@ -1843,9 +1939,11 @@ def surrogate_engine_phase(eng, cases, feats: tuple, dev) -> dict:
            "score_flat_steps": 2 * FLAT_STEPS,
            "score_flat_ms_per_step": (t3 - t2) / (2 * FLAT_STEPS) * 1e3,
            "best_qor": best_q, "launches": launches}
+    # one features launch a scored step and a propose_topk
     want = {"acquire_scores": SURR_STEPS, "acquire_topk": TOPK_EPOCHS,
             "gp_mean": FLAT_STEPS, "gp_mean_var": FLAT_STEPS,
-            "merge_rows": SURR_STEPS + 2 * FLAT_STEPS}
+            "merge_rows": SURR_STEPS + 2 * FLAT_STEPS,
+            "surrogate_features": SURR_STEPS + TOPK_EPOCHS + 2 * FLAT_STEPS}
     # the last epoch's scores on the card against the same scoring on the
     # CPU (plain versions), from the same GP state and candidates
     cpu = torch.device("cpu")
@@ -2161,7 +2259,8 @@ def batched_flagship_phase(cases, feats: tuple, dev) -> tuple:
            "acquire_scratch_bytes": 4 * ps.scratch_words(
                acq.SCORES_KERNEL, rows, int(st_gp.x.shape[0]), True)}
     want = dict.fromkeys(kernel_launches(), 0)
-    want.update(acquire_scores=BF_STEPS, merge_rows=BF_STEPS)
+    want.update(acquire_scores=BF_STEPS, merge_rows=BF_STEPS,
+                surrogate_features=BF_STEPS)
     bad = []
     if launches != want:
         bad.append(f"launches {launches}, expected {want}")
@@ -2396,7 +2495,8 @@ def portfolio_flagship_phase(cases, feats: tuple, dev) -> tuple:
                lambda: eng.step(st, eval_fn=ev))}
     bad = []
     want = dict.fromkeys(kernel_launches(), 0)
-    want.update(merge_rows=PF_STEPS + PF_SCORED, acquire_scores=PF_SCORED)
+    want.update(merge_rows=PF_STEPS + PF_SCORED, acquire_scores=PF_SCORED,
+                surrogate_features=PF_SCORED)
     if launches != want:
         bad.append(f"launches {launches}, expected {want}")
     if not torch.isfinite(torch.tensor(best)):
@@ -3836,7 +3936,7 @@ def topk_batched_phase(cases, feats: tuple, dev) -> dict:
     wall = time.perf_counter() - t0
     launches = kernel_launches()
     want = dict.fromkeys(kernel_launches(), 0)
-    want["acquire_topk"] = TOPK_EPOCHS
+    want.update(acquire_topk=TOPK_EPOCHS, surrogate_features=TOPK_EPOCHS)
     # each instance's top k is that instance's own D launch
     own = [ev.topk(CandBatch(cands.u[i], tuple(p[i] for p in cands.perms)),
                    ev.aux, TOP_K) for i in range(BF_N)]
@@ -5383,9 +5483,10 @@ def parallel_phase(cases, feats: tuple, dev) -> dict:
         "rows_equal": bool((gv == gv[0]).all() and (gown == gown[0]).all())}
     out["instance_mesh"] = b_out
     want_run = dict(zero, acquire_scores=2 * PAR_BF_STEPS,
-                    merge_rows=2 * PAR_BF_STEPS)
-    if run_launches != want_run or topk_launches != dict(zero,
-                                                         acquire_topk=2):
+                    merge_rows=2 * PAR_BF_STEPS,
+                    surrogate_features=2 * PAR_BF_STEPS)
+    if run_launches != want_run or topk_launches != dict(
+            zero, acquire_topk=2, surrogate_features=2):
         bad.append(f"(b) launches {run_launches} / {topk_launches}")
     if not (b_out["owners_bitwise"] and b_out["indices_bitwise"]
             and b_out["rows_equal"]):
@@ -5858,7 +5959,8 @@ PTXAS_KERNEL = re.compile(
     r"(merge_rows_kernelILi\d+E|launch_floor_kernel|kinv_prep_kernel|"
     r"wq_kernel|moments_kernel|topk_merge_kernel|final_kernelILb\dE|"
     r"krows_kernelILb\dELb\dELb\dE|krows_mma_kernelILb\dELb\dELb\dE|"
-    r"gp_mean_kernelILb\dELb\dELb\dE|rng_block_kernelILb\dE)")
+    r"gp_mean_kernelILb\dELb\dELb\dE|rng_block_kernelILb\dE|"
+    r"surrogate_feats_kernel)")
 
 
 def ptxas_summary(log: str) -> list:
@@ -5942,7 +6044,8 @@ def emit_passes(cases, wide_state) -> None:
 # the phases of a full run, in order, each with the phases whose results
 # it takes (`--phases` runs those too)
 PHASES = {
-    "merge": (), "rng": (), "surrogate": (), "gp_kernels": ("surrogate",),
+    "merge": (), "rng": (), "features": (), "surrogate": (),
+    "gp_kernels": ("surrogate",),
     "gp_wide": (), "engine": (), "reference": ("engine",),
     "surrogate_engine": ("engine", "surrogate"), "batched": (),
     "batched_flagship": ("surrogate",),
@@ -6095,6 +6198,8 @@ def main() -> int:
         r["merge"] = merge_phase(dev, args.profile)
     if "rng" in todo:
         r["rng"] = rng_phase(dev)
+    if "features" in todo:
+        r["features"] = features_phase(dev)
     if "surrogate" in todo:
         r["surrogate"] = surrogate_phase(dev)
     if "gp_kernels" in todo:
@@ -6176,6 +6281,18 @@ def main() -> int:
         common = {"name": k.name, "route": "cuda",
                   "source": str(k.source.relative_to(ROOT)),
                   "replaces": ", ".join(k.replaces), "matched": True}
+        if k is native.FEATURES:
+            main = r["features"]["shapes"][FEATURE_SHAPES[0][0]]
+            entries.append(dict(
+                common, launches=surr["launches"]["surrogate_features"],
+                mismatches=sum(c["mismatches"] for c in
+                               r["features"]["shapes"].values()),
+                shape=f"b={main['b']} d={main['d']} f={main['f']}",
+                ms=main["ms"], kernel_ms=main["ms"],
+                call_ms=main["call_ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by="bytes",
+                library_ms=None, shapes=r["features"]["shapes"]))
+            continue
         if k is native.RNG:
             main = r["rng"]["timed"][str(RNG_COUNTS[-1])]
             entries.append(dict(

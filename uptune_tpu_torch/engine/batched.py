@@ -510,7 +510,7 @@ def surrogate_eval_fn(space, gp_state: gp.GPState, kind: str = "ei",
     def feats(cands: CandBatch) -> torch.Tensor:
         # the features apart from the launch that scores them
         with obs.span("acquire.features"):
-            return space.surrogate_transform(space.features(cands))
+            return space.surrogate_features(cands)
 
     def fn(cands: CandBatch, aux) -> torch.Tensor:
         st, by = aux

@@ -17,8 +17,10 @@ Launchers B, C and D count their launches by width too, which
 may share one source (and so one library): `csrc/gp_tile.cu` holds four.
 
 Most kernels replace a Pallas kernel of the JAX package (`replaces`).
-`RNG` replaces none: it computes the port's own counter hash
-(`rng.py`), which on the CPU runs as torch ops, bitwise equal.
+`RNG` and `FEATURES` replace none: `RNG` computes the port's own counter
+hash (`rng.py`), `FEATURES` the GP's query features
+(`Space.surrogate_features`); on the CPU both run as torch ops, bitwise
+equal.
 """
 from __future__ import annotations
 
@@ -81,7 +83,8 @@ class Kernel:
         # the library's query of the largest N it takes, (f, var) -> int
         self.limit = limit
         self.launches = 0
-        self.elements = 0               # drawn, by RNG (0 for the others)
+        # drawn, by RNG; rows built, by FEATURES (0 for the others)
+        self.elements = 0
         # launches by F, for the launchers with a kernel-rows pass (B, C,
         # D; None for the others): the route is asked of the library only
         # when read
@@ -245,7 +248,17 @@ RNG = Kernel(
     argtypes=[_P] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_uint] * 2
     + [_P],
     replaces=())
-KERNELS = (MERGE, GP_MEAN, GP_MEAN_VAR, ACQ_SCORES, ACQ_TOPK, RNG)
+# surrogate_features(u, ld_u, perm, ld_p, kind, lanes, cols, items_of,
+# out, b, d, p, f, stream): the GP's query features of b rows in one pass
+# (`surrogate_feats_kernel`), the perm blocks side by side in one tensor.
+# Its wrapper is `ops/features.py::features_cuda`.  It replaces no TPU
+# kernel: the JAX package builds the features with XLA ops.
+FEATURES = Kernel(
+    name="surrogate_features", source="features.cu",
+    symbol="ut_surrogate_features",
+    argtypes=[_P, ctypes.c_longlong] * 2 + [_P] * 5 + [_I] * 4 + [_P],
+    replaces=())
+KERNELS = (MERGE, GP_MEAN, GP_MEAN_VAR, ACQ_SCORES, ACQ_TOPK, RNG, FEATURES)
 
 
 def counts() -> Counter:

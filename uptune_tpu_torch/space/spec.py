@@ -31,6 +31,9 @@ from . import params as P
 U32 = 0xFFFFFFFF
 _LN2 = 0.6931471805599453
 _INV_LN2 = 1.4426950408889634
+_LOG_FLOOR = -0.999                  # encode's floor under log1p
+_MIN_RANGE = 1e-30                   # encode's least search range
+_ONE_HOT = float(1.0 / np.sqrt(2))   # a one-hot column's scale
 
 
 class CandBatch(NamedTuple):
@@ -87,6 +90,19 @@ class _Tables(NamedTuple):
     dep_mats: Tuple[Optional[torch.Tensor], ...]
     num_idx: torch.Tensor      # [D - n_cat] i64 numeric lanes
     cat_idx: torch.Tensor      # [n_cat] i64 categorical lanes
+
+
+class _FeatureTables(NamedTuple):
+    """What the features kernel (`csrc/features.cu`) reads besides the
+    batch, on one device.  A row's slots are its D lanes (a numeric
+    lane's snapped unit value, a categorical lane's code) and then its P
+    perm positions."""
+    kind: torch.Tensor         # [D] i32
+    lanes: torch.Tensor        # [D, 4] f32: a lane's slo, shi, vlo, vhi
+    cols: torch.Tensor         # [F, 2] i32: an output column's slot and
+    #                            code (-1: the slot itself; else one-hot)
+    items_of: torch.Tensor     # [P, 2] i32: a perm item's block, by its
+    #                            first item of the P and its size
 
 
 class Space:
@@ -174,6 +190,8 @@ class Space:
             rs.randint(0, 2**31, size=(2, max(1, n_lanes)), dtype=np.int64)
             * 2 + 1).astype(np.uint32).astype(np.int64)
         self._tables_by_device: Dict[torch.device, _Tables] = {}
+        self._feature_tables_by_device: Dict[torch.device,
+                                             _FeatureTables] = {}
 
     # -- tables ------------------------------------------------------------
     def tables(self, device: torch.device) -> _Tables:
@@ -194,6 +212,34 @@ class Space:
                 put(self.cat_lane_idx.astype(np.int64)))
             self._tables_by_device[device] = t
         return t
+
+    def feature_tables(self, device: torch.device) -> _FeatureTables:
+        """The features kernel's tables on `device` (copied there once).
+        The perm blocks come to the kernel side by side in one tensor
+        (`ops/features.py`), so a perm item's column is its index."""
+        device = torch.device(device)
+        ft = self._feature_tables_by_device.get(device)
+        if ft is None:
+            D, M = self.n_scalar, self.cat_max_codes
+            cols = [(lane, -1) for lane in self.num_lane_idx]
+            cols += [(D + q, -1) for q in range(sum(self.perm_sizes))]
+            cols += [(lane, m) for lane in self.cat_lane_idx
+                     for m in range(M)]
+            items_of, start = [], 0
+            for size in self.perm_sizes:
+                items_of += [(start, size)] * size
+                start += size
+
+            def put(a, dtype):
+                return torch.as_tensor(np.asarray(a, dtype)).to(device)
+            ft = _FeatureTables(
+                put(self.kind_np, np.int32),
+                put(np.stack([self.slo_np, self.shi_np, self.vlo_np,
+                              self.vhi_np], axis=1), np.float32),
+                put(np.reshape(cols, (-1, 2)), np.int32),
+                put(np.reshape(items_of, (-1, 2)), np.int32))
+            self._feature_tables_by_device[device] = ft
+        return ft
 
     # -- python niceties ---------------------------------------------------
     def __len__(self) -> int:
@@ -252,11 +298,11 @@ class Space:
         kind = t.kind
         s = vals
         s = torch.where((kind == P.LOG_FLOAT) | (kind == P.LOG_INT),
-                        torch.log1p(torch.clamp_min(vals - t.vlo, -0.999))
+                        torch.log1p(torch.clamp_min(vals - t.vlo, _LOG_FLOOR))
                         * _INV_LN2, s)
         s = torch.where(kind == P.POW2,
                         torch.log2(torch.clamp_min(vals, 1.0)), s)
-        rng_ = torch.clamp_min(t.shi - t.slo, 1e-30)
+        rng_ = torch.clamp_min(t.shi - t.slo, _MIN_RANGE)
         return torch.clamp((s - t.slo) / rng_, 0.0, 1.0).to(torch.float32)
 
     def random(self, gen: rng.Stream, n: int) -> CandBatch:
@@ -350,8 +396,19 @@ class Space:
                 self.cat_max_codes, dtype=torch.float32, device=dev)
             oh = oh.reshape(*codes.shape[:-1],
                             self.n_cat * self.cat_max_codes)
-            parts.append(oh.to(torch.float32) * float(1.0 / np.sqrt(2)))
+            parts.append(oh.to(torch.float32) * _ONE_HOT)
         return torch.cat(parts, dim=-1)
+
+    def surrogate_features(self, cands: CandBatch) -> torch.Tensor:
+        """`surrogate_transform(features(cands))`, the GP's query
+        features [..., n_surrogate_features]: on the CPU that chain of
+        torch ops; on a CUDA batch one launch of the features kernel
+        (`ops/features.py`, `csrc/features.cu`), bitwise equal."""
+        if cands.u.device.type == "cpu":
+            return self.surrogate_transform(self.features(cands))
+        from ..ops import features as feature_ops
+        return feature_ops.surrogate_features(
+            cands.u, cands.perms, self.feature_tables(cands.u.device))
 
     def hash_batch(self, cands: CandBatch) -> torch.Tensor:
         """[B, 2] int64, each holding a u32: the multiply-sum universal
