@@ -11,6 +11,11 @@ stacked along a leading instance axis, and a step is
 * `commit_head` under vmap, then (every `exchange_every` steps)
   `exchange_best` across the stacked best, then `commit_tail` under vmap.
 
+While the obs plane records, a step counts its instances' commits
+(`engine.instance_commits`, N a step) and an exchanging step records the
+span `engine.exchange` around `exchange_best` and counts one
+`engine.exchanges`.
+
 Every op under vmap has a batching rule, so a step makes the same
 launches at any N (vmap's per-instance fallback is switched off inside
 the step, so an op without a rule raises instead of looping), and the
@@ -240,11 +245,14 @@ class BatchedEngine:
             raw = (eval_fn or self.engine.evaluate)(flat).reshape(n, b)
             props.append((tstates, cands, keys))
             heads.append(self._head(s, tstates, cands, raw))
+        obs.count("engine.instance_commits", self.n_instances)
         k = self.exchange_every
         if k > 0 and (t + 1) % k == 0:
-            best = exchange_best(self._join([h.best for h in heads]))
-            heads = [h._replace(best=bs)
-                     for h, bs in zip(heads, self._split(best))]
+            with obs.span("engine.exchange"):
+                best = exchange_best(self._join([h.best for h in heads]))
+                heads = [h._replace(best=bs)
+                         for h, bs in zip(heads, self._split(best))]
+            obs.count("engine.exchanges")
         return [self._tail(s, ts, c, h, kk)
                 for s, (ts, c, kk), h in zip(shards, props, heads)]
 
