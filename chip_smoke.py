@@ -64,7 +64,16 @@ setting is printed.  Phases, each printing one JSON line:
              `mismatches` must be 0, and its launches and rows are
              counted through `native.counts()`; its time against the
              bytes it moves at 3.35 TB/s, beside an eager call's and the
-             chain's times, and the device ops of one call of each;
+             chain's times, and the device ops of one call of each; then
+             `simplex`: NelderMead's proposal in one kernel
+             (csrc/simplex.cu) bitwise against the torch chain it
+             replaces, on the card and on the CPU, in INIT and LOOP, at
+             the flagship's D 13, gcc-options' D 328 and four vmapped
+             D 328 instances (one launch); `mismatches` must be 0 and
+             its launches are counted through `native.counts()`; its
+             time in LOOP against the bytes it moves at 3.35 TB/s,
+             beside an eager call's and the chain's times, and the
+             device ops of one call of each;
 4. surrogate - the GP of the surrogate path: `fit_auto_bucketed` on 1024
              evaluated flagship configurations (43 Cholesky factorizations
              of 1024^2) and `precompute_kinv`; a padded-bucket state (700
@@ -585,14 +594,16 @@ def nvidia_smi() -> str:
 
 def kernel_launches() -> dict:
     """Launches of each hand-written kernel since the last reset, by
-    name, but for the draws' kernel (rng_block): it launches once a
-    stream block or key split, a count the phases below do not predict;
-    the rng phase holds it, and the engine phase counts it a step.  The
-    features kernel (surrogate_features) launches once a C or D call
-    scored through `surrogate_eval_fn`."""
+    name, but for the draws' kernel (rng_block) and the simplex's
+    (simplex_propose): the first launches once a stream block or key
+    split, the second once a NelderMead proposal, counts the phases
+    below do not predict; the rng and simplex phases hold them, and the
+    engine phase counts both a step.  The features kernel
+    (surrogate_features) launches once a C or D call scored through
+    `surrogate_eval_fn`."""
     from uptune_tpu_torch import native
     return {k.name: k.launches for k in native.KERNELS
-            if k is not native.RNG}
+            if k not in (native.RNG, native.SIMPLEX)}
 
 
 # -- timing -------------------------------------------------------------------
@@ -996,6 +1007,112 @@ def features_phase(dev) -> dict:
                                  f"{FEATURE_CALLS} launches alone")
         if c["device_ops"] != 1:
             raise AssertionError(f"features kernel at {name}: "
+                                 f"{c['device_ops']} device ops a call")
+    return out
+
+
+# -- NelderMead's proposal in one kernel against the torch chain -------------
+# (name, D, instances): the flagship's RandomNelderMead (D 13, S 14),
+# gcc-options' (D 328, S 329) and gcc-options -pf 4's vmapped proposal
+SIMPLEX_SHAPES = (("flagship", 13, 1), ("gcc-options", 328, 1),
+                  ("gcc-options-pf4", 328, 4))
+SIMPLEX_COEFFS = (2.0, 2.0, 0.5, 0.5)  # alpha, gamma, beta, sigma
+SIMPLEX_CALLS = 3                      # launches a shape's parity check counts
+
+
+def simplex_inputs(d: int, n: int, phase: int, dev) -> tuple:
+    """n states of S = d + 1 points in `phase`: uniform simplexes, normal
+    values with ties and +inf among them (LOOP), uniform padding rows."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41 + d + phase)
+    s = d + 1
+    pts = torch.rand(n, s, d, generator=gen, device=dev)
+    vals = torch.randn(n, s, generator=gen, device=dev)
+    vals[:, ::7] = vals[:, :1]
+    vals[:, 3::11] = float("inf")
+    draws = torch.rand(n, 3, d, generator=gen, device=dev)
+    phases = torch.full((n,), phase, dtype=torch.int32, device=dev)
+    return pts, vals, draws, phases
+
+
+def simplex_phase(dev) -> dict:
+    """The simplex kernel (csrc/simplex.cu) bitwise against the torch
+    chain it replaces (`ops/simplex.py::propose_chain`, on the card and
+    on the CPU) at each shape of SIMPLEX_SHAPES, in INIT and in LOOP; its
+    launches by `native.counts()`; its time in LOOP against its bytes at
+    3.35 TB/s, beside an eager call's and the chain's; the device ops of
+    one call of each (profiler)."""
+    from uptune_tpu_torch import native
+    from uptune_tpu_torch.ops import simplex as simplex_ops
+    from uptune_tpu_torch.techniques.simplex import INIT, LOOP
+    out = {"phase": "simplex", "tolerance": "bitwise", "shapes": {}}
+
+    def batched(fn, n):
+        def run(pts, vals, draws, phase):
+            if n == 1:
+                return tuple(o[None] for o in fn(pts[0], vals[0], draws[0],
+                                                 phase[0], *SIMPLEX_COEFFS))
+            return torch.func.vmap(lambda *a: fn(*a, *SIMPLEX_COEFFS))(
+                pts, vals, draws, phase)
+        return run
+    for name, d, n in SIMPLEX_SHAPES:
+        kernel_fn = batched(simplex_ops.simplex_propose, n)
+        chain_fn = batched(simplex_ops.propose_chain, n)
+        case = {"d": d, "s": d + 1, "n": n, "mismatches": {}}
+        for phase in (INIT, LOOP):
+            args = simplex_inputs(d, n, phase, dev)
+            want = chain_fn(*args)
+            want_cpu = chain_fn(*(a.cpu() for a in args))
+            before = native.counts()
+            bad_card = bad_cpu = 0
+            for _ in range(SIMPLEX_CALLS):
+                got = kernel_fn(*args)
+                torch.cuda.synchronize()
+                for g, w, c in zip(got, want, want_cpu):
+                    bad_card += int((col_bits(g) != col_bits(w)).sum())
+                    bad_cpu += int((col_bits(g).cpu()
+                                    != col_bits(c)).sum())
+            counted = native.counts() - before
+            key = "init" if phase == INIT else "loop"
+            case["mismatches"][key] = {"card_chain": bad_card,
+                                       "cpu_chain": bad_cpu}
+            case[f"{key}_launches"] = counted[native.SIMPLEX, "launches",
+                                              None]
+            case[f"{key}_other_counts"] = {
+                f"{k.name}.{field}": v for (k, field, _), v
+                in counted.items() if k is not native.SIMPLEX}
+        s = d + 1
+        nbytes = n * 4 * ((s * d + s) + ((2 * s + 3) * d + s))
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        args = simplex_inputs(d, n, LOOP, dev)
+        ms = median_ms(lambda: kernel_fn(*args))
+        kernel_ops = device_events(profiled(lambda: kernel_fn(*args)))
+        chain_ops = device_events(profiled(lambda: chain_fn(*args)))
+        case.update({
+            "ms": ms, "bytes": nbytes, "bound_ms": bound,
+            "bound_by": "bytes", "roofline_pct": 100 * bound / ms,
+            "call_ms": call_ms(lambda: kernel_fn(*args)),
+            "plain_ms": median_ms(lambda: chain_fn(*args)),
+            "plain_call_ms": call_ms(lambda: chain_fn(*args)),
+            "device_ops": len(kernel_ops),
+            "kernel_names": sorted({e.name for e in kernel_ops}),
+            "plain_device_ops": len(chain_ops)})
+        out["shapes"][name] = case
+    emit(out)
+    for name, c in out["shapes"].items():
+        bad = {k: v for k, v in c["mismatches"].items() if any(v.values())}
+        if bad:
+            raise AssertionError(f"simplex kernel at {name}: elements "
+                                 f"differ from the torch chain: {bad}")
+        for key in ("init", "loop"):
+            if (c[f"{key}_launches"], c[f"{key}_other_counts"]) != (
+                    SIMPLEX_CALLS, {}):
+                raise AssertionError(
+                    f"simplex kernel at {name} ({key}): counted "
+                    f"{c[key + '_launches']} launches and "
+                    f"{c[key + '_other_counts']}, expected {SIMPLEX_CALLS} "
+                    f"launches alone")
+        if c["device_ops"] != 1:
+            raise AssertionError(f"simplex kernel at {name}: "
                                  f"{c['device_ops']} device ops a call")
     return out
 
@@ -1796,6 +1913,7 @@ def engine_phase(dev) -> tuple:
     launches = kernel_launches()
     rng_block = {"launches": native.RNG.launches,
                  "elements": native.RNG.elements}
+    simplex_launches = native.SIMPLEX.launches
 
     best = eng.best_qor(st)
     de = st.tstates[0]
@@ -1807,6 +1925,7 @@ def engine_phase(dev) -> tuple:
            "evals": int(st.evals), "acqs": int(st.acqs),
            "hist_n": int(st.hist.n), "hist_dropped": int(st.hist.dropped),
            "launches": launches, "rng_block": rng_block,
+           "simplex_propose": simplex_launches,
            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
     emit(out)
     # a step draws from three blocks: the key split, the proposal's and
@@ -1814,6 +1933,10 @@ def engine_phase(dev) -> tuple:
     if rng_block["launches"] != 3 * STEPS:
         raise AssertionError(f"rng kernel launched {rng_block} in {STEPS} "
                              f"steps, not 3 a step")
+    # one NelderMead among the arms: one proposal a step
+    if simplex_launches != STEPS:
+        raise AssertionError(f"simplex kernel launched {simplex_launches} "
+                             f"times in {STEPS} steps, not 1 a step")
     if launches["merge_rows"] != STEPS:
         raise AssertionError(f"merge kernel launched {launches['merge_rows']}"
                              f" times in {STEPS} commits")
@@ -5960,7 +6083,7 @@ PTXAS_KERNEL = re.compile(
     r"wq_kernel|moments_kernel|topk_merge_kernel|final_kernelILb\dE|"
     r"krows_kernelILb\dELb\dELb\dE|krows_mma_kernelILb\dELb\dELb\dE|"
     r"gp_mean_kernelILb\dELb\dELb\dE|rng_block_kernelILb\dE|"
-    r"surrogate_feats_kernel)")
+    r"surrogate_feats_kernel|simplex_propose_kernel)")
 
 
 def ptxas_summary(log: str) -> list:
@@ -6044,7 +6167,7 @@ def emit_passes(cases, wide_state) -> None:
 # the phases of a full run, in order, each with the phases whose results
 # it takes (`--phases` runs those too)
 PHASES = {
-    "merge": (), "rng": (), "features": (), "surrogate": (),
+    "merge": (), "rng": (), "features": (), "simplex": (), "surrogate": (),
     "gp_kernels": ("surrogate",),
     "gp_wide": (), "engine": (), "reference": ("engine",),
     "surrogate_engine": ("engine", "surrogate"), "batched": (),
@@ -6200,6 +6323,8 @@ def main() -> int:
         r["rng"] = rng_phase(dev)
     if "features" in todo:
         r["features"] = features_phase(dev)
+    if "simplex" in todo:
+        r["simplex"] = simplex_phase(dev)
     if "surrogate" in todo:
         r["surrogate"] = surrogate_phase(dev)
     if "gp_kernels" in todo:
@@ -6305,6 +6430,19 @@ def main() -> int:
                 plain_ms=main["draw"]["plain_ms"],
                 bound_ms=main["draw"]["bound_ms"], bound_by="bytes",
                 library_ms=None, timed=r["rng"]["timed"]))
+            continue
+        if k is native.SIMPLEX:
+            main = r["simplex"]["shapes"][SIMPLEX_SHAPES[1][0]]
+            entries.append(dict(
+                common, launches=engine["simplex_propose"],
+                mismatches=sum(sum(m.values()) for c in
+                               r["simplex"]["shapes"].values()
+                               for m in c["mismatches"].values()),
+                shape=f"s={main['s']} d={main['d']} n={main['n']}",
+                ms=main["ms"], kernel_ms=main["ms"],
+                call_ms=main["call_ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by="bytes",
+                library_ms=None, shapes=r["simplex"]["shapes"]))
             continue
         batched = {"launches_batched": multi["runs"][0]["launches"][k.name],
                    "launches_batched_flagship": flag["launches"][k.name],

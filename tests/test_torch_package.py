@@ -119,7 +119,8 @@ def test_the_kernel_sources_ship_with_the_package():
     ks = native.KERNELS
     assert [k.name for k in ks] == ["merge_rows", "gp_mean", "gp_mean_var",
                                     "acquire_scores", "acquire_topk",
-                                    "rng_block", "surrogate_features"]
+                                    "rng_block", "surrogate_features",
+                                    "simplex_propose"]
     cited = []
     for k in ks:
         assert k.source.is_file() and k.source.parent == PKG / "csrc"
@@ -131,10 +132,12 @@ def test_the_kernel_sources_ship_with_the_package():
             assert text.startswith("def _") and "kernel" in text, (r, text)
             cited.append(r)
     # the nine Pallas kernels of the JAX package, each replaced once; the
-    # draws' kernel and the features' replace none (the JAX package draws
-    # with jax.random and builds the features with XLA ops)
+    # draws' kernel, the features' and the simplex's replace none (the JAX
+    # package draws with jax.random, and builds the features and
+    # NelderMead's proposal with XLA ops)
     assert len(cited) == len(set(cited)) == 9
     assert native.RNG.replaces == native.FEATURES.replaces == ()
+    assert native.SIMPLEX.replaces == ()
 
 
 COUNTERS = {"launches", "width_launches", "elements"}

@@ -17,9 +17,10 @@ Launchers B, C and D count their launches by width too, which
 may share one source (and so one library): `csrc/gp_tile.cu` holds four.
 
 Most kernels replace a Pallas kernel of the JAX package (`replaces`).
-`RNG` and `FEATURES` replace none: `RNG` computes the port's own counter
-hash (`rng.py`), `FEATURES` the GP's query features
-(`Space.surrogate_features`); on the CPU both run as torch ops, bitwise
+`RNG`, `FEATURES` and `SIMPLEX` replace none: `RNG` computes the port's
+own counter hash (`rng.py`), `FEATURES` the GP's query features
+(`Space.surrogate_features`), `SIMPLEX` NelderMead's proposal
+(`ops/simplex.py`); on the CPU all three run as torch ops, bitwise
 equal.
 """
 from __future__ import annotations
@@ -258,7 +259,17 @@ FEATURES = Kernel(
     symbol="ut_surrogate_features",
     argtypes=[_P, ctypes.c_longlong] * 2 + [_P] * 5 + [_I] * 4 + [_P],
     replaces=())
-KERNELS = (MERGE, GP_MEAN, GP_MEAN_VAR, ACQ_SCORES, ACQ_TOPK, RNG, FEATURES)
+# simplex_propose(pts, vals, draws, phase, u, new_pts, new_vals, n, s, d,
+# alpha, gamma, beta, sigma, inv_s, stream): NelderMead's proposal of n
+# instances in one launch (`simplex_propose_kernel`).  Its wrapper is
+# `ops/simplex.py::simplex_cuda`.  It replaces no TPU kernel: the JAX
+# package proposes with XLA ops.
+SIMPLEX = Kernel(
+    name="simplex_propose", source="simplex.cu", symbol="ut_simplex_propose",
+    argtypes=[_P] * 7 + [_I] * 3 + [ctypes.c_float] * 5 + [_P],
+    replaces=())
+KERNELS = (MERGE, GP_MEAN, GP_MEAN_VAR, ACQ_SCORES, ACQ_TOPK, RNG, FEATURES,
+           SIMPLEX)
 
 
 def counts() -> Counter:

@@ -28,10 +28,10 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import rng
+from ..ops import simplex as simplex_ops
+from ..ops.simplex import INIT, LOOP
 from ..space.spec import CandBatch, Space
 from .base import Best, Technique, register
-
-INIT, LOOP = 0, 1
 
 
 class SimplexState(NamedTuple):
@@ -54,17 +54,6 @@ class RestartDraws(NamedTuple):
 
 def _simplex_size(space: Space) -> int:
     return space.n_scalar + 1
-
-
-def _centroid(pts: torch.Tensor) -> torch.Tensor:
-    """The mean of the S simplex points as XLA computes `jnp.mean(pts, 0)`:
-    the rows summed in order, then times the f32 reciprocal of S.
-    `torch.mean` (and `torch.cumsum`, which accumulates f32 in f64 on the
-    CPU) round differently, and the reflection amplifies the ulp."""
-    acc = pts[0]
-    for row in pts[1:]:
-        acc = acc + row
-    return acc * (1.0 / pts.shape[0])
 
 
 class _SimplexBase(Technique):
@@ -191,27 +180,14 @@ class NelderMead(_SimplexBase):
 
     def propose(self, space: Space, state: SimplexState, best: Best,
                 draws: torch.Tensor) -> Tuple[SimplexState, CandBatch]:
-        # stable: jnp.argsort is, and at INIT every value is +inf
-        order = torch.argsort(state.vals, stable=True)
-        pts = state.pts_u[order]
-        vals = state.vals[order]
-        centroid = _centroid(pts)   # calculate_centroid: all points
-        worst = pts[-1]
-        refl = torch.clamp(centroid + self.alpha * (centroid - worst), 0, 1)
-        expa = torch.clamp(centroid + self.gamma * (refl - centroid), 0, 1)
-        c_out = torch.clamp(centroid + self.beta * (refl - centroid), 0, 1)
-        c_in = torch.clamp(centroid + self.beta * (worst - centroid), 0, 1)
-        shrink = pts[0][None, :] + self.sigma * (pts[1:] - pts[0][None, :])
-        loop_batch = torch.cat(
-            [refl[None], expa[None], c_out[None], c_in[None], shrink], dim=0)
-        init_batch = torch.cat([state.pts_u, draws], dim=0)
-        is_init = state.phase == INIT
-        u = torch.where(is_init, init_batch, loop_batch)
-        # sorted order must persist into observe: store the sorted simplex
-        new_state = state._replace(
-            pts_u=torch.where(is_init, state.pts_u, pts),
-            vals=torch.where(is_init, state.vals, vals))
-        return new_state, self._attach_perms(state, u)
+        """The round's batch, and the state with the simplex sorted (the
+        order persists into observe): the torch chain on the CPU, one
+        kernel launch on the card (`ops/simplex.py`)."""
+        u, pts, vals = simplex_ops.simplex_propose(
+            state.pts_u, state.vals, draws, state.phase, self.alpha,
+            self.gamma, self.beta, self.sigma)
+        return (state._replace(pts_u=pts, vals=vals),
+                self._attach_perms(state, u))
 
     def observe(self, space: Space, state: SimplexState, cands: CandBatch,
                 qor: torch.Tensor, best: Best,
