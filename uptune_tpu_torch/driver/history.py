@@ -104,13 +104,17 @@ class History:
         finds it with a 31-round binary search (compare-and-count passes
         suit the TPU); here it is one sort and a device-side index (no
         host read of k).  For k == 0 the index clamps to the smallest live
-        age, which drops nothing, as the JAX threshold 0 does."""
+        age, which drops nothing, as the JAX threshold 0 does.  A batch
+        that alone overflows asks for k past the table: the index clamps
+        to its last slot, the largest live age or the sentinel age of an
+        empty slot, and every live row drops, as the JAX search's
+        threshold does."""
         cap = self.capacity
         live = age >= 0
         big = torch.iinfo(torch.int32).max
         ages_live = torch.where(live, age, big)
         srt = torch.sort(ages_live).values
-        kk = torch.clamp_min(k.to(torch.int64) - 1, 0).reshape(1)
+        kk = torch.clamp(k.to(torch.int64) - 1, 0, cap - 1).reshape(1)
         thr = srt.index_select(0, kk).reshape(())
         drop_lt = live & (age < thr)
         eq = live & (age == thr)

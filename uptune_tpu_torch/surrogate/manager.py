@@ -49,7 +49,13 @@ The `obs` events, spans, gauges and tuning-journal rows are the
 reference's, at its sites (`surrogate.submit`, `surrogate.fit` on the
 calling thread's lane, `surrogate.publish`, `surrogate.extend`, the
 journal's `snapshot` row), and `predict_cands` gives the journal's
-calibration join.  Left out, with the work that brings it back:
+calibration join.  The port adds the spans `surrogate.refit`
+(`maybe_refit`), `surrogate.prune` (a scoring `keep_mask`) and
+`surrogate.pool` (a pull of `propose_pool`), the counters
+`surrogate.prune_rows` and `surrogate.pool_rows`, and `rows_scored`, a
+plain count of the rows the model scored, kept with the plane off too,
+and `watch`, an optional observer of each full fit, prune and pull.
+Left out, with the work that brings it back:
 `parallel/surrogate_shard.py` (the multi-card slice).
 """
 from __future__ import annotations
@@ -57,7 +63,7 @@ from __future__ import annotations
 import threading
 import time
 import warnings
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -365,6 +371,12 @@ class SurrogateManager:
         self.t_refit_last = 0.0       # s of the last blocking full fit
         self.t_refit_total = 0.0      # cumulative blocking-fit seconds
         self.t_refit_bg_total = 0.0   # cumulative background-fit seconds
+        # rows the model scored: every prune's batch and every pull's
+        # pool, counted from shapes the host holds (no device read)
+        self.rows_scored = 0
+        # an optional observer of the model's decisions, called with
+        # ("fit" | "prune" | "pull", what was decided); it only reads
+        self.watch: Optional[Callable[[str, dict], None]] = None
 
         # an optional FeatureScreen (surrogate/screen.py) restricts the
         # model's view of the surrogate features; a dict defers its
@@ -536,7 +548,12 @@ class SurrogateManager:
         fit inline when the cadence is due.  Async mode: submit it to the
         worker and return.  Between full fits, rows past the published
         watermark are folded in by rank-1 extension.  Returns True iff a
-        full fit was published during this call."""
+        full fit was published during this call.  The call is one
+        `surrogate.refit` span."""
+        with obs.device_span("surrogate.refit", n_rows=self.n_points):
+            return self._refit_tick()
+
+    def _refit_tick(self) -> bool:
         published = self._poll_refit()
         if self.n_points >= self.min_points:
             due = self._refit_future is None and (
@@ -698,6 +715,9 @@ class SurrogateManager:
                 state, self._version, n_total, thr, besty,
                 exact=n_total <= self.max_points, in_bucket=n)
             self.refits += 1
+            snap = self._snap
+        if self.watch is not None:
+            self.watch("fit", {"snap": snap, "seed_word": draws.seed_word})
         obs.event("surrogate.publish", version=self._version,
                   n_rows=n_total, bucket=bucket)
         obs.gauge("surrogate.refits_published", self.refits)
@@ -893,12 +913,28 @@ class SurrogateManager:
         `candidate_mask` marks the rows eligible for evaluation; topk
         ranks only among those.  The scores are computed on the device
         and read with the explore draw in one transfer; the rank, the
-        threshold and the vote run on host numpy, as in the reference."""
+        threshold and the vote run on host numpy, as in the reference.
+        A scoring call is one `surrogate.prune` span."""
         snap = self._snap
         if snap is None or snap.threshold is None:
             return None
         if self.passive or self.n_points < self.min_model_points:
             return None
+        b = int(cands.batch)
+        self.rows_scored += b
+        obs.count("surrogate.prune_rows", b)
+        with obs.device_span("surrogate.prune", rows=b):
+            keep, explore_u = self._keep_mask(snap, cands, candidate_mask)
+        if self.watch is not None:
+            self.watch("prune", {"snap": snap, "cands": cands,
+                                 "eligible": candidate_mask,
+                                 "explore_u": explore_u, "keep": keep})
+        return keep
+
+    def _keep_mask(self, snap: SurrogateSnapshot, cands: CandBatch,
+                   candidate_mask: Optional[np.ndarray]
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """-> (the keep mask, the host explore draw it was voted with)."""
         feats = self._sx(self.space.features(cands))
         b = feats.shape[0]
         use_ei = (self.select == "topk" and self.score_kind == "ei"
@@ -943,7 +979,7 @@ class SurrogateManager:
         explore = explore_u < self.explore_frac
         if candidate_mask is not None:
             explore = explore & np.asarray(candidate_mask)
-        return keep | explore
+        return keep | explore, explore_u
 
     # ------------------------------------------------------------------
     # the proposal plane: the best propose_batch rows of an oversampled
@@ -984,7 +1020,8 @@ class SurrogateManager:
         """The acquisition's best CandBatch of `propose_batch` rows from
         a pool around the incumbent, or None when disabled, not yet
         fitted or passive.  The pool's geometry is fixed at the first
-        call, as the JAX manager builds its program then."""
+        call, as the JAX manager builds its program then.  A pull is one
+        `surrogate.pool` span."""
         snap = self._snap
         if self.propose_batch <= 0 or snap is None:
             return None
@@ -993,9 +1030,18 @@ class SurrogateManager:
         if self._pool_geo is None:
             self._pool_geo = pool_geometry(self.space, self.propose_batch,
                                            self.pool_mult)
-        draws = self._draw_pool(key)
-        cands = pool_candidates(self.space, self._pool_geo, draws, best_u,
-                                best_perms, self._flip_probs())
-        by = torch.full((), float(best_y), dtype=torch.float32,
-                        device=self.device)
-        return cands[self._rank_pool(snap.state, cands, by)]
+        pool = self._pool_geo.pool
+        self.rows_scored += pool
+        obs.count("surrogate.pool_rows", pool)
+        with obs.device_span("surrogate.pool", rows=pool):
+            draws = self._draw_pool(key)
+            cands = pool_candidates(self.space, self._pool_geo, draws,
+                                    best_u, best_perms, self._flip_probs())
+            by = torch.full((), float(best_y), dtype=torch.float32,
+                            device=self.device)
+            idx = self._rank_pool(snap.state, cands, by)
+            if self.watch is not None:
+                self.watch("pull", {
+                    "snap": snap, "cands": cands, "best_y": by, "idx": idx,
+                    "rank": lambda c: self._rank_pool(snap.state, c, by)})
+            return cands[idx]
